@@ -1,0 +1,4 @@
+"""Checkpoint bridges of the port."""
+from .convert import from_jax
+
+__all__ = ["from_jax"]

@@ -1,0 +1,93 @@
+"""Port of the fused nb1d inference block (mdilss_tpu_torch/ops/nb1d_infer.py)
+against the JAX package: the plain PyTorch version, on the same weights and
+inputs, equals the Pallas kernel in interpret mode and the unfused XLA
+block. Tolerance as tests/test_pallas_nb1d.py: fp32, atol 2e-5, rtol 1e-4."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from _torch_port import randomize_bn, to_nchw
+from mdilss_tpu.models import blocks as B
+from mdilss_tpu.ops.pallas.nb1d import _fold_bn, nb1d_fused_infer
+from mdilss_tpu_torch.ckpt.convert import nb_block_state_dict
+from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
+from mdilss_tpu_torch.ops import nb1d_infer as K
+from mdilss_tpu_torch.ops.norm import fold_bn
+
+torch.set_num_threads(1)
+
+NB_TASKS = 3
+# (C, dilation, rap, task): every task of a 3-task RAP block
+CASES = [(16, 1, False, None)] + [
+    (c, d, True, t) for c, d in ((64, 1), (64, 16), (128, 2)) for t in range(NB_TASKS)
+]
+
+
+def _block(c, d, rap, seed):
+    rng = np.random.default_rng(seed)
+    if rap:
+        p, s = B.nb1d_rap_init(jax.random.key(seed), c, d, nb_tasks=NB_TASKS)
+        blk = NonBottleneck1dRAP(c, d, NB_TASKS)
+    else:
+        p, s = B.nb1d_init(jax.random.key(seed), c, d)
+        blk = NonBottleneck1d(c, d)
+    p, s = randomize_bn(p, s, rng)
+    blk.load_state_dict(nb_block_state_dict(p, s), strict=True)
+    x = rng.standard_normal((1, 16, 32, c), dtype=np.float32)
+    return p, s, blk, x
+
+
+@pytest.mark.parametrize("c,d,rap,task", CASES)
+def test_plain_matches_jax_kernel_and_xla_block(c, d, rap, task):
+    p, s, blk, x = _block(c, d, rap, seed=c + d)
+    xj = jnp.asarray(x)
+    if rap:
+        ref, _ = B.nb1d_rap_apply(p, s, xj, task=task, dilated=d, dropprob=0.0, training=False)
+        fused = nb1d_fused_infer(xj, p, s["bns1"], s["bns2"], dilated=d, task=task,
+                                 interpret=True)
+    else:
+        ref, _ = B.nb1d_apply(p, s, xj, dilated=d, dropprob=0.0, training=False)
+        fused = nb1d_fused_infer(xj, p, s["bn1"], s["bn2"], dilated=d, interpret=True)
+    ops = K.prepare_operands(blk, task, torch.float32)
+    got = K.nb1d_infer_plain(to_nchw(x), ops, d).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, np.asarray(fused), atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+def test_fold_bn_matches_jax_fold():
+    rng = np.random.default_rng(0)
+    scale, bias, mean, pre = (rng.standard_normal(64).astype(np.float32) for _ in range(4))
+    var = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    want = _fold_bn(*(jnp.asarray(a) for a in (scale, bias, mean, var, pre)))
+    got = fold_bn(*(torch.from_numpy(a) for a in (scale, bias, mean, var, pre)))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        # XLA may contract b's multiply-subtract into one FMA: 1-ulp slack
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+def test_operands_layout_and_dtype():
+    """Tap-stacked [3C, C] weights in the activation type, float32 vectors,
+    RAP matrices only for RAP blocks; nothing tracks gradients."""
+    blk = NonBottleneck1dRAP(16, 2, NB_TASKS)
+    ops = K.prepare_operands(blk, 1, torch.bfloat16)
+    assert ops.w31a.shape == (48, 16) and ops.w31a.dtype == torch.bfloat16
+    assert ops.rap2.shape == (16, 16) and ops.a2.dtype == torch.float32
+    w = blk.conv1x3_2.weight  # [co, ci, 1, 3]
+    assert torch.equal(ops.w13b.float(), w.detach().to(torch.bfloat16).float()[:, :, 0, :]
+                       .permute(2, 1, 0).reshape(48, 16))
+    assert all(t is None or not t.requires_grad for t in ops)
+    plain = K.prepare_operands(NonBottleneck1d(16, 1), None, torch.float32)
+    assert plain.rap1 is None and plain.rap2 is None
+    with pytest.raises(ValueError, match="needs a task"):
+        K.prepare_operands(blk, None, torch.float32)
+
+
+def test_dispatcher_rejects_other_devices():
+    blk = NonBottleneck1d(16, 1)
+    ops = K.prepare_operands(blk, None, torch.float32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.nb1d_infer(torch.empty(1, 16, 4, 4, device="meta"), ops, 1)
