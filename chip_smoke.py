@@ -4,21 +4,41 @@
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
 Phases, each fatal on failure (non-zero exit):
-  1. build every CUDA source of the port with nvcc (sm_90a) and print what
-     ptxas reports (registers, shared memory, spills);
-  2. hold each kernel against its plain PyTorch version on the card at the
-     serving path's real widths (batch 1 and 6, float32 with TF32 off and
-     bfloat16, random weights and BN statistics, plus one ragged shape);
+  1. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
+     source started together, and print what ptxas reports (registers,
+     shared memory, spills);
+  2. hold the inference kernel (K1) against its plain PyTorch version on the
+     card at the serving path's real widths (batch 1 and 6, float32 with TF32
+     off and bfloat16, random weights and BN statistics, plus one ragged shape);
   3. drive the serving path of the 3-task ERFNet-RAP [20, 20, 27] at 512x1024
      from random weights made with --seed: every head, batch 1 and 6, bf16
      and fp32, logits and labels, and 8 uint8 images per head through
-     serve_batches; the kernel launch counts are zeroed before this phase and
-     must grow by 17 blocks x 2 launches per forward; the fp32 logits are
-     compared with the same weights run on the CPU (plain versions) and the
-     bf16 labels with the fp32 labels;
+     serve_batches; the K1 launch count is zeroed before this phase and must
+     grow by 17 blocks x 2 launches per forward; the fp32 logits are compared
+     with the same weights run on the CPU (plain versions) and the bf16
+     labels with the fp32 labels;
   4. time each nb1d block shape (kernel, plain version, bound) and the whole
      forward with CUDA events, then profile a few forwards (torch.profiler)
-     for the device's busy share and its time by kernel.
+     for the device's busy share and its time by kernel;
+  5. hold the training conv-pair kernels K2 (fwd_pair) and K3 (bwd_pair),
+     float32, against their plain versions run in float64 on the same inputs
+     (the float32 plain versions are recorded beside them) at the 7 block
+     shapes at batch 6 and one ragged shape, pre-stage and RAP each on and
+     off; run each twice and require bitwise-equal outputs; hold K2's batch
+     mean and variance against a float64 two-pass over the same y;
+  6. hold the training block (Nb1dTrain, K4) against the same block built from
+     the plain pairs in float64 at the 7 shapes: output, gradients of x and of
+     every weight under a random cotangent, updated running statistics;
+  7. drive the step-2 distillation train step at full width and depth: student
+     ERFNet-RAP [20, 20] (current task 1, previous task 0), eval-mode teacher
+     [20], 6x512x1024 float32, BDD class weights, lambda 0.1, LR 5e-6 shared /
+     5e-4 domain-specific, epoch 1 of 150, 5 steps on one batch; the K1/K2/K3
+     counts are zeroed before this phase and every step must launch exactly
+     34 / 68 / 68; losses finite; frozen parameters bitwise unchanged;
+  8. one step at 2x128x256 on the card and on the CPU (plain versions) from
+     the same weights, masks and batch: loss, running statistics, gradients;
+  9. time the train step (ms/step, img/s, peak memory), profile one step, and
+     time K2/K3 per block shape against their plain versions and bounds.
 It prints the card's name and power limit, one `kernels` JSON line and, as
 the last line, {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
@@ -26,6 +46,7 @@ Without a CUDA card it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -36,10 +57,15 @@ import numpy as np
 import torch
 
 from mdilss_tpu_torch import serving
+from mdilss_tpu_torch.data.class_weights import CLASS_WEIGHTS
 from mdilss_tpu_torch.models import ERFNetRAP
 from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
+from mdilss_tpu_torch.models.topology import make_dropout_masks
 from mdilss_tpu_torch.ops import _build
 from mdilss_tpu_torch.ops import nb1d_infer as K
+from mdilss_tpu_torch.ops import nb1d_train as T
+from mdilss_tpu_torch.train import steps
+from mdilss_tpu_torch.train.masks import rap_lr_tree
 
 NUM_CLASSES = [20, 20, 27]
 HEIGHT, WIDTH = 512, 1024
@@ -66,6 +92,34 @@ BLOCKS = (
     ("dec16_d1", 16, 1, False, 256, 512, 2),
 )
 RAGGED = ("ragged128_d16_rap", 128, 16, True, 37, 83, 0)  # H, W multiples of no tile
+
+# the step-2 train step (reference trainer_OURS.sh step 2: Cityscapes -> BDD)
+STUDENT_CLASSES, TEACHER_CLASSES = [20, 20], [20]
+CURRENT_TASK, PREV_TASKS = 1, (0,)
+TRAIN_BATCH, TRAIN_STEPS, NUM_EPOCHS = 6, 5, 150
+SHARED_LR, DS_LR, LAMBDA_C = 5e-6, 5e-4, 0.1
+SMALL = (2, 128, 256)  # the card-vs-CPU step
+# launches per train step: 2 student forwards x 17 blocks x 2 pairs; the teacher's 17 blocks x 2
+STEP_LAUNCHES = {"K1": 17 * K.LAUNCHES_PER_BLOCK, "K2": 68, "K3": 68}
+# K2/K3 (float32) vs their plain versions in float64, relative L2: float32
+# sums over up to 786k pixels
+TOL_TRAIN_REL_L2 = 1e-5
+TOL_STATS_F64 = 1e-4  # K2's E[y^2]-E[y]^2 mean/var against a float64 two-pass
+# the training block (float32) vs the same block from the plain pairs in
+# float64: the BN backward divides by the batch std, which amplifies the
+# pairs' rounding, and a relu whose input lies within float32 rounding of its kink
+# flips between float32 and float64 (phase 5 measures the band: one flip in
+# ~6M elements moves a weight gradient by ~4e-4), so the gradients are held
+# at 2e-3, the JAX package's single-block gradient tolerance
+# (tests/test_pallas_train.py:122)
+TOL_BLOCK = {"out": 1e-5, "grads": 2e-3, "running": 1e-5}
+# one train step on the card vs the CPU: the loss and running statistics are
+# smooth functions of the weights and agree to float32 rounding; the gradient
+# of this BN+relu stack at random weights is not (a 1e-7 relative change of
+# the input moves the CPU's own gradient by 1-2% relative L2), so the whole
+# gradient is held to a multiple of that spread measured in the same run, and
+# the head's gradient, which is still smooth, to 1e-4
+TOL_STEP = {"loss": 1e-5, "running": 1e-5, "head_grads": 1e-4, "grads_vs_spread": 10.0}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -98,7 +152,7 @@ def make_block(spec, seed: int, dev: torch.device):
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
-    got, want = got.double(), want.double()
+    got, want = got.detach().double(), want.detach().double()
     return float((got - want).norm() / want.norm())
 
 
@@ -335,6 +389,425 @@ def phase_profile(model, imgs, dev: torch.device, iters: int = 3) -> list[dict]:
     return rows
 
 
+def cl(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def pair_args(gen: torch.Generator, c: int, rap: bool, pre: bool, dev):
+    """Random conv-pair operands drawn on the CPU: w31, b31, w13, rap, pre."""
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    s = 1.0 / np.sqrt(3 * c)  # torch's default conv init scale
+    pre_ab = ((1.0 + mk(c, scale=0.2)).abs(), mk(c, scale=0.2)) if pre else None
+    return (mk(c, c, 3, 1, scale=s), mk(c, scale=s), mk(c, c, 1, 3, scale=s),
+            mk(c, c, scale=1.0 / np.sqrt(c)) if rap else None, pre_ab)
+
+
+def as_f64(t):
+    if t is None:
+        return None
+    if isinstance(t, tuple):
+        return tuple(x.double() for x in t)
+    return t.double()
+
+
+def pair_bwd_f64(x, gy, w31, b31, w13, rap, pre, d: int) -> dict:
+    """float64 gradients of the pair (as bwd_pair returns them) for three masks
+    of the relu on c: z > 0 ("mid", the exact gradient), z > tau ("lo") and
+    z > -tau ("hi"), where z = rowconv(u) + b31 and tau bounds the rounding of
+    z in any float32 summation order: gamma_{3C+2} * (|w31| conv |u| + |b31|).
+    An element with |z| <= tau may take either side of the kink in float32, so
+    dw31 and db31 of a correct float32 kernel lie within the band between "lo"
+    and "hi", and du equals "mid" at every pixel no such element reaches
+    ("du_clear"); dw13 and drap do not depend on the mask."""
+    import torch.nn.functional as F
+
+    x, gy, w31, b31, w13 = (t.double() for t in (x, gy, w31, b31, w13))
+    rap, pre = as_f64(rap), as_f64(pre)
+    c = x.shape[1]
+    u = x if pre is None else F.relu(x * pre[0].view(1, -1, 1, 1) + pre[1].view(1, -1, 1, 1))
+    u = u.detach().requires_grad_()
+    w31v, b31v = w31.detach().requires_grad_(), b31.detach().requires_grad_()
+    conv = dict(padding=(d, 0), dilation=(d, 1))
+    z = F.conv2d(u, w31v, b31v, **conv)
+    n_terms, eps = 3 * c + 2, 2.0 ** -24
+    tau = n_terms * eps / (1 - n_terms * eps) * (
+        F.conv2d(u.detach().abs(), w31.abs(), b31.abs(), **conv))
+    cv = F.relu(z.detach()).requires_grad_()
+    w13v = w13.detach().requires_grad_()
+    y = F.conv2d(cv, w13v, padding=(0, d), dilation=(1, d))
+    gc, dw13 = torch.autograd.grad(y, [cv, w13v], gy)
+    amb = z.detach().abs() <= tau
+    # du at row r reads dc at rows r-d, r, r+d: the pixels an ambiguous element can reach
+    reach = amb.any(1, keepdim=True)
+    near = reach.clone()
+    if d < reach.shape[2]:
+        near[:, :, :-d] |= reach[:, :, d:]
+        near[:, :, d:] |= reach[:, :, :-d]
+    out = {"ambiguous": int(amb.sum()), "du_clear": ~near, "dw13": dw13}
+    if rap is not None:
+        out["drap"] = torch.einsum("nchw,nkhw->ck", u.detach(), gy)
+    for name, mask in (("mid", z > 0), ("lo", z > tau), ("hi", z > -tau)):
+        du, dw31, db31 = torch.autograd.grad(z, [u, w31v, b31v], gc * mask, retain_graph=True)
+        if rap is not None:
+            du = du + torch.einsum("nkhw,ck->nchw", gy, rap)
+        out[name] = {"du": du, "dw31": dw31, "db31": db31}
+    return out
+
+
+def phase_train_kernels(seed: int, dev: torch.device) -> list[dict]:
+    """K2/K3 against float64. y, stats, dw13 and drap against the plain
+    version run in float64 on the same inputs; du, dw31 and db31, which go
+    through the relu mask on c, against the float64 gradient: du at every pixel
+    that no element within float32 rounding of the kink reaches, dw31 and db31
+    within the band those elements span (`pair_bwd_f64`); a relu that flips
+    between float32 and float64 moves a weight gradient by ~4e-4 relative L2
+    at these sizes. The float32 plain versions (cuDNN, TF32 off) are recorded
+    beside them."""
+    cases = []
+    for i, spec in enumerate(BLOCKS + (RAGGED,)):
+        name, c, d, _, h, w, _ = spec
+        for rap in (False, True):
+            for pre in (False, True):
+                gen = torch.Generator().manual_seed(seed + 100 * i + 2 * rap + pre)
+                w31, b31, w13, rapw, pre_ab = pair_args(gen, c, rap, pre, dev)
+                x = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev))
+                gy = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev))
+                got = [*T.fwd_pair(x, w31, b31, w13, rapw, pre_ab, d),
+                       *T.bwd_pair(x, gy, w31, b31, w13, rapw, pre_ab, d)]
+                again = [*T.fwd_pair(x, w31, b31, w13, rapw, pre_ab, d),
+                         *T.bwd_pair(x, gy, w31, b31, w13, rapw, pre_ab, d)]
+                sync(dev)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+                del again
+                names = ("y", "stats", "du", "dw31", "db31", "dw13", "drap")
+                got = dict(zip(names, got))
+                ref = pair_bwd_f64(x, gy, w31, b31, w13, rapw, pre_ab, d)
+                want = dict(zip(("y", "stats"), T.fwd_pair_plain(
+                    x.double(), *(as_f64(t) for t in (w31, b31, w13, rapw, pre_ab)), d)))
+                want.update(ref["mid"], dw13=ref["dw13"], drap=ref.get("drap"))
+                plain32 = dict(zip(names, [*T.fwd_pair_plain(x, w31, b31, w13, rapw, pre_ab, d),
+                                           *T.bwd_pair_plain(x, gy, w31, b31, w13, rapw,
+                                                             pre_ab, d)]))
+                keys = [k for k in names if want[k] is not None]
+                errs = {k: rel_l2(got[k], want[k]) for k in keys}
+                du_all = errs["du"]  # du held only where no ambiguous relu reaches
+                errs["du"] = rel_l2(got["du"] * ref["du_clear"], want["du"] * ref["du_clear"])
+                abs_err = {k: float((got[k].double() - want[k]).abs().max()) for k in keys}
+                plain_errs = {k: rel_l2(plain32[k], want[k]) for k in keys}
+                band = {k: rel_l2(ref["hi"][k], ref["lo"][k]) for k in ("dw31", "db31")}
+                tol = {k: TOL_TRAIN_REL_L2 + band.get(k, 0.0) for k in keys}
+                ambiguous = ref["ambiguous"]
+                del ref, want, plain32
+                # K2's batch statistics against a float64 two-pass over its own y
+                y64, count = got["y"].double(), TRAIN_BATCH * h * w
+                m64 = y64.mean((0, 2, 3))
+                v64 = (y64 - m64.view(1, -1, 1, 1)).square().mean((0, 2, 3))
+                mu = got["stats"][0].double() / count
+                var = torch.clamp(got["stats"][1].double() / count - mu * mu, min=0.0)
+                mean_err = float((mu - m64).norm() / v64.sqrt().norm())  # in units of the std
+                var_err = float((var - v64).norm() / v64.norm())
+                case = {"block": name, "shape": [TRAIN_BATCH, h, w, c], "dilation": d, "rap": rap,
+                        "pre": pre, "rel_l2": errs, "max_abs_err": abs_err, "tolerance": tol,
+                        "relu_band": band, "ambiguous": ambiguous, "du_all_pixels": du_all,
+                        "plain_f32_rel_l2": plain_errs, "bitwise": bitwise,
+                        "mean_err_f64": mean_err, "var_err_f64": var_err,
+                        "finite": all(bool(torch.isfinite(t).all()) for t in got.values()
+                                      if t is not None)}
+                case["ok"] = (case["finite"] and bitwise and all(errs[k] <= tol[k] for k in keys)
+                              and mean_err <= TOL_STATS_F64 and var_err <= TOL_STATS_F64)
+                cases.append(case)
+                worst = max(errs, key=errs.get)
+                print(f"[train-kernel] {name} [{TRAIN_BATCH},{h},{w},{c}] d={d} rap={int(rap)} "
+                      f"pre={int(pre)}: worst rel_l2 vs f64 {errs[worst]:.2e} ({worst}, tolerance "
+                      f"{tol[worst]:.2e}; plain f32 {max(plain_errs.values()):.2e}), relu band "
+                      f"{max(band.values()):.1e} over {ambiguous} elements, stats "
+                      f"mean {mean_err:.1e} var {var_err:.1e}, bitwise repeat {bitwise}")
+                del got
+    bad = [c for c in cases if not c["ok"]]
+    check(not bad, f"K2/K3 above rel_l2 {TOL_TRAIN_REL_L2} (+ the relu band) vs float64, stats "
+                   f"above {TOL_STATS_F64} vs a float64 two-pass, or not bitwise repeatable: {bad}")
+    return cases
+
+
+def phase_train_block(seed: int, dev: torch.device) -> list[dict]:
+    """The training block (float32, kernels) against the same block built from
+    the plain pairs and run in float64."""
+    rows = []
+    for i, spec in enumerate(BLOCKS):
+        name, c, d, rap, h, w, _ = spec
+        torch.manual_seed(seed + 10 * i)
+        drop = (0.3 if c == 128 else 0.03) if rap else 0.0
+        blk = NonBottleneck1dRAP(c, d, 2, drop) if rap else NonBottleneck1d(c, d)
+        randomize_bn(blk, torch.Generator().manual_seed(seed + 10 * i + 1))
+        twin = copy.deepcopy(blk).double()
+        gen = torch.Generator().manual_seed(seed + 10 * i + 2)
+        x = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev))
+        cot = torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev)
+        mask = (torch.rand(TRAIN_BATCH, c, generator=gen) < 1 - drop).to(dev) if rap else None
+        res = []
+        for b, pairs, dt in ((blk, T.KERNEL_PAIRS, torch.float32),
+                             (twin, T.PLAIN_PAIRS, torch.float64)):
+            b.to(dev).train()
+            xi = x.to(dt).requires_grad_()
+            out = T.nb1d_train_apply(b, xi, 1 if rap else None, drop, mask, pairs)
+            grads = torch.autograd.grad((out * cot.to(dt)).sum(), [xi] + list(b.parameters()),
+                                        allow_unused=True)
+            res.append((out, grads, [t.clone() for n, t in b.named_buffers() if "running" in n]))
+        sync(dev)
+        (out_k, g_k, r_k), (out_p, g_p, r_p) = res
+        g_err = max(rel_l2(a, b) for a, b in zip(g_k, g_p) if b is not None and b.norm() > 0)
+        r_err = max(rel_l2(a, b) for a, b in zip(r_k, r_p) if b.norm() > 0)
+        row = {"block": name, "shape": [TRAIN_BATCH, h, w, c], "out": rel_l2(out_k, out_p),
+               "grads": g_err, "running": r_err,
+               "none_match": all((a is None) == (b is None) for a, b in zip(g_k, g_p))}
+        rows.append(row)
+        print(f"[train-block] {name} [{TRAIN_BATCH},{h},{w},{c}] vs float64 plain pairs: out "
+              f"{row['out']:.2e}, worst grad {g_err:.2e}, running stats {r_err:.2e}")
+        del res, out_k, out_p, g_k, g_p
+    bad = [r for r in rows if not (r["none_match"] and all(r[k] <= TOL_BLOCK[k] for k in TOL_BLOCK))]
+    check(not bad, f"training block vs the float64 plain pairs above {TOL_BLOCK}: {bad}")
+    return rows
+
+
+def train_setup(seed: int, dev, n: int, h: int, w: int):
+    """Student [20, 20] and eval-mode teacher [20] with random weights and BN
+    from `seed`, a batch of random images and labels, and the host dropout
+    masks of the two student forwards."""
+    torch.manual_seed(seed)
+    student = ERFNetRAP(STUDENT_CLASSES, len(STUDENT_CLASSES), device=dev)
+    teacher = ERFNetRAP(TEACHER_CLASSES, len(TEACHER_CLASSES), device=dev)
+    randomize_bn(student, torch.Generator().manual_seed(seed + 1))
+    randomize_bn(teacher, torch.Generator().manual_seed(seed + 2))
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.random((n, h, w, 3), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, STUDENT_CLASSES[CURRENT_TASK], (n, h, w)))
+    masks = [make_dropout_masks(rng, n) for _ in range(1 + len(PREV_TASKS))]
+    return student, teacher, images, labels, masks
+
+
+def make_step(student):
+    lr = rap_lr_tree(student, current_task=CURRENT_TASK, shared_lr=SHARED_LR, ds_lr=DS_LR)
+    step = steps.make_distill_step(current_task=CURRENT_TASK, prev_tasks=PREV_TASKS,
+                                   class_weight=CLASS_WEIGHTS["BDD"], lr_tree=lr,
+                                   num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C)
+    return lr, step
+
+
+def launch_counts() -> dict:
+    return {"K1": K.LAUNCHES, "K2": T.LAUNCHES_FWD, "K3": T.LAUNCHES_BWD}
+
+
+def zero_launch_counts() -> None:
+    K.LAUNCHES = T.LAUNCHES_FWD = T.LAUNCHES_BWD = 0
+
+
+def phase_train_step(seed: int, dev: torch.device):
+    student, teacher, images, labels, masks = train_setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    images, labels = images.to(dev), labels.to(dev)
+    lr, step = make_step(student)
+    frozen = {k: p.detach().clone() for k, p in student.named_parameters() if lr[k] == 0.0}
+    check(frozen and all((".0." in k and ("parallel_conv" in k or "bns_" in k or "bn_ini" in k))
+                         or k.startswith("decoder.0.") for k in frozen),
+          "the LR dict freezes other parameters than the old task's slices and head")
+    ts = steps.init_train_state(student)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    record = {"steps": []}
+    zero_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        ts, metrics = step(ts, teacher, images, labels, masks, 1)
+        vals = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        secs = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        record["steps"].append({**vals, "launches": launched, "seconds": secs})
+        print(f"[train] step {i + 1}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} "
+              f"kld {vals['kld']:.6f}; launches {launched}; {secs:.3f} s")
+        check(all(np.isfinite(v) for v in vals.values()), f"non-finite losses {vals}")
+        check(launched == STEP_LAUNCHES, f"step launched {launched}, expected {STEP_LAUNCHES}")
+    record["launches"] = launch_counts()
+    check(all(v > 0 for v in record["launches"].values()), "a kernel of the train path never ran")
+    record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    params = dict(student.named_parameters())
+    moved = [k for k, p in frozen.items() if not torch.equal(params[k], p)]
+    check(not moved, f"frozen parameters moved: {moved[:5]}")
+    moving = [k for k in params if k not in frozen]
+    record["frozen_params"], record["trained_params"] = len(frozen), len(moving)
+    print(f"[train] CE over {TRAIN_STEPS} steps: "
+          f"{[round(r['ce'], 6) for r in record['steps']]}; {len(frozen)} frozen parameters "
+          f"bitwise unchanged; peak memory {record['peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"launches {record['launches']}")
+    return (student, teacher, images, labels, masks, step, ts), record
+
+
+def flat_grads(model, grads: dict) -> torch.Tensor:
+    return torch.cat([(torch.zeros_like(p) if grads[k] is None else grads[k]).reshape(-1).cpu()
+                      for k, p in model.named_parameters()])
+
+
+def phase_train_vs_cpu(seed: int, dev: torch.device) -> dict:
+    n, h, w = SMALL
+    student, teacher, images, labels, masks = train_setup(seed + 3, dev, n, h, w)
+    cpu_state = {k: v.detach().cpu().clone() for k, v in student.state_dict().items()}
+    teacher_state = {k: v.detach().cpu().clone() for k, v in teacher.state_dict().items()}
+    weight = torch.from_numpy(CLASS_WEIGHTS["BDD"])
+    kw = dict(current_task=CURRENT_TASK, prev_tasks=PREV_TASKS, class_weight=weight,
+              lambda_c=LAMBDA_C)
+
+    def cpu_run(x):
+        s = ERFNetRAP(STUDENT_CLASSES, len(STUDENT_CLASSES), device="cpu")
+        s.load_state_dict(cpu_state)
+        t = ERFNetRAP(TEACHER_CLASSES, len(TEACHER_CLASSES), device="cpu")
+        t.load_state_dict(teacher_state)
+        out = steps.distill_loss_and_grads(s, t, x, labels, masks, **kw)
+        return s, out
+
+    out_g = steps.distill_loss_and_grads(student, teacher, images.to(dev), labels.to(dev), masks,
+                                         **kw)
+    sync(dev)
+    s_cpu, out_c = cpu_run(images)
+    gen = torch.Generator().manual_seed(seed + 4)
+    s_spread, out_s = cpu_run(images * (1 + 1e-7 * torch.randn(images.shape, generator=gen)))
+    g_g, g_c, g_s = flat_grads(student, out_g[3]), flat_grads(s_cpu, out_c[3]), flat_grads(
+        s_spread, out_s[3])
+    head = [k for k, _ in student.named_parameters()
+            if k.startswith(f"decoder.{CURRENT_TASK}.output_conv")]
+    run_g = torch.cat([b.reshape(-1).cpu() for k, b in student.named_buffers() if "running" in k])
+    run_c = torch.cat([b.reshape(-1) for k, b in s_cpu.named_buffers() if "running" in k])
+    rec = {"shape": list(SMALL),
+           "loss": abs(float(out_g[0]) - float(out_c[0])) / abs(float(out_c[0])),
+           "running": rel_l2(run_g, run_c),
+           "head_grads": rel_l2(torch.cat([out_g[3][k].reshape(-1).cpu() for k in head]),
+                                torch.cat([out_c[3][k].reshape(-1) for k in head])),
+           "grads": rel_l2(g_g, g_c), "cpu_spread_1e-7": rel_l2(g_s, g_c),
+           "loss_card": float(out_g[0]), "loss_cpu": float(out_c[0])}
+    print(f"[train-cpu] {n}x{h}x{w} step, card vs CPU: loss {rec['loss']:.2e}, running stats "
+          f"{rec['running']:.2e}, head grads {rec['head_grads']:.2e}, all grads {rec['grads']:.2e} "
+          f"(the CPU against itself under 1e-7 input noise: {rec['cpu_spread_1e-7']:.2e})")
+    check(rec["loss"] <= TOL_STEP["loss"] and rec["running"] <= TOL_STEP["running"]
+          and rec["head_grads"] <= TOL_STEP["head_grads"]
+          and rec["grads"] <= TOL_STEP["grads_vs_spread"] * max(rec["cpu_spread_1e-7"], 1e-5),
+          f"train step card vs CPU above {TOL_STEP}: {rec}")
+    return rec
+
+
+def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str) -> dict:
+    """Least time of one K2 ("fwd") or K3 ("bwd") call in float32: FLOPs at the
+    CUDA cores' fp32 rate against bytes read and written once. K2: 6C^2 MACs
+    per pixel (+C^2 RAP), reads x, writes y. K3: recompute c, dc, du, dw31,
+    dw13 (5 x 3C^2 MACs, +2C^2 RAP), reads u and gy, writes du and the weight
+    gradients."""
+    px = n * h * w
+    macs = (6 + rap if kind == "fwd" else 15 + 2 * rap) * c * c
+    acts = 2 if kind == "fwd" else 3
+    weights = (6 + rap) * c * c * (1 if kind == "fwd" else 2)
+    flops = 2 * px * macs
+    nbytes = 4 * (acts * px * c + weights + 4 * c)
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_train_times(seed: int, dev: torch.device, run) -> dict:
+    student, teacher, images, labels, masks, step, ts = run
+    n = images.shape[0]
+    state = {"ts": ts}
+
+    def one_step():
+        state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+    ms = time_ms(one_step, iters=3, warmup=1)
+    out = {"step_ms": ms, "img_per_s": n * 1e3 / ms}
+    print(f"[train-time] step {n}x{HEIGHT}x{WIDTH} f32: {ms:.3f} ms/step, "
+          f"{n * 1e3 / ms:.2f} img/s")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    groups = {"K1": ("nb1d_pair_kernel",), "K2": ("fwd_pair_kernel",),
+              "K3": ("bwd_dc_kernel", "bwd_du_kernel", "bwd_wgrad_kernel"),
+              "K2/K3 partial sums": ("namespace)::reduce_kernel(",)}
+    shares = {g: sum(v for k, v in by_name.items() if any(p in k for p in pats))
+              for g, pats in groups.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out["profile"] = {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                      "kernels_per_step": len(kernels), "ms_by_group": shares,
+                      "top": [[k[:90], v] for k, v in top]}
+    print(f"[train-profile] one step: host {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {1.0 - busy / wall_ms:.3f}, {len(kernels)} kernels; "
+          + ", ".join(f"{g} {v:.3f} ms" for g, v in shares.items()))
+    for k, v in top:
+        print(f"[train-profile]    {v:8.4f} ms  {k[:100]}")
+
+    blocks = []
+    for i, spec in enumerate(BLOCKS):
+        name, c, d, rap, h, w, count = spec
+        gen = torch.Generator().manual_seed(seed + 100 * i)
+        x = cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        gy = cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        row = {"block": name, "count": count, "shape": [n, h, w, c]}
+        # the block's two pairs: (dilation 1, no pre-stage) and (d, pre-stage)
+        for pair, (dd, pre) in enumerate(((1, False), (d, True))):
+            w31, b31, w13, rapw, pre_ab = pair_args(gen, c, rap, pre, dev)
+            args = (w31, b31, w13, rapw, pre_ab, dd)
+            for kind, kern, plain in (("fwd", T.fwd_pair, T.fwd_pair_plain),
+                                      ("bwd", T.bwd_pair, T.bwd_pair_plain)):
+                call = (lambda f: (lambda: f(x, *args))) if kind == "fwd" else (
+                    lambda f: (lambda: f(x, gy, *args)))
+                b = pair_bound(n, c, h, w, rap, kind)
+                for key, val in (("ms", time_ms(call(kern), iters=10, warmup=2)),
+                                 ("plain_ms", time_ms(call(plain), iters=5, warmup=1)),
+                                 ("bound_ms", b["bound_ms"])):
+                    row[f"{kind}_{key}"] = row.get(f"{kind}_{key}", 0.0) + val
+                row[f"{kind}_bound_by"] = b["bound_by"]
+                row[f"{kind}_flops"] = row.get(f"{kind}_flops", 0) + b["flops"]
+                row[f"{kind}_bytes"] = row.get(f"{kind}_bytes", 0) + b["bytes"]
+        blocks.append(row)
+        print(f"[train-time] {name} [{n},{h},{w},{c}] two pairs: K2 {row['fwd_ms']:.4f} ms "
+              f"(plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f}), "
+              f"K3 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
+              f"{row['bwd_bound_ms']:.4f})")
+    out["blocks"] = blocks
+    return out
+
+
+def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
+                 kind: str) -> dict:
+    """The kernels-line entry of K2 or K3: times summed over the 17 blocks of
+    one student forward (K2) or backward (K3) at 6x512x1024 float32; errors
+    over the outputs `keys` of every case (max_abs_err without K2's stats,
+    which are sums over up to 786k pixels)."""
+    t_ops = sum(r["count"] * r[f"{kind}_flops"] / PEAK_FLOPS["f32"] for r in blocks)
+    t_bytes = sum(r["count"] * r[f"{kind}_bytes"] / PEAK_BYTES for r in blocks)
+    return {
+        "name": name, "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_train.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(c["max_abs_err"][k] for c in cases for k in keys
+                           if k in c["max_abs_err"] and k != "stats"),
+        "max_rel_l2": max(c["rel_l2"][k] for c in cases for k in keys if k in c["rel_l2"]),
+        "ms": sum(r["count"] * r[f"{kind}_ms"] for r in blocks),
+        "plain_ms": sum(r["count"] * r[f"{kind}_plain_ms"] for r in blocks),
+        "bound_ms": sum(r["count"] * r[f"{kind}_bound_ms"] for r in blocks),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "at": f"sum over the 34 pair calls (17 blocks x 2) of one student "
+              f"{'forward' if kind == 'fwd' else 'backward'} at 6x512x1024 float32",
+    }
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -364,6 +837,12 @@ def main(argv=None) -> int:
     model, imgs, main_path = phase_main_path(args.seed, dev, HEIGHT, WIDTH, BATCHES)
     times = phase_times(args.seed, dev, model, imgs)
     times["profile"] = phase_profile(model, imgs, dev)
+    train_cases = phase_train_kernels(args.seed, dev)
+    train_blocks = phase_train_block(args.seed, dev)
+    run, train_path = phase_train_step(args.seed, dev)
+    train_path["vs_cpu"] = phase_train_vs_cpu(args.seed, dev)
+    train_times = phase_train_times(args.seed, dev, run)
+    del run
     card = card_line()
 
     b1 = [r for r in times["blocks"] if r["dtype"] == "bf16" and r["shape"][0] == 1]
@@ -373,6 +852,7 @@ def main(argv=None) -> int:
         "name": "nb1d_infer", "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_infer.cu",
         "replaces": "mdilss_tpu/ops/pallas/nb1d.py:94",
         "launches": main_path["launches"],
+        "launches_train_path": train_path["launches"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         "ms": sum(r["count"] * r["kernel_ms"] for r in b1),
@@ -381,10 +861,17 @@ def main(argv=None) -> int:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
         "at": "sum over the 17 nb1d blocks of one 1x512x1024 bf16 forward (2 launches each)",
-    }]}
+    }, kernel_entry("nb1d_train_fwd", "mdilss_tpu/ops/pallas/nb1d_train.py:137",
+                    train_path["launches"]["K2"], train_cases, ("y", "stats"),
+                    train_times["blocks"], "fwd"),
+        kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
+                     train_path["launches"]["K3"], train_cases,
+                     ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd")]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
               "kernel_cases": cases, "main_path": main_path, "times": times,
+              "train_kernel_cases": train_cases, "train_blocks": train_blocks,
+              "train_path": train_path, "train_times": train_times,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -46,7 +46,13 @@ def decoder_layer_address(j: int):
     ][j]
 
 
+def _get(tree, key):
+    return None if tree is None else tree[key]
+
+
 def _index(tree, i):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     if hasattr(tree, "shape"):  # an array (arrays have .mean/.var methods too)
@@ -71,6 +77,8 @@ def _bn(out, prefix, p, s, tasks) -> None:
     for pre, pick in entries:
         _put(out, f"{pre}.weight", pick(p["scale"]))
         _put(out, f"{pre}.bias", pick(p["bias"]))
+        if s is None:
+            continue
         _put(out, f"{pre}.running_mean", pick(s.mean))
         _put(out, f"{pre}.running_var", pick(s.var))
         out[f"{pre}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
@@ -83,16 +91,16 @@ def _nb(out, pre, p, s, tasks) -> None:
     _conv(out, f"{pre}.conv3x1_2", p["conv3x1_2"], False)
     _conv(out, f"{pre}.conv1x3_2", p["conv1x3_2"], False)
     if tasks is None:
-        _bn(out, f"{pre}.bn1", p["bn1"], s["bn1"], None)
-        _bn(out, f"{pre}.bn2", p["bn2"], s["bn2"], None)
+        _bn(out, f"{pre}.bn1", p["bn1"], _get(s, "bn1"), None)
+        _bn(out, f"{pre}.bn2", p["bn2"], _get(s, "bn2"), None)
         return
     for t in tasks:
         for k in (1, 2):
             rap = p[f"rap{k}"]
             _conv(out, f"{pre}.parallel_conv_{k}.{t}",
                   {"w": np.asarray(rap["w"])[t], "b": np.asarray(rap["b"])[t]}, False)
-    _bn(out, f"{pre}.bns_1", p["bns1"], s["bns1"], tasks)
-    _bn(out, f"{pre}.bns_2", p["bns2"], s["bns2"], tasks)
+    _bn(out, f"{pre}.bns_1", p["bns1"], _get(s, "bns1"), tasks)
+    _bn(out, f"{pre}.bns_2", p["bns2"], _get(s, "bns2"), tasks)
 
 
 def nb_block_state_dict(p, s) -> dict[str, torch.Tensor]:
@@ -107,35 +115,49 @@ def nb_block_state_dict(p, s) -> dict[str, torch.Tensor]:
 def from_jax(params, state) -> dict[str, torch.Tensor]:
     """ERFNet-RAP (params, state) from mdilss_tpu.models.erfnet_rap.init (or
     a converted checkpoint) -> reference-grammar state dict."""
+    return _convert(params, state)
+
+
+def params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """Any tree shaped like ERFNet-RAP params (params, their grads, an LR tree
+    whose leaves are broadcast to the parameters' shapes) -> {state-dict
+    parameter name: tensor}, with the layouts of `from_jax`."""
+    return _convert(tree, None)
+
+
+def _convert(params, state) -> dict[str, torch.Tensor]:
+    """`state` None: parameter entries only."""
     out: dict[str, torch.Tensor] = {}
-    enc_p, enc_s = params["encoder"], state["encoder"]
+    enc_p, enc_s = params["encoder"], _get(state, "encoder")
     tasks = list(range(np.asarray(enc_p["initial"]["bn"]["scale"]).shape[0]))
     _conv(out, "encoder.initial_block.conv", enc_p["initial"]["conv"], False)
-    _bn(out, "encoder.initial_block.bn_ini", enc_p["initial"]["bn"], enc_s["initial"]["bn"], tasks)
+    _bn(out, "encoder.initial_block.bn_ini", enc_p["initial"]["bn"],
+        _get(_get(enc_s, "initial"), "bn"), tasks)
     for i, spec in enumerate(ENCODER_PLAN):
         seg, idx = encoder_layer_address(i)
-        p, s = enc_p[seg], enc_s[seg]
+        p, s = enc_p[seg], _get(enc_s, seg)
         if seg == "group64":
             p, s = _index(p, idx), _index(s, idx)
         elif seg == "group128":
             rep, dkey = idx
-            p, s = _index(p[dkey], rep), _index(s[dkey], rep)
+            p, s = _index(p[dkey], rep), _index(_get(s, dkey), rep)
         pre = f"encoder.layers.{i}"
         if spec[0] == "down":
             _conv(out, f"{pre}.conv", p["conv"], False)
-            _bn(out, f"{pre}.bn_ini", p["bn"], s["bn"], tasks)
+            _bn(out, f"{pre}.bn_ini", p["bn"], _get(s, "bn"), tasks)
         else:
             _nb(out, pre, p, s, tasks)
-    for t, (dp, ds) in enumerate(zip(params["decoders"], state["decoders"])):
+    dec_s = [None] * len(params["decoders"]) if state is None else state["decoders"]
+    for t, (dp, ds) in enumerate(zip(params["decoders"], dec_s)):
         for j, spec in enumerate(DECODER_PLAN):
             seg, idx = decoder_layer_address(j)
-            p, s = dp[seg], ds[seg]
+            p, s = dp[seg], _get(ds, seg)
             if idx is not None:
                 p, s = _index(p, idx), _index(s, idx)
             pre = f"decoder.{t}.layers.{j}"
             if spec[0] == "up":
                 _conv(out, f"{pre}.conv", p["conv"], True)
-                _bn(out, f"{pre}.bn", p["bn"], s["bn"], None)
+                _bn(out, f"{pre}.bn", p["bn"], _get(s, "bn"), None)
             else:
                 _nb(out, pre, p, s, None)
         _conv(out, f"decoder.{t}.output_conv", dp["output_conv"], True)

@@ -3,8 +3,10 @@ decoder per task (port of mdilss_tpu/models/erfnet_rap.py; reference
 erfnet_RA_parallel.py:194-212).
 
 The task is a plain int argument of `forward`; there is no module-global
-`current_task`. Only the eval forward exists in this slice: calling the
-model in training mode raises.
+`current_task`. In eval mode (the default) the forward runs under no_grad
+on the inference kernel; in training mode (`model.train()`) it runs with
+autograd, batch-statistics BN that updates the task's running statistics in
+place, and dropout from host keep-masks.
 """
 from __future__ import annotations
 
@@ -33,16 +35,19 @@ class ERFNetRAP(nn.Module):
         self.to(dev)
         self.eval()
 
-    @torch.no_grad()
-    def forward(self, x_nhwc: torch.Tensor, task: int) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None = None) -> torch.Tensor:
         """x [N, H, W, 3] -> logits [N, H, W, num_classes[task]] in x's type
-        (H and W multiples of 8)."""
-        if self.training:
-            raise NotImplementedError(
-                "ERFNetRAP has only the eval forward so far; call .eval() first"
-            )
+        (H and W multiples of 8). `drop_masks` (training mode only):
+        `topology.make_dropout_masks` output, or None for no dropout, as
+        `erfnet_rap.apply(training=True, rng=None)`."""
         if not 0 <= task < len(self.decoder):
             raise IndexError(f"task {task} out of range for {len(self.decoder)} heads")
+        if self.training:
+            return self._forward(x_nhwc, task, drop_masks)
+        with torch.no_grad():
+            return self._forward(x_nhwc, task, None)
+
+    def _forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None) -> torch.Tensor:
         x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        feats = self.encoder(x, task)
+        feats = self.encoder(x, task, drop_masks)
         return self.decoder[task](feats).permute(0, 2, 3, 1)

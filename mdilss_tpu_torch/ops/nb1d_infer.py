@@ -53,13 +53,13 @@ class Nb1dOperands(NamedTuple):
     b2: torch.Tensor
 
 
-def _stack_taps(w: torch.Tensor, dtype) -> torch.Tensor:
+def stack_taps(w: torch.Tensor, dtype) -> torch.Tensor:
     """torch [Co, Ci, 3, 1] or [Co, Ci, 1, 3] conv weight -> [3*Ci, Co]."""
     co = w.shape[0]
     return w.flatten(2).permute(2, 1, 0).reshape(-1, co).to(dtype).contiguous()
 
 
-def _unstack_taps(ws: torch.Tensor, row: bool) -> torch.Tensor:
+def unstack_taps(ws: torch.Tensor, row: bool) -> torch.Tensor:
     """[3C, C] tap-stacked matrix -> torch conv weight [C, C, 3, 1] (row) or
     [C, C, 1, 3] (column)."""
     c = ws.shape[1]
@@ -91,13 +91,13 @@ def prepare_operands(block, task: int | None, dtype) -> Nb1dOperands:
     a2, b2 = fold_bn(bn2.weight, bn2.bias, bn2.running_mean, bn2.running_var, pre2, bn2.eps)
     f32 = torch.float32
     ops = Nb1dOperands(
-        w31a=_stack_taps(block.conv3x1_1.weight, dtype),
+        w31a=stack_taps(block.conv3x1_1.weight, dtype),
         b31a=block.conv3x1_1.bias.to(f32).contiguous(),
-        w13a=_stack_taps(block.conv1x3_1.weight, dtype),
+        w13a=stack_taps(block.conv1x3_1.weight, dtype),
         rap1=rap1, a1=a1.contiguous(), b1=b1.contiguous(),
-        w31b=_stack_taps(block.conv3x1_2.weight, dtype),
+        w31b=stack_taps(block.conv3x1_2.weight, dtype),
         b31b=block.conv3x1_2.bias.to(f32).contiguous(),
-        w13b=_stack_taps(block.conv1x3_2.weight, dtype),
+        w13b=stack_taps(block.conv1x3_2.weight, dtype),
         rap2=rap2, a2=a2.contiguous(), b2=b2.contiguous(),
     )
     # a float32 bias passes through .to/.contiguous as the Parameter itself
@@ -108,9 +108,9 @@ def nb1d_infer_plain(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.
     """Plain PyTorch version: x [N,C,H,W] -> same shape and type. Convs run
     in x's type; the folded BN, residual and relu in float32."""
     def pair(u, w31, b31, w13, rap, d):
-        c = F.relu(F.conv2d(u, _unstack_taps(w31, True), b31.to(u.dtype),
+        c = F.relu(F.conv2d(u, unstack_taps(w31, True), b31.to(u.dtype),
                             padding=(d, 0), dilation=(d, 1)))
-        y = F.conv2d(c, _unstack_taps(w13, False), padding=(0, d), dilation=(1, d))
+        y = F.conv2d(c, unstack_taps(w13, False), padding=(0, d), dilation=(1, d))
         if rap is not None:
             y = y + F.conv2d(u, rap.t()[:, :, None, None])
         return y.float()

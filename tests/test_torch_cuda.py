@@ -1,12 +1,16 @@
-"""The hand-written CUDA nb1d kernel against its plain PyTorch version, on the
-card (marker `cuda`; skips without one). Run on a machine with an H100:
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card (marker `cuda`; skips without one): the nb1d inference kernel (K1), the
+training conv pairs (K2 fwd_pair, K3 bwd_pair) and the training block built on
+them, and the launches of one train step. Run on a machine with an H100:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: float32 relative L2 1e-5 with TF32 off in the plain version
 (cuDNN would otherwise run the float32 convs in TF32); bfloat16 relative L2
 2e-2, since the kernel keeps the intermediate c in float32 while the plain
-version rounds every conv to bfloat16.
+version rounds every conv to bfloat16. K2/K3 (float32 only) at relative L2
+1e-5; the training block's gradients at 1e-4 (the BN backward divides by the
+batch std).
 """
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 from mdilss_tpu_torch.models import ERFNetRAP
 from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
 from mdilss_tpu_torch.ops import nb1d_infer as K
+from mdilss_tpu_torch.ops import nb1d_train as T
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +100,131 @@ def test_forward_launches_kernel_for_every_block(cuda):
     err = float((logits.cpu() - want).norm() / want.norm())
     assert logits.shape == (1, 64, 128, 7) and err <= 1e-4, err
     assert np.isfinite(logits.cpu().numpy()).all()
+
+
+# ---- training kernels K2 / K3 and the block K4 (ops/nb1d_train.py) ----------------------------
+TRAIN_SHAPES = [  # c, d, n, h, w
+    (64, 1, 2, 16, 48),
+    (128, 2, 1, 16, 64),
+    (128, 16, 2, 13, 37),   # ragged, and a halo larger than the image
+    (16, 1, 2, 16, 300),
+]
+
+
+def _rel(got, want):
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).norm() / want.norm())
+
+
+def _pair_args(gen, c, use_rap, use_pre, dev):
+    mk = lambda *s: (torch.randn(*s, generator=gen) * 0.2).to(dev)  # noqa: E731
+    pre = ((1.0 + mk(c)).abs(), mk(c)) if use_pre else None
+    return mk(c, c, 3, 1), mk(c), mk(c, c, 1, 3), mk(c, c) if use_rap else None, pre
+
+
+@pytest.mark.parametrize("use_rap,use_pre", [(False, False), (True, True), (True, False),
+                                             (False, True)])
+@pytest.mark.parametrize("c,d,n,h,w", TRAIN_SHAPES)
+def test_train_pairs_match_plain(cuda, c, d, n, h, w, use_rap, use_pre):
+    gen = torch.Generator().manual_seed(c + d + h)
+    w31, b31, w13, rap, pre = _pair_args(gen, c, use_rap, use_pre, cuda)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    before = T.LAUNCHES_FWD, T.LAUNCHES_BWD
+    y, st = T.fwd_pair(x, w31, b31, w13, rap, pre, d)
+    got = T.bwd_pair(x, gy, w31, b31, w13, rap, pre, d)
+    torch.cuda.synchronize()
+    assert (T.LAUNCHES_FWD, T.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    y_p, st_p = T.fwd_pair_plain(x, w31, b31, w13, rap, pre, d)
+    want = T.bwd_pair_plain(x, gy, w31, b31, w13, rap, pre, d)
+    assert y.is_contiguous(memory_format=torch.channels_last) and st.shape == (2, c)
+    assert _rel(y, y_p) <= 1e-5 and _rel(st, st_p) <= 1e-5
+    for name, g, g_p in zip(("du", "dw31", "db31", "dw13", "drap"), got, want):
+        if g_p is None:
+            assert g is None
+            continue
+        assert g.shape == g_p.shape, name
+        assert _rel(g, g_p) <= 1e-5, (name, _rel(g, g_p))
+
+
+def test_train_pairs_bitwise_repeatable(cuda):
+    gen = torch.Generator().manual_seed(7)
+    c, d, n, h, w = 128, 4, 2, 16, 64
+    w31, b31, w13, rap, pre = _pair_args(gen, c, True, True, cuda)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    first = (*T.fwd_pair(x, w31, b31, w13, rap, pre, d), *T.bwd_pair(x, gy, w31, b31, w13, rap, pre, d))
+    second = (*T.fwd_pair(x, w31, b31, w13, rap, pre, d), *T.bwd_pair(x, gy, w31, b31, w13, rap, pre, d))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c,d,rap", [(64, 1, True), (128, 16, True), (16, 1, False)])
+def test_train_block_matches_plain_pairs(cuda, c, d, rap):
+    gen = torch.Generator().manual_seed(c * 10 + d)
+    torch.manual_seed(c + d)
+    blocks = [NonBottleneck1dRAP(c, d, 2, 0.3) if rap else NonBottleneck1d(c, d) for _ in range(2)]
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    for blk in blocks:
+        blk.to(cuda).train()
+    x = torch.randn(2, c, 16, 40, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    mask = (torch.rand(2, c, generator=gen) < 0.7).to(cuda) if rap else None
+    cot = torch.randn(2, c, 16, 40, generator=gen).to(cuda)
+    results = []
+    for blk, pairs in zip(blocks, (T.KERNEL_PAIRS, T.PLAIN_PAIRS)):
+        xi = x.clone().requires_grad_()
+        out = T.nb1d_train_apply(blk, xi, 1 if rap else None, 0.3 if rap else 0.0, mask, pairs)
+        params = [p for _, p in blk.named_parameters()]
+        grads = torch.autograd.grad((out * cot).sum(), [xi] + params, allow_unused=True)
+        results.append((out, grads, [b.clone() for b in blk.buffers()]))
+    (out_k, g_k, b_k), (out_p, g_p, b_p) = results
+    assert _rel(out_k, out_p) <= 1e-5
+    for a, b in zip(g_k, g_p):
+        assert (a is None) == (b is None)
+        if a is not None and b.norm() > 0:
+            assert _rel(a, b) <= 1e-4
+    for a, b in zip(b_k, b_p):  # running stats; the other task's stay as they were
+        if a.is_floating_point() and b.norm() > 0:
+            assert _rel(a, b) <= 1e-5
+        else:
+            assert torch.equal(a, b)
+
+
+def test_train_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(1)
+    w31, b31, w13, rap, pre = _pair_args(gen, 64, True, True, cuda)
+    x = torch.randn(1, 64, 8, 8, device=cuda)  # NCHW-contiguous
+    with pytest.raises(ValueError, match="channels_last"):
+        T.fwd_pair(x, w31, b31, w13, rap, pre, 1)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(TypeError, match="float32"):
+        T.fwd_pair(x.to(torch.bfloat16), w31, b31, w13, rap, pre, 1)
+    with pytest.raises(ValueError, match="operand w13"):
+        T.bwd_pair(x, x, w31, b31, w13[:32], rap, pre, 1)
+    x32 = torch.randn(1, 32, 8, 8, device=cuda).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="C in"):
+        T.fwd_pair(x32, w31[:32, :32], b31[:32], w13[:32, :32], None, None, 1)
+
+
+def test_train_step_launches_every_kernel(cuda):
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    torch.manual_seed(0)
+    student, teacher = ERFNetRAP([5, 5], 2, device=cuda), ERFNetRAP([5], 1, device=cuda)
+    lr = rap_lr_tree(student, current_task=1, shared_lr=5e-6, ds_lr=5e-4)
+    step = steps.make_distill_step(current_task=1, prev_tasks=(0,),
+                                   class_weight=np.ones(5, np.float32), lr_tree=lr, num_epochs=150)
+    ts = steps.init_train_state(student)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2, 64, 128, 3), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 5, (2, 64, 128))).to(cuda)
+    masks = [make_dropout_masks(rng, 2) for _ in range(2)]
+    before = K.LAUNCHES, T.LAUNCHES_FWD, T.LAUNCHES_BWD
+    ts, metrics = step(ts, teacher, x, y, masks, 1)
+    torch.cuda.synchronize()
+    # K1: the teacher's 17 blocks; K2/K3: 2 student forwards x 17 blocks x 2 pairs
+    assert (K.LAUNCHES - before[0], T.LAUNCHES_FWD - before[1],
+            T.LAUNCHES_BWD - before[2]) == (34, 68, 68)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
