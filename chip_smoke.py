@@ -38,7 +38,11 @@ Phases, each fatal on failure (non-zero exit):
   8. one step at 2x128x256 on the card and on the CPU (plain versions) from
      the same weights, masks and batch: loss, running statistics, gradients;
   9. time the train step (ms/step, img/s, peak memory), profile one step, and
-     time K2/K3 per block shape against their plain versions and bounds.
+     time K2/K3 per block shape against their plain versions and bounds (K3:
+     the fp32 CUDA-core bound and the 3xTF32 tensor-core bound, its device
+     time per launch kind dc / du / wgrad / sum from torch.profiler, and the
+     same weight-gradient products as torch.matmul calls, TF32 off, with TF32
+     on as information).
 It prints the card's name and power limit, one `kernels` JSON line and, as
 the last line, {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
@@ -77,8 +81,10 @@ TOL_REL_L2 = {"f32": 1e-5, "bf16": 2e-2}
 TOL_CPU_REL_L2 = 1e-4  # fp32 forward on the card vs on the CPU, ~40 layers deep
 MIN_LABEL_AGREEMENT = 0.995
 # H100 SXM dense peaks (NVIDIA data sheet): fp32 on the CUDA cores (what the
-# fp32 kernel and its plain version use), bf16 on the tensor cores; HBM3.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# fp32 kernel and its plain version use), bf16 and TF32 on the tensor cores; HBM3.
+# K3 does each fp32 product as 3 TF32 products (3xTF32), so its tensor-core
+# bound is 3x its FLOPs at the TF32 rate.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 LAUNCHES_PER_FORWARD = 17 * K.LAUNCHES_PER_BLOCK
 # the nb1d blocks of one 512x1024 forward: (name, C, dilation, rap, H, W, count)
@@ -699,7 +705,8 @@ def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str) -> dict:
     CUDA cores' fp32 rate against bytes read and written once. K2: 6C^2 MACs
     per pixel (+C^2 RAP), reads x, writes y. K3: recompute c, dc, du, dw31,
     dw13 (5 x 3C^2 MACs, +2C^2 RAP), reads u and gy, writes du and the weight
-    gradients."""
+    gradients. `bound_3xtf32_ms`: the same FLOPs done as 3xTF32 on the tensor
+    cores (3 TF32 products each at 495 TFLOP/s) against the same bytes."""
     px = n * h * w
     macs = (6 + rap if kind == "fwd" else 15 + 2 * rap) * c * c
     acts = 2 if kind == "fwd" else 3
@@ -707,8 +714,67 @@ def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str) -> dict:
     flops = 2 * px * macs
     nbytes = 4 * (acts * px * c + weights + 4 * c)
     t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+    t_tc = 3 * flops / PEAK_FLOPS["tf32"]
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
+
+
+# K3's launches by kernel name: c and dc, du, the weight-gradient partials, their fixed-order sum
+K3_KINDS = {"dc": "bwd_dc_kernel", "du": "bwd_du_kernel", "wgrad": "bwd_wgrad_kernel",
+            "sum": "namespace)::reduce_kernel("}
+
+
+def device_ms_by_kind(fn, kinds: dict, iters: int = 3, tries: int = 3) -> dict:
+    """Device ms per call of `fn` for each kind of kernel (name pattern),
+    from torch.profiler over `iters` calls after one warm-up call. A trace
+    that misses a kind (the profiler's CUDA activity buffer can come back
+    empty) is taken again, up to `tries` times; a kind never seen is None
+    (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(kinds, 0.0)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for k, pat in kinds.items():
+                    if pat in e.name:
+                        out[k] += e.time_range.elapsed_us() / 1e3 / iters
+        if all(v > 0 for v in out.values()):
+            return out
+    return {k: (v if v > 0 else None) for k, v in out.items()}
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def add_ms(a, b):
+    """a + b for times that may be None (not measured)."""
+    return None if a is None or b is None else a + b
+
+
+def wgrad_library_ms(x: torch.Tensor, gy: torch.Tensor, rap: bool, tf32: bool) -> float:
+    """ms of the weight-gradient products of one K3 call as torch.matmul
+    calls: [pixels x C]^T [pixels x C], 7 with RAP (dw31 x3, dw13 x3, drap),
+    else 6, at float32 with TF32 off (or on, as information). A yardstick
+    only: the port never calls it."""
+    c = x.shape[1]
+    a, b = x.permute(0, 2, 3, 1).reshape(-1, c), gy.permute(0, 2, 3, 1).reshape(-1, c)
+    n_mat = 7 if rap else 6
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        return time_ms(lambda: [torch.matmul(a.t(), b) for _ in range(n_mat)], iters=10, warmup=2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def phase_train_times(seed: int, dev: torch.device, run) -> dict:
@@ -742,13 +808,16 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
               "K2/K3 partial sums": ("namespace)::reduce_kernel(",)}
     shares = {g: sum(v for k, v in by_name.items() if any(p in k for p in pats))
               for g, pats in groups.items()}
+    k3_kinds = {kind: sum(v for k, v in by_name.items() if pat in k)
+                for kind, pat in K3_KINDS.items() if kind != "sum"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out["profile"] = {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
                       "kernels_per_step": len(kernels), "ms_by_group": shares,
-                      "top": [[k[:90], v] for k, v in top]}
+                      "k3_ms_by_kind": k3_kinds, "top": [[k[:90], v] for k, v in top]}
     print(f"[train-profile] one step: host {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
           f"share {1.0 - busy / wall_ms:.3f}, {len(kernels)} kernels; "
-          + ", ".join(f"{g} {v:.3f} ms" for g, v in shares.items()))
+          + ", ".join(f"{g} {v:.3f} ms" for g, v in shares.items())
+          + "; K3 " + ", ".join(f"{k} {v:.3f} ms" for k, v in k3_kinds.items()))
     for k, v in top:
         print(f"[train-profile]    {v:8.4f} ms  {k[:100]}")
 
@@ -768,10 +837,17 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
                 call = (lambda f: (lambda: f(x, *args))) if kind == "fwd" else (
                     lambda f: (lambda: f(x, gy, *args)))
                 b = pair_bound(n, c, h, w, rap, kind)
-                for key, val in (("ms", time_ms(call(kern), iters=10, warmup=2)),
-                                 ("plain_ms", time_ms(call(plain), iters=5, warmup=1)),
-                                 ("bound_ms", b["bound_ms"])):
-                    row[f"{kind}_{key}"] = row.get(f"{kind}_{key}", 0.0) + val
+                vals = [("ms", time_ms(call(kern), iters=10, warmup=2)),
+                        ("plain_ms", time_ms(call(plain), iters=5, warmup=1)),
+                        ("bound_ms", b["bound_ms"])]
+                if kind == "bwd":
+                    vals += [("bound_3xtf32_ms", b["bound_3xtf32_ms"]),
+                             ("wgrad_library_ms", wgrad_library_ms(x, gy, rap, False)),
+                             ("wgrad_library_tf32_ms", wgrad_library_ms(x, gy, rap, True))]
+                    vals += [(f"{k}_ms", v) for k, v in
+                             device_ms_by_kind(call(kern), K3_KINDS).items()]
+                for key, val in vals:
+                    row[f"{kind}_{key}"] = add_ms(row.get(f"{kind}_{key}", 0.0), val)
                 row[f"{kind}_bound_by"] = b["bound_by"]
                 row[f"{kind}_flops"] = row.get(f"{kind}_flops", 0) + b["flops"]
                 row[f"{kind}_bytes"] = row.get(f"{kind}_bytes", 0) + b["bytes"]
@@ -779,7 +855,10 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
         print(f"[train-time] {name} [{n},{h},{w},{c}] two pairs: K2 {row['fwd_ms']:.4f} ms "
               f"(plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f}), "
               f"K3 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
-              f"{row['bwd_bound_ms']:.4f})")
+              f"{row['bwd_bound_ms']:.4f} fp32 / {row['bwd_bound_3xtf32_ms']:.4f} 3xTF32; device "
+              + ", ".join(f"{k} {fmt_ms(row[f'bwd_{k}_ms'])}" for k in K3_KINDS)
+              + f"; weight-gradient matmuls {row['bwd_wgrad_library_ms']:.4f} fp32, "
+              f"{row['bwd_wgrad_library_tf32_ms']:.4f} TF32)")
     out["blocks"] = blocks
     return out
 
@@ -792,6 +871,13 @@ def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], key
     which are sums over up to 786k pixels)."""
     t_ops = sum(r["count"] * r[f"{kind}_flops"] / PEAK_FLOPS["f32"] for r in blocks)
     t_bytes = sum(r["count"] * r[f"{kind}_bytes"] / PEAK_BYTES for r in blocks)
+    extra = {}
+    if kind == "bwd":
+        extra = {k: sum(r["count"] * r[f"bwd_{k}"] for r in blocks)
+                 for k in ("bound_3xtf32_ms", "wgrad_library_ms", "wgrad_library_tf32_ms")}
+        extra["device_ms_by_kind"] = {
+            k: None if any(r[f"bwd_{k}_ms"] is None for r in blocks)
+            else sum(r["count"] * r[f"bwd_{k}_ms"] for r in blocks) for k in K3_KINDS}
     return {
         "name": name, "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_train.cu",
         "replaces": replaces, "launches": launches,
@@ -803,6 +889,7 @@ def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], key
         "bound_ms": sum(r["count"] * r[f"{kind}_bound_ms"] for r in blocks),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
+        **extra,
         "at": f"sum over the 34 pair calls (17 blocks x 2) of one student "
               f"{'forward' if kind == 'fwd' else 'backward'} at 6x512x1024 float32",
     }

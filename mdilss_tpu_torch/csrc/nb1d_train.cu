@@ -21,28 +21,50 @@
 // per-block partials and summed by a second pass in a fixed order (in double); no float atomics,
 // so two runs on the same input give bitwise-equal outputs. The pieces:
 //   fwd_pair_kernel   one CTA per (image, row, TW columns): c for TW + 2d columns in shared
-//                     memory, then y, then the CTA's [2][C] partial stats;
-//   bwd_dc_kernel     same tiling: c for the TW columns (also written to a scratch buffer),
-//                     then dc; writing dc keeps every halo 1-D (2 launches instead of one CTA
-//                     needing u rows r-2d..r+2d);
+//                     memory, then y, then the CTA's [2][C] partial stats; fp32 FMAs on the
+//                     CUDA cores (each thread a 4-pixel x 8-channel tile, K in chunks of 32);
+//   bwd_dc_kernel     one CTA per (image, row, TM columns): c for the TM columns (also written to
+//                     a scratch buffer, its sign kept in registers), then dc; writing dc keeps
+//                     every halo 1-D (2 launches instead of one CTA needing u rows r-2d..r+2d);
 //   bwd_du_kernel     same tiling: du from dc and gy;
-//   bwd_wgrad_kernel  grid (P, matrices): each CTA walks a fixed set of pixel tiles and keeps
-//                     one C x C weight gradient in registers, then writes its partial;
+//   bwd_wgrad_kernel  grid (P, matrices, column halves): each CTA walks a fixed set of pixel
+//                     tiles and keeps its part of one C x C weight gradient in registers;
 //   reduce_kernel     sums the partials in a fixed order.
-// Every product is a small GEMM done with fp32 FMAs on the CUDA cores: the K dimension (input
-// channels) streams through shared memory in chunks of KC, and each thread keeps a
-// 4-pixel x MC-channel (or TI x TI weight) tile in registers. Activations are fp32, NHWC
-// (torch.channels_last), C in {16, 64, 128}; any N, H, W (the last column tile masks its edge).
+// Activations are fp32, NHWC (torch.channels_last), C in {16, 64, 128}; any N, H, W (the last
+// column or pixel tile masks its edge).
 //
-// What bounds it on the H100: per pixel the forward pair is 7C^2 MACs (6C^2 without RAP) and
-// the backward 17C^2 (recompute 3C^2, dc 3C^2, du 4C^2, weight grads 7C^2; 2C^2 less without
-// RAP) against 2-3 reads and writes of C fp32 values: for C = 64/128 that is 100-600 FLOP per
-// byte, so compute-bound at the fp32 rate of the CUDA cores (67 TFLOP/s); the C=16 pair is
-// closer to the memory line.
-// This first version does nothing about the tensor cores (989 TFLOP/s bf16, 495 TF32) and
-// recomputes c in the backward rather than storing it; both are later work.
+// K3 on the tensor cores. Per pixel the backward is 17C^2 MACs (recompute 3C^2, dc 3C^2, du
+// 4C^2, weight gradients 7C^2; 2C^2 less without RAP) against 3 reads and 1 write of C fp32
+// values, so it is bound by operations: 12.4 ms per student backward at the CUDA cores' fp32
+// rate (67 TFLOP/s), 5.05 ms on the tensor cores in 3xTF32 (3 TF32 products per fp32 product at
+// 495 TFLOP/s, i.e. 165 TFLOP/s of fp32 work). Every K3 product is an mma.sync.m16n8k8 TF32
+// tile GEMM:
+//   - operands reach shared memory through 16-byte cp.async in a 3-deep ring (K chunks s+1 and
+//     s+2 load while chunk s multiplies), one barrier per chunk; row strides of KC+4 / C+8
+//     floats put each fragment load of a warp on 32 distinct banks;
+//   - the conv launches tile (TM pixels of one row) x (all C channels), K = taps x C input
+//     channels; the pre-stage relu(a*x+b) cannot ride on cp.async, so each thread applies it in
+//     shared memory to the elements it copied, after they land and before the barrier that
+//     publishes the chunk; taps outside the image are skipped (rows) or zero-filled (columns);
+//   - the weight gradients are [pixels x C]^T [pixels x C] products (M = ci, N = co, K = pixels)
+//     with tiles of one image row's pixels streamed the same way and a fixed grid of P CTAs per
+//     matrix (two per matrix at C = 128, one per half of the columns, to keep the fragments in
+//     registers).
+// Why 3xTF32 and not one TF32 pass: TF32 keeps 10 mantissa bits, so one pass is ~3e-4 off in
+// relative L2, far from the 1e-5 against float64 that K3 is held to. Splitting each operand into
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi) and summing lo*hi + hi*lo + hi*hi keeps ~22 bits
+// (the dropped lo*lo term is ~2^-22 relative). Each warp splits its fragments as it loads them
+// (splitting once per CTA in shared memory measured no faster). The tensor cores' fp32
+// accumulation truncates, so each warp sums one K chunk in the mma accumulator and adds it to a
+// second register accumulator with a round-to-nearest add (without it, K3's weight gradients
+// were 2.2e-5 off float64). K3 recomputes c on its own tiles, in another order than K2, so c may
+// differ from K2's c in the last bit and a pre-activation within float32 rounding of 0 may take
+// the other side of the relu; the card check holds dc-dependent outputs to float64 within that
+// band.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -324,116 +346,361 @@ fwd_pair_kernel(const float* __restrict__ x, const float* __restrict__ w31,
   }
 }
 
+// ---- K3 on the tensor cores: 3xTF32 mma.sync ------------------------------------------------
+//
+// Every product of K3 is a tile GEMM on mma.sync.m16n8k8 TF32 with the operands split in two:
+// x = hi + lo, hi = rna_tf32(x), lo = rna_tf32(x - hi), and a*b ~ lo_a*hi_b + hi_a*lo_b +
+// hi_a*hi_b (the lo*lo term is below float32 rounding). A warp owns MT x NT fragments of the
+// output; each staged K chunk goes into a fresh fragment accumulator (`loc`) that is then added
+// to the running float32 sum (`acc`) with an ordinary round-to-nearest add, so the tensor cores
+// never sum more than one chunk (their float32 accumulation truncates). Operands stream through
+// a ring of kStages shared-memory buffers filled by cp.async, one barrier per stage, and each warp
+// splits the fp32 values of its fragments as it loads them.
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero: what
+// cvt.rna.tf32.f32 computes for finite x, in two integer instructions (ptxas expands the
+// conversion into several on sm_90a)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d = a * b (a zero accumulator in)
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// d += a * b
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N groups (the newest ones) are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+constexpr int kStages = 3;  // cp.async ring depth: stages s+1, s+2 load while s multiplies
+
+// A warp's MT m16 x NT n8 output fragments. Element i of fragment (mt, nt) sits at row
+// mt*16 + g + 8*(i/2) and column nt*8 + 2t + i%2 of the warp's tile (g = lane/4, t = lane%4).
+template <int MT, int NT>
+struct Frag {
+  float acc[MT][NT][4];
+  float loc[MT][NT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  }
+
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += loc[mt][nt][i];
+  }
+};
+
+// loc (+)= A[0:16MT, 0:8] B[0:8, 0:8NT] in 3xTF32, small terms first; FIRST starts loc from
+// zero. A element (m, k) at a_s[m * AM + k * AK], B element (k, n) at b_s[k * LDB + n], both
+// already offset to the warp's tile and the k8 step.
+template <int MT, int NT, int AM, int AK, int LDB, bool FIRST>
+__device__ __forceinline__ void mma_k8(const float* a_s, const float* b_s,
+                                       float (&loc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float* p = a_s + (mt * 16 + g) * AM + t * AK;
+    split_tf32(p[0], ah[mt][0], al[mt][0]);
+    split_tf32(p[8 * AM], ah[mt][1], al[mt][1]);
+    split_tf32(p[4 * AK], ah[mt][2], al[mt][2]);
+    split_tf32(p[8 * AM + 4 * AK], ah[mt][3], al[mt][3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float* q = b_s + t * LDB + nt * 8 + g;
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(q[0], bh0, bl0);
+    split_tf32(q[4 * LDB], bh1, bl1);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (FIRST) mma_tf32_first(loc[mt][nt], al[mt], bh0, bh1);
+      else mma_tf32(loc[mt][nt], al[mt], bh0, bh1);
+      mma_tf32(loc[mt][nt], ah[mt], bl0, bl1);
+      mma_tf32(loc[mt][nt], ah[mt], bh0, bh1);
+    }
+  }
+}
+
+// Runs stages 0 .. S-1 through the ring: fetch(s, buf) starts the cp.async copies of stage s into
+// buffer buf (and the zero fill of what it does not copy), fixup(s, buf) runs on each thread's
+// own copies once they have landed (before the barrier that publishes them), compute(s, buf)
+// multiplies. One barrier per stage: the buffer refilled after it was last read before it.
+template <typename Fetch, typename Fixup, typename Compute>
+__device__ __forceinline__ void pipeline(int S, Fetch fetch, Fixup fixup, Compute compute) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < S) fetch(s, s);
+    cp_async_commit();  // empty groups keep the count: wait<kStages-2> means "stage s landed"
+  }
+  int buf = 0;
+  for (int s = 0; s < S; ++s) {
+    cp_async_wait<kStages - 2>();
+    fixup(s, buf);
+    __syncthreads();
+    const int next = s + kStages - 1;
+    if (next < S) fetch(next, buf == 0 ? kStages - 1 : buf - 1);
+    cp_async_commit();
+    compute(s, buf);
+    buf = buf == kStages - 1 ? 0 : buf + 1;
+  }
+  __syncthreads();  // the buffers are free for the caller's next use
+}
+
+// K3's conv launches: one CTA per (image, row, TM columns) x all C output channels; the warps
+// tile it WM (pixels) x WN (channels), each warp MT x NT fragments (32 pixels x 8NT channels).
+template <int C>
+struct TC {
+  static constexpr int KC = C < 32 ? C : 32;        // input channels per staged chunk
+  static constexpr int MT = 2;
+  static constexpr int NT = C >= 64 ? 4 : 2;
+  static constexpr int WN = C / (8 * NT);           // 4, 2, 1 for C = 128, 64, 16
+  static constexpr int WM = kThreads / 32 / WN;     // 2, 4, 8
+  static constexpr int TM = WM * MT * 16;           // pixels per CTA: 64, 128, 256
+  static constexpr int LDA = KC + 4;                // A chunk [TM][LDA]: fragment loads hit
+  static constexpr int LDB = C + 8;                 // 32 banks; B chunk [KC][LDB] likewise
+  static constexpr int B_OFF = TM * LDA;            // stage: A then B
+  static constexpr int STAGE = B_OFF + KC * LDB;
+  static_assert(WM * WN * 32 == kThreads && KC % 8 == 0 && C % KC == 0, "K3 conv tile");
+};
+
+// One tap of a conv: output pixel (n, r, col) reads src[n, row, col + shift, :] (0 outside the
+// image) against the weight rows w[ci][co].
+struct Tap {
+  const float* src;
+  const float* w;
+  int row, shift;
+};
+
+// f.acc += sum over taps j < ntaps of src'[tap(j)] @ w[tap(j)] for the CTA's TM pixels w0 ..
+// w0+TM-1 of image n, where src' applies the pre-stage relu(pa*v + pb) (pa non-null) to pixels
+// inside the image. K streams as stages of KC input channels of one tap. The pre-stage cannot
+// ride on cp.async: each thread applies it in shared memory to the elements it copied itself.
+template <int C, typename TapFn>
+__device__ __forceinline__ void conv_gemm(float* smem, TapFn tap, int ntaps, int n, int w0,
+                                          int H, int W, const float* __restrict__ pa,
+                                          const float* __restrict__ pb,
+                                          Frag<TC<C>::MT, TC<C>::NT>& f) {
+  using K = TC<C>;
+  constexpr int NCH = C / K::KC, AV = K::KC / 4;
+  const int warp = threadIdx.x >> 5, wm = warp % K::WM, wn = warp / K::WM;
+
+  // source of A element group idx of stage s, or null where the column is outside the image
+  auto a_src = [&](int s, int idx) -> const float* {
+    const Tap tp = tap(s / NCH);
+    const int col = w0 + idx / AV + tp.shift;
+    if (col < 0 || col >= W) return nullptr;
+    return tp.src + ((static_cast<size_t>(n) * H + tp.row) * W + col) * C + (s % NCH) * K::KC +
+           (idx % AV) * 4;
+  };
+  auto a_dst = [&](int buf, int idx) {
+    return smem + buf * K::STAGE + (idx / AV) * K::LDA + (idx % AV) * 4;
+  };
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto fetch = [&](int s, int buf) {
+    for (int idx = threadIdx.x; idx < K::TM * AV; idx += kThreads) {
+      const float* src = a_src(s, idx);
+      if (src != nullptr) cp_async16(a_dst(buf, idx), src);
+      else st4(a_dst(buf, idx), zero4);
+    }
+    float* B = smem + buf * K::STAGE + K::B_OFF;
+    const float* w = tap(s / NCH).w + static_cast<size_t>((s % NCH) * K::KC) * C;
+    for (int e = threadIdx.x; e < K::KC * (C / 4); e += kThreads) {
+      const int row = e / (C / 4), c4 = (e % (C / 4)) * 4;
+      cp_async16(B + row * K::LDB + c4, w + row * C + c4);
+    }
+  };
+  auto fixup = [&](int s, int buf) {
+    if (pa == nullptr) return;
+    const int ci0 = (s % NCH) * K::KC;
+    for (int idx = threadIdx.x; idx < K::TM * AV; idx += kThreads)
+      if (a_src(s, idx) != nullptr) {
+        float* p = a_dst(buf, idx);
+        st4(p, pre4(ld4(p), pa, pb, ci0 + (idx % AV) * 4));
+      }
+  };
+  auto compute = [&](int, int buf) {
+    const float* A = smem + buf * K::STAGE + wm * K::MT * 16 * K::LDA;
+    const float* B = smem + buf * K::STAGE + K::B_OFF + wn * K::NT * 8;
+#pragma unroll
+    for (int ks = 0; ks < K::KC / 8; ++ks) {
+      if (ks == 0)
+        mma_k8<K::MT, K::NT, K::LDA, 1, K::LDB, true>(A, B, f.loc);
+      else
+        mma_k8<K::MT, K::NT, K::LDA, 1, K::LDB, false>(A + ks * 8, B + ks * 8 * K::LDB, f.loc);
+    }
+    f.flush();
+  };
+  pipeline(ntaps * NCH, fetch, fixup, compute);
+}
+
+// Calls fn(mt, nt, h, m, co) for each pair of adjacent elements (2h, 2h+1) of the thread's
+// fragments: pixel m of the CTA tile, channels co and co + 1.
+template <int C, typename Fn>
+__device__ __forceinline__ void for_pairs(Fn fn) {
+  using K = TC<C>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = (warp % K::WM) * K::MT * 16 + (lane >> 2);
+  const int c0 = (warp / K::WM) * K::NT * 8 + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fn(mt, nt, h, m0 + mt * 16 + 8 * h, c0 + nt * 8);
+}
+
 // ---- K3, launch 1: c (recomputed) and dc ---------------------------------------------------
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_dc_kernel(const float* __restrict__ raw, const float* __restrict__ gy,
               const float* __restrict__ w31, const float* __restrict__ b31,
               const float* __restrict__ w13t, const float* __restrict__ pa,
               const float* __restrict__ pb, float* __restrict__ cbuf, float* __restrict__ dc,
               int H, int W, int d) {
-  using K = Cfg<C>;
+  using K = TC<C>;
   extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);
-  float* B_s = A_s + K::KC * K::LDA;
-  float* c_s = B_s + K::KC * C;  // [TW][C]
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int w0 = blockIdx.x * K::TM, r = blockIdx.y, n = blockIdx.z;
+  const size_t row_base = (static_cast<size_t>(n) * H + r) * W;
 
-  const int w0 = blockIdx.x * K::TW, r = blockIdx.y, n = blockIdx.z;
-  const int cg = threadIdx.x % K::CG, p0 = (threadIdx.x / K::CG) * kMP;
-
-  float acc[kMP][K::MC];
-  float bias[K::MC];
-  load_slots<C>(b31, cg, bias);
-
-  zero<C>(acc);
-  row_conv<C>(A_s, B_s, raw, w31, n, r, w0, K::TW, H, W, d, pa, pb, p0, cg, acc);
-#pragma unroll
-  for (int i = 0; i < kMP; ++i) {
-    const int col = w0 + p0 + i;
-    const size_t base = ((static_cast<size_t>(n) * H + r) * W + col) * C;
-#pragma unroll
-    for (int j = 0; j < K::MC / 4; ++j) {
-      const int ch = slot_channel(j, cg, K::CG);
-      const float4 v = make_float4(fmaxf(acc[i][4 * j + 0] + bias[4 * j + 0], 0.f),
-                                   fmaxf(acc[i][4 * j + 1] + bias[4 * j + 1], 0.f),
-                                   fmaxf(acc[i][4 * j + 2] + bias[4 * j + 2], 0.f),
-                                   fmaxf(acc[i][4 * j + 3] + bias[4 * j + 3], 0.f));
-      st4(c_s + (p0 + i) * C + ch, v);
-      if (col < W) st4(cbuf + base + ch, v);
-    }
-  }
+  // c = relu(rowconv_d(u) + b31); the taps whose rows are inside the image (the rest is zero
+  // padding) are k0 .. k1
+  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2;
+  Frag<K::MT, K::NT> f;
+  f.zero();
+  conv_gemm<C>(
+      smem,
+      [&](int j) {
+        return Tap{raw, w31 + static_cast<size_t>(k0 + j) * C * C, r + (k0 + j - 1) * d, 0};
+      },
+      k1 - k0 + 1, n, w0, H, W, pa, pb, f);
+  uint32_t pos = 0;  // bit (mt*NT + nt)*4 + i: c > 0
+  for_pairs<C>([&](int mt, int nt, int h, int m, int co) {
+    const float2 b = *reinterpret_cast<const float2*>(b31 + co);
+    const float c0 = fmaxf(f.acc[mt][nt][2 * h] + b.x, 0.f);
+    const float c1 = fmaxf(f.acc[mt][nt][2 * h + 1] + b.y, 0.f);
+    const int bit = (mt * K::NT + nt) * 4 + 2 * h;
+    pos |= (c0 > 0.f ? 1u : 0u) << bit;
+    pos |= (c1 > 0.f ? 1u : 0u) << (bit + 1);
+    if (w0 + m < W) st2(cbuf + (row_base + w0 + m) * C + co, c0, c1);
+  });
 
   // g = colconv_d^T(gy): the 1x3 conv of gy with the transposed, tap-reversed stack
-  zero<C>(acc);
-  for (int k = 0; k < 3; ++k) {
-    for (int ci0 = 0; ci0 < C; ci0 += K::KC) {
-      __syncthreads();
-      load_a_global<C>(A_s, gy, n, r, w0 + (k - 1) * d, ci0, K::TW, H, W, nullptr, nullptr);
-      load_b<C>(B_s, w13t, k * C + ci0);
-      __syncthreads();
-      fma_chunk<C>(A_s, B_s, p0, cg, acc);
-    }
-  }
+  f.zero();
+  conv_gemm<C>(
+      smem,
+      [&](int j) { return Tap{gy, w13t + static_cast<size_t>(j) * C * C, r, (j - 1) * d}; }, 3,
+      n, w0, H, W, nullptr, nullptr, f);
 
   // dc = g * [c > 0]
-#pragma unroll
-  for (int i = 0; i < kMP; ++i) {
-    const int col = w0 + p0 + i;
-    if (col >= W) continue;
-    const size_t base = ((static_cast<size_t>(n) * H + r) * W + col) * C;
-#pragma unroll
-    for (int j = 0; j < K::MC / 4; ++j) {
-      const int ch = slot_channel(j, cg, K::CG);
-      const float4 cv = ld4(c_s + (p0 + i) * C + ch);
-      const float4 v = make_float4(cv.x > 0.f ? acc[i][4 * j + 0] : 0.f,
-                                   cv.y > 0.f ? acc[i][4 * j + 1] : 0.f,
-                                   cv.z > 0.f ? acc[i][4 * j + 2] : 0.f,
-                                   cv.w > 0.f ? acc[i][4 * j + 3] : 0.f);
-      st4(dc + base + ch, v);
-    }
-  }
+  for_pairs<C>([&](int mt, int nt, int h, int m, int co) {
+    const int bit = (mt * K::NT + nt) * 4 + 2 * h;
+    if (w0 + m < W)
+      st2(dc + (row_base + w0 + m) * C + co, (pos >> bit) & 1u ? f.acc[mt][nt][2 * h] : 0.f,
+          (pos >> (bit + 1)) & 1u ? f.acc[mt][nt][2 * h + 1] : 0.f);
+  });
 }
 
 // ---- K3, launch 2: du ------------------------------------------------------------------------
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 bwd_du_kernel(const float* __restrict__ dc, const float* __restrict__ gy,
               const float* __restrict__ w31t, const float* __restrict__ rapt,
               float* __restrict__ du, int H, int W, int d) {
-  using K = Cfg<C>;
+  using K = TC<C>;
   extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);
-  float* B_s = A_s + K::KC * K::LDA;
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int w0 = blockIdx.x * K::TM, r = blockIdx.y, n = blockIdx.z;
+  const size_t row_base = (static_cast<size_t>(n) * H + r) * W;
 
-  const int w0 = blockIdx.x * K::TW, r = blockIdx.y, n = blockIdx.z;
-  const int cg = threadIdx.x % K::CG, p0 = (threadIdx.x / K::CG) * kMP;
-
-  float acc[kMP][K::MC];
-  zero<C>(acc);
-  row_conv<C>(A_s, B_s, dc, w31t, n, r, w0, K::TW, H, W, d, nullptr, nullptr, p0, cg, acc);
-  if (rapt != nullptr)
-    pixel_mm<C>(A_s, B_s, gy, rapt, n, r, w0, K::TW, H, W, nullptr, nullptr, p0, cg, acc);
-#pragma unroll
-  for (int i = 0; i < kMP; ++i) {
-    const int col = w0 + p0 + i;
-    if (col >= W) continue;
-    const size_t base = ((static_cast<size_t>(n) * H + r) * W + col) * C;
-#pragma unroll
-    for (int j = 0; j < K::MC / 4; ++j)
-      st4(du + base + slot_channel(j, cg, K::CG),
-          make_float4(acc[i][4 * j + 0], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]));
-  }
+  // du = rowconv_d^T(dc) [+ gy @ rap^T]: the row taps k0 .. k1 inside the image, then RAP
+  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2, nrow = k1 - k0 + 1;
+  Frag<K::MT, K::NT> f;
+  f.zero();
+  conv_gemm<C>(
+      smem,
+      [&](int j) {
+        return j < nrow ? Tap{dc, w31t + static_cast<size_t>(k0 + j) * C * C,
+                              r + (k0 + j - 1) * d, 0}
+                        : Tap{gy, rapt, r, 0};
+      },
+      nrow + (rapt != nullptr ? 1 : 0), n, w0, H, W, nullptr, nullptr, f);
+  for_pairs<C>([&](int mt, int nt, int h, int m, int co) {
+    if (w0 + m < W)
+      st2(du + (row_base + w0 + m) * C + co, f.acc[mt][nt][2 * h], f.acc[mt][nt][2 * h + 1]);
+  });
 }
 
 // ---- K3, launch 3: weight-gradient partials --------------------------------------------------
+// Each weight gradient is [pixels x C]^T [pixels x C]: M = ci, N = co, K = pixels. A CTA
+// computes CO columns of one matrix (C = 128: two CTAs, one per half) over a fixed set of pixel
+// tiles, each TP pixels of one image row (the last tile of a row masks its edge); the warps tile
+// the output WM (ci) x WN (co), and at C = 16 the 8 warps split each tile's k8 steps and are
+// summed in a fixed order at the end.
 template <int C>
-struct WCfg {
-  static constexpr int TI = C >= 64 ? 8 : 4;    // a thread's outputs along ci and along co
-  static constexpr int NG = C / TI;             // thread groups along each axis
-  static constexpr int OT = NG * NG;            // threads covering one C x C matrix
-  static constexpr int G = kThreads / OT;       // pixel lanes (summed in a fixed order at the end)
-  static constexpr int TP = C >= 128 ? 32 : 4096 / C;  // pixels per staged tile
-  static_assert(kThreads % OT == 0 && TP % G == 0 && TI % 4 == 0, "wgrad tile shape");
+struct WG {
+  static constexpr int HALVES = C >= 128 ? 2 : 1;
+  static constexpr int CO = C / HALVES;             // output columns per CTA
+  static constexpr int KS = C == 16 ? 8 : 1;        // warps splitting the k8 steps
+  static constexpr int MT = C == 16 ? 1 : 2;
+  static constexpr int NT = C >= 128 ? 4 : 2;
+  static constexpr int WN = CO / (8 * NT);          // 2, 4, 1 for C = 128, 64, 16
+  static constexpr int WM = C / (16 * MT);          // 4, 2, 1
+  static constexpr int TP = C == 16 ? 128 : 32;     // pixels per staged tile
+  static constexpr int LDA = C + 8, LDB = CO + 8;   // A tile [TP][LDA], B tile [TP][LDB]
+  static constexpr int B_OFF = TP * LDA;            // stage: A then B
+  static constexpr int STAGE = B_OFF + TP * LDB;
+  static constexpr int BV = CO / 4;                 // float4 per pixel of a B tile
+  static constexpr int DL = kThreads / BV;          // db31 lanes, 4 channels each
+  static constexpr int RED = KS > 1 ? KS * C * C : 0;  // floats of the per-warp sums
+  static_assert(WM * WN * KS * 32 == kThreads && (TP / 8) % KS == 0, "wgrad tile shape");
+  static_assert(kThreads % BV == 0 && (TP * BV) % kThreads == 0, "db31 lanes");
+  static_assert(RED + DL * CO <= kStages * STAGE, "the epilogue reuses the stage buffers");
 };
 
 // Offsets in the gradient vector [dw31 3C^2 | dw13 3C^2 | db31 C | drap C^2].
@@ -441,27 +708,28 @@ __host__ __device__ constexpr size_t grad_offset(int mat, int C) {
   return mat < 6 ? static_cast<size_t>(mat) * C * C : static_cast<size_t>(6) * C * C + C;
 }
 
-// Matrix `mat` of CTA column blockIdx.y: 0-2 dw31[k] (A = u at row r+(k-1)d, B = dc),
-// 3-5 dw13[k] (A = c at column w+(k-1)d, B = gy), 6 drap (A = u, B = gy); matrix 1 also sums
-// db31 = sum dc. CTA blockIdx.x of P takes pixel tiles blockIdx.x, blockIdx.x + P, ...
+// Pixel tiles of the weight-gradient grid: TP pixels of one image row each.
+__host__ __device__ __forceinline__ int row_tiles(int w, int tp) { return (w + tp - 1) / tp; }
+
+// Matrix `mat` = blockIdx.y: 0-2 dw31[k] (A = u at row r+(k-1)d, B = dc), 3-5 dw13[k] (A = c at
+// column w+(k-1)d, B = gy), 6 drap (A = u, B = gy); matrix 1 also sums db31 = sum dc. Columns
+// blockIdx.z * CO onwards. CTA blockIdx.x of P takes pixel tiles blockIdx.x, blockIdx.x + P, ...
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 bwd_wgrad_kernel(const float* __restrict__ raw, const float* __restrict__ pa,
                  const float* __restrict__ pb, const float* __restrict__ cbuf,
                  const float* __restrict__ dc, const float* __restrict__ gy,
                  float* __restrict__ part, size_t part_len, int N, int H, int W, int d) {
-  using K = WCfg<C>;
+  using K = WG<C>;
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // [TP][C]
-  float* Bs = As + K::TP * C;                    // [TP][C]
-  float* rb = Bs + K::TP * C;                    // [G][C]    db31 lanes
-  float* rm = rb + K::G * C;                     // [G][C*C]  matrix lanes (G > 1)
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int AV = C / 4, BV = K::BV;
 
-  const int mat = blockIdx.y, P = gridDim.x;
-  const int ot = threadIdx.x % K::OT, lane = threadIdx.x / K::OT;
-  const int gi = ot / K::NG, gj = ot % K::NG;
-  const long long npx = static_cast<long long>(N) * H * W;
-  const long long ntiles = (npx + K::TP - 1) / K::TP;
+  const int mat = blockIdx.y, P = gridDim.x, co0 = blockIdx.z * K::CO;
+  const int warp = threadIdx.x >> 5, kw = warp % K::KS, wmn = warp / K::KS;
+  const int wm = wmn % K::WM, wn = wmn / K::WM;
+  const int tpr = row_tiles(W, K::TP), ntiles = N * H * tpr;
+  const int mine = (ntiles - static_cast<int>(blockIdx.x) + P - 1) / P;  // tiles of this CTA
 
   const bool a_is_c = mat >= 3 && mat < 6;
   const float* asrc = a_is_c ? cbuf : raw;
@@ -470,94 +738,128 @@ bwd_wgrad_kernel(const float* __restrict__ raw, const float* __restrict__ pa,
   const int drow = mat < 3 ? (mat - 1) * d : 0;
   const int dcol = a_is_c ? (mat - 4) * d : 0;
 
-  float acc[K::TI][K::TI];
-  float bsum[K::TI];
-#pragma unroll
-  for (int i = 0; i < K::TI; ++i) {
-    bsum[i] = 0.f;
-#pragma unroll
-    for (int k = 0; k < K::TI; ++k) acc[i][k] = 0.f;
-  }
-
-  for (long long tile = blockIdx.x; tile < ntiles; tile += P) {
-    const long long p_base = tile * K::TP;
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < K::TP * (C / 4); idx += kThreads) {
-      const int p = idx / (C / 4), c4 = (idx % (C / 4)) * 4;
-      const long long flat = p_base + p;
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-      if (flat < npx) {
-        const int w = static_cast<int>(flat % W);
-        const long long nr = flat / W;
-        const int r = static_cast<int>(nr % H), n = static_cast<int>(nr / H);
-        bv = ld4(bsrc + flat * C + c4);
-        const int ar = r + drow, ac = w + dcol;
-        if (ar >= 0 && ar < H && ac >= 0 && ac < W) {
-          av = ld4(asrc + ((static_cast<long long>(n) * H + ar) * W + ac) * C + c4);
-          if (apa != nullptr) av = pre4(av, apa, pb, c4);
+  // The CTA's tiles blockIdx.x, blockIdx.x + P, ... in order, walked without a division per
+  // tile: a step of P tiles is step_w tile columns and step_r rows, plus the carries.
+  struct TileAt {
+    int n, r, w0;  // image, row and first column of the tile
+  };
+  const int step_r = P / tpr, step_w = (P - step_r * tpr) * K::TP;
+  auto first_tile = [&]() {
+    const int t = static_cast<int>(blockIdx.x), nr = t / tpr, n = nr / H;
+    return TileAt{n, nr - n * H, (t - nr * tpr) * K::TP};
+  };
+  auto advance = [&](TileAt& ta) {
+    ta.w0 += step_w;
+    ta.r += step_r;
+    if (ta.w0 >= tpr * K::TP) {
+      ta.w0 -= tpr * K::TP;
+      ++ta.r;
+    }
+    while (ta.r >= H) {
+      ta.r -= H;
+      ++ta.n;
+    }
+  };
+  TileAt fetched = first_tile(), fixed = fetched;  // the next tile to fetch / to fix up
+  // source of A element group idx of the tile, or null for zero padding / past the row's end
+  auto a_src = [&](TileAt ta, int idx) -> const float* {
+    const int w = ta.w0 + idx / AV, ac = w + dcol, ar = ta.r + drow;
+    if (w >= W || ar < 0 || ar >= H || ac < 0 || ac >= W) return nullptr;
+    return asrc + ((static_cast<size_t>(ta.n) * H + ar) * W + ac) * C + (idx % AV) * 4;
+  };
+  auto a_dst = [&](int buf, int idx) {
+    return smem + buf * K::STAGE + (idx / AV) * K::LDA + (idx % AV) * 4;
+  };
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto b_dst = [&](int buf, int idx) {
+    return smem + buf * K::STAGE + K::B_OFF + (idx / BV) * K::LDB + (idx % BV) * 4;
+  };
+  auto fetch = [&](int, int buf) {  // called for stages 0, 1, ... in order
+    const TileAt ta = fetched;
+    advance(fetched);
+    for (int idx = threadIdx.x; idx < K::TP * AV; idx += kThreads) {
+      const float* src = a_src(ta, idx);
+      if (src != nullptr) cp_async16(a_dst(buf, idx), src);
+      else st4(a_dst(buf, idx), zero4);
+    }
+    const float* brow = bsrc + (static_cast<size_t>(ta.n) * H + ta.r) * W * C + co0;
+    for (int idx = threadIdx.x; idx < K::TP * BV; idx += kThreads) {
+      const int p = idx / BV;
+      if (ta.w0 + p < W) cp_async16(b_dst(buf, idx), brow + static_cast<size_t>(ta.w0 + p) * C + (idx % BV) * 4);
+      else st4(b_dst(buf, idx), zero4);
+    }
+  };
+  // db31 = sum dc: each thread sums the 4 channels (threadIdx.x % BV)*4.. of the B elements it
+  // copied; the DL lanes are summed in a fixed order at the end
+  float4 bsum = zero4;
+  auto fixup = [&](int, int buf) {  // called for stages 0, 1, ... in order
+    const TileAt ta = fixed;
+    advance(fixed);
+    if (apa != nullptr)
+      for (int idx = threadIdx.x; idx < K::TP * AV; idx += kThreads)
+        if (a_src(ta, idx) != nullptr) {
+          float* p = a_dst(buf, idx);
+          st4(p, pre4(ld4(p), apa, pb, (idx % AV) * 4));
         }
+    if (mat == 1)
+      for (int idx = threadIdx.x; idx < K::TP * BV; idx += kThreads) {
+        const float4 v = ld4(b_dst(buf, idx));
+        bsum = make_float4(bsum.x + v.x, bsum.y + v.y, bsum.z + v.z, bsum.w + v.w);
       }
-      st4(As + p * C + c4, av);
-      st4(Bs + p * C + c4, bv);
-    }
-    __syncthreads();
-    for (int p = lane; p < K::TP; p += K::G) {
-      float a[K::TI], b[K::TI];
-#pragma unroll
-      for (int j = 0; j < K::TI / 4; ++j) {
-        const float4 va = ld4(As + p * C + slot_channel(j, gi, K::NG));
-        const float4 vb = ld4(Bs + p * C + slot_channel(j, gj, K::NG));
-        a[4 * j + 0] = va.x; a[4 * j + 1] = va.y; a[4 * j + 2] = va.z; a[4 * j + 3] = va.w;
-        b[4 * j + 0] = vb.x; b[4 * j + 1] = vb.y; b[4 * j + 2] = vb.z; b[4 * j + 3] = vb.w;
-      }
-#pragma unroll
-      for (int i = 0; i < K::TI; ++i)
-#pragma unroll
-        for (int k = 0; k < K::TI; ++k) acc[i][k] = fmaf(a[i], b[k], acc[i][k]);
-      if (mat == 1) {
-#pragma unroll
-        for (int k = 0; k < K::TI; ++k) bsum[k] += b[k];
-      }
-    }
-  }
+  };
 
+  Frag<K::MT, K::NT> f;
+  f.zero();
+  auto compute = [&](int, int buf) {
+    const float* A = smem + buf * K::STAGE + wm * K::MT * 16;
+    const float* B = smem + buf * K::STAGE + K::B_OFF + wn * K::NT * 8;
+#pragma unroll
+    for (int i = 0; i < K::TP / 8 / K::KS; ++i) {
+      const int ks = kw + i * K::KS;
+      if (i == 0)
+        mma_k8<K::MT, K::NT, 1, K::LDA, K::LDB, true>(A + ks * 8 * K::LDA, B + ks * 8 * K::LDB,
+                                                      f.loc);
+      else
+        mma_k8<K::MT, K::NT, 1, K::LDA, K::LDB, false>(A + ks * 8 * K::LDA, B + ks * 8 * K::LDB,
+                                                       f.loc);
+    }
+    f.flush();
+  };
+  pipeline(mine, fetch, fixup, compute);
+
+  // fragment element (mt, nt, i): ci = wm*16MT + mt*16 + g + 8(i/2), co = wn*8NT + nt*8 + 2t + i%2
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float* out = part + static_cast<size_t>(blockIdx.x) * part_len + grad_offset(mat, C);
-  if constexpr (K::G == 1) {
+  float* red = smem;  // [KS][C][C] (KS > 1)
 #pragma unroll
-    for (int i = 0; i < K::TI; ++i)
+  for (int mt = 0; mt < K::MT; ++mt)
 #pragma unroll
-      for (int k = 0; k < K::TI; ++k) {
-        const int ci = slot_channel(i / 4, gi, K::NG) + i % 4;
-        const int co = slot_channel(k / 4, gj, K::NG) + k % 4;
-        out[ci * C + co] = acc[i][k];
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = wm * K::MT * 16 + mt * 16 + g + 8 * h;
+        const int co = co0 + wn * K::NT * 8 + nt * 8 + 2 * t;
+        const float x = f.acc[mt][nt][2 * h], y = f.acc[mt][nt][2 * h + 1];
+        if constexpr (K::KS == 1) st2(out + ci * C + co, x, y);
+        else st2(red + (kw * C + ci) * C + co, x, y);
       }
-  } else {
-#pragma unroll
-    for (int i = 0; i < K::TI; ++i)
-#pragma unroll
-      for (int k = 0; k < K::TI; ++k) {
-        const int ci = slot_channel(i / 4, gi, K::NG) + i % 4;
-        const int co = slot_channel(k / 4, gj, K::NG) + k % 4;
-        rm[static_cast<size_t>(lane) * C * C + ci * C + co] = acc[i][k];
-      }
+  if constexpr (K::KS > 1) {
     __syncthreads();
     for (int e = threadIdx.x; e < C * C; e += kThreads) {
       float sum = 0.f;
-      for (int g = 0; g < K::G; ++g) sum += rm[static_cast<size_t>(g) * C * C + e];
+      for (int k = 0; k < K::KS; ++k) sum += red[k * C * C + e];
       out[e] = sum;
     }
   }
   if (mat == 1) {
-    if (gi == 0) {
-#pragma unroll
-      for (int k = 0; k < K::TI; ++k) rb[lane * C + slot_channel(k / 4, gj, K::NG) + k % 4] = bsum[k];
-    }
+    float* rb = smem + K::RED;  // [DL][CO]
+    st4(rb + (threadIdx.x / BV) * K::CO + (threadIdx.x % BV) * 4, bsum);
     __syncthreads();
     float* db = part + static_cast<size_t>(blockIdx.x) * part_len + static_cast<size_t>(6) * C * C;
-    for (int t = threadIdx.x; t < C; t += kThreads) {
+    for (int c = threadIdx.x; c < K::CO; c += kThreads) {
       float sum = 0.f;
-      for (int g = 0; g < K::G; ++g) sum += rb[g * C + t];
-      db[t] = sum;
+      for (int l = 0; l < K::DL; ++l) sum += rb[l * K::CO + c];
+      db[co0 + c] = sum;
     }
   }
 }
@@ -607,8 +909,7 @@ size_t fwd_partials(int n, int h, int w) {
 
 template <int C>
 int wgrad_ctas(int n, int h, int w) {
-  const long long npx = static_cast<long long>(n) * h * w;
-  const long long ntiles = (npx + WCfg<C>::TP - 1) / WCfg<C>::TP;
+  const long long ntiles = static_cast<long long>(n) * h * row_tiles(w, WG<C>::TP);
   return static_cast<int>(ntiles < 64 ? ntiles : 64);
 }
 
@@ -636,21 +937,22 @@ cudaError_t bwd(const float* raw, const float* gy, const float* w31, const float
                 const float* w13t, const float* w31t, const float* rapt, const float* pa,
                 const float* pb, float* du, float* grads, float* scratch, int n, int h, int w,
                 int d, cudaStream_t s) {
-  using K = Cfg<C>;
-  using WK = WCfg<C>;
+  using K = TC<C>;
+  using WK = WG<C>;
+  // the weight-gradient kernel indexes pixels with int
+  if (static_cast<long long>(n) * h * w > INT_MAX) return cudaErrorInvalidValue;
   const size_t act = static_cast<size_t>(n) * h * w * C;
   float* cbuf = scratch;
   float* dc = scratch + act;
   float* part = scratch + 2 * act;
-  const dim3 grid = conv_grid<C>(n, h, w);
+  const dim3 grid((w + K::TM - 1) / K::TM, h, n);
 
-  size_t smem = sizeof(float) * (K::AB + static_cast<size_t>(K::TW) * C);
+  size_t smem = sizeof(float) * kStages * K::STAGE;
   cudaError_t err = set_smem(bwd_dc_kernel<C>, smem);
   if (err != cudaSuccess) return err;
   bwd_dc_kernel<C><<<grid, kThreads, smem, s>>>(raw, gy, w31, b31, w13t, pa, pb, cbuf, dc, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  smem = sizeof(float) * K::AB;
   if ((err = set_smem(bwd_du_kernel<C>, smem)) != cudaSuccess) return err;
   bwd_du_kernel<C><<<grid, kThreads, smem, s>>>(dc, gy, w31t, rapt, du, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -658,11 +960,10 @@ cudaError_t bwd(const float* raw, const float* gy, const float* w31, const float
   const bool rap = rapt != nullptr;
   const size_t len = grad_len(C, rap);
   const int P = wgrad_ctas<C>(n, h, w);
-  smem = sizeof(float) * (2 * static_cast<size_t>(WK::TP) * C + static_cast<size_t>(WK::G) * C +
-                          (WK::G > 1 ? static_cast<size_t>(WK::G) * C * C : 0));
+  smem = sizeof(float) * kStages * WK::STAGE;
   if ((err = set_smem(bwd_wgrad_kernel<C>, smem)) != cudaSuccess) return err;
-  bwd_wgrad_kernel<C><<<dim3(P, rap ? 7 : 6), kThreads, smem, s>>>(raw, pa, pb, cbuf, dc, gy, part,
-                                                                  len, n, h, w, d);
+  bwd_wgrad_kernel<C><<<dim3(P, rap ? 7 : 6, WK::HALVES), kThreads, smem, s>>>(
+      raw, pa, pb, cbuf, dc, gy, part, len, n, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_reduce(part, P, len, grads, s);
 }

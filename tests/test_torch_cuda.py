@@ -9,8 +9,9 @@ Tolerances: float32 relative L2 1e-5 with TF32 off in the plain version
 (cuDNN would otherwise run the float32 convs in TF32); bfloat16 relative L2
 2e-2, since the kernel keeps the intermediate c in float32 while the plain
 version rounds every conv to bfloat16. K2/K3 (float32 only) at relative L2
-1e-5; the training block's gradients at 1e-4 (the BN backward divides by the
-batch std).
+1e-5, and K3 (3xTF32 on the tensor cores) at its tile edges against float64;
+the training block's gradients at 1e-4 (the BN backward divides by the batch
+std).
 """
 import numpy as np
 import pytest
@@ -144,6 +145,37 @@ def test_train_pairs_match_plain(cuda, c, d, n, h, w, use_rap, use_pre):
             assert g is None
             continue
         assert g.shape == g_p.shape, name
+        assert _rel(g, g_p) <= 1e-5, (name, _rel(g, g_p))
+
+
+# K3 on the tensor cores tiles its conv launches by 64 / 128 / 256 pixels of a row (C = 128 / 64
+# / 16) and its weight gradients by 32 / 32 / 128 pixels of a row: each W is a multiple of
+# neither, or below one conv tile
+K3_EDGE_SHAPES = [  # c, d, n, h, w
+    (128, 2, 1, 5, 71),
+    (64, 1, 1, 3, 135),
+    (16, 1, 1, 3, 263),
+    (16, 4, 2, 7, 37),
+]
+
+
+@pytest.mark.parametrize("use_rap,use_pre", [(True, True), (False, False)])
+@pytest.mark.parametrize("c,d,n,h,w", K3_EDGE_SHAPES)
+def test_bwd_pair_tile_edges_match_float64(cuda, c, d, n, h, w, use_rap, use_pre):
+    gen = torch.Generator().manual_seed(3 * c + w)
+    args = _pair_args(gen, c, use_rap, use_pre, cuda)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    got = T.bwd_pair(x, gy, *args, d)
+    w31, b31, w13, rap, pre = args
+    want = T.bwd_pair_plain(x.double(), gy.double(), w31.double(), b31.double(), w13.double(),
+                            None if rap is None else rap.double(),
+                            None if pre is None else tuple(t.double() for t in pre), d)
+    for name, g, g_p in zip(("du", "dw31", "db31", "dw13", "drap"), got, want):
+        if g_p is None:
+            assert g is None
+            continue
+        assert g.shape == g_p.shape and g.dtype == torch.float32, name
         assert _rel(g, g_p) <= 1e-5, (name, _rel(g, g_p))
 
 

@@ -1,0 +1,141 @@
+#!/usr/bin/env python3
+"""K3 (the training conv pair's backward, csrc/nb1d_train.cu) against variants of
+its own source, on one NVIDIA card: time per student backward and accuracy
+against float64.
+
+    python3 tools_torch/k3_variants.py [--out build/k3_variants.json]
+
+Variants, each a text substitution of the committed source built into
+build/k3_variants/<name>/ and run in its own process:
+  as_built      the source as it is (run first and last);
+  one_level     the products summed straight in the mma accumulator, with no
+                second, round-to-nearest accumulator per K chunk;
+  lo_truncated  lo = x - hi handed to the tensor cores as it is (they read its
+                top 19 bits) instead of rounded to TF32;
+  stages2, stages4   a cp.async ring 2 or 4 deep instead of 3.
+Times: CUDA events over bwd_pair for the two pairs of each of the 7 block
+shapes at 6x512x1024 (chip_smoke's inputs and timing), summed over the blocks
+of one student backward; device ms per launch kind from torch.profiler.
+Accuracy: du (at the pixels no relu within float32 rounding of its kink
+reaches), dw13 and drap against chip_smoke's float64 gradient at the 7 shapes
+and the ragged one, RAP and pre-stage on.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "mdilss_tpu_torch"
+WORK = ROOT / "build" / "k3_variants"
+ORDER = ("as_built", "one_level", "lo_truncated", "stages2", "stages4", "as_built")
+
+
+def _sub(text: str, old: str, new: str, count: int) -> str:
+    if text.count(old) != count:
+        raise RuntimeError(f"expected {count} x {old!r} in nb1d_train.cu")
+    return text.replace(old, new)
+
+
+def variants(src: str) -> dict[str, str]:
+    one = _sub(src, "f.loc);", "f.acc);", 4)
+    one = _sub(one, "true>(", "false>(", 2)
+    one = _sub(one, "f.flush();", "", 2)
+    stages = "constexpr int kStages = 3;"
+    return {
+        "as_built": src,
+        "one_level": one,
+        "lo_truncated": _sub(src, "lo = tf32_rna(x - __uint_as_float(hi));",
+                             "lo = __float_as_uint(x - __uint_as_float(hi));", 1),
+        "stages2": _sub(src, stages, "constexpr int kStages = 2;", 1),
+        "stages4": _sub(src, stages, "constexpr int kStages = 4;", 1),
+    }
+
+
+def measure(root: Path, name: str) -> dict:
+    sys.path[:0] = [str(root), str(ROOT)]
+    import torch
+
+    import chip_smoke as cs
+    from mdilss_tpu_torch.ops import nb1d_train as T
+
+    if not Path(T.__file__).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {T.__file__}, not the variant under {root}")
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    n = cs.TRAIN_BATCH
+    total = {"ms": 0.0, **dict.fromkeys(cs.K3_KINDS, 0.0)}
+    for i, (_, c, d, rap, h, w, count) in enumerate(cs.BLOCKS):
+        gen = torch.Generator().manual_seed(100 * i)
+        x = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        gy = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        for dd, pre in ((1, False), (d, True)):
+            args = cs.pair_args(gen, c, rap, pre, dev)
+
+            def fn(args=args, dd=dd):
+                return T.bwd_pair(x, gy, *args, dd)
+
+            total["ms"] += count * cs.time_ms(fn, iters=10, warmup=2)
+            for k, v in cs.device_ms_by_kind(fn, cs.K3_KINDS).items():
+                total[k] = cs.add_ms(total[k], None if v is None else count * v)
+    worst: dict[str, float] = {}
+    for i, (_, c, d, _, h, w, _) in enumerate(cs.BLOCKS + (cs.RAGGED,)):
+        gen = torch.Generator().manual_seed(7 + i)
+        w31, b31, w13, rapw, pre_ab = cs.pair_args(gen, c, True, True, dev)
+        x = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        gy = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        got = dict(zip(("du", "dw31", "db31", "dw13", "drap"),
+                       T.bwd_pair(x, gy, w31, b31, w13, rapw, pre_ab, d)))
+        ref = cs.pair_bwd_f64(x, gy, w31, b31, w13, rapw, pre_ab, d)
+        clear = ref["du_clear"]
+        errs = {"du": cs.rel_l2(got["du"] * clear, ref["mid"]["du"] * clear),
+                "dw13": cs.rel_l2(got["dw13"], ref["dw13"]),
+                "drap": cs.rel_l2(got["drap"], ref["drap"])}
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        del got, ref
+    return {"variant": name, "card": cs.card_line(), "k3_ms_per_backward": total,
+            "worst_rel_l2_vs_f64": worst}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/k3_variants.json")
+    ap.add_argument("--measure", nargs=2, metavar=("ROOT", "NAME"), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.measure:
+        print(json.dumps(measure(Path(args.measure[0]), args.measure[1])))
+        return 0
+    src = (PACKAGE / "csrc" / "nb1d_train.cu").read_text()
+    for name, text in variants(src).items():
+        root = WORK / name
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(PACKAGE, root / PACKAGE.name,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        (root / PACKAGE.name / "csrc" / "nb1d_train.cu").write_text(text)
+    results = []
+    for name in ORDER:
+        proc = subprocess.run([sys.executable, __file__, "--measure", str(WORK / name), name],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        results.append(rec)
+        t, e = rec["k3_ms_per_backward"], rec["worst_rel_l2_vs_f64"]
+        print(f"{name:13s} K3 {t['ms']:.3f} ms per backward (device "
+              + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured"
+                          for k, v in t.items() if k != "ms")
+              + "); worst rel L2 vs float64 " + ", ".join(f"{k} {v:.2e}" for k, v in e.items()))
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(results, indent=1))
+    print(results[0]["card"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
