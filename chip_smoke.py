@@ -17,9 +17,10 @@ Phases, each fatal on failure (non-zero exit):
      grow by 17 blocks x 2 launches per forward; the fp32 logits are compared
      with the same weights run on the CPU (plain versions) and the bf16
      labels with the fp32 labels;
-  4. time each nb1d block shape (kernel, plain version, bound) and the whole
-     forward with CUDA events, then profile a few forwards (torch.profiler)
-     for the device's busy share and its time by kernel;
+  4. time each nb1d block shape (kernel with CUDA events and its device time
+     from torch.profiler, plain version, bound; fp32 also its 3xTF32 bound)
+     and the whole forward with CUDA events, then profile a few forwards
+     (torch.profiler) for the device's busy share and its time by kernel;
   5. hold the training conv-pair kernels K2 (fwd_pair) and K3 (bwd_pair),
      float32, against their plain versions run in float64 on the same inputs
      (the float32 plain versions are recorded beside them) at the 7 block
@@ -43,7 +44,8 @@ Phases, each fatal on failure (non-zero exit):
      time per launch kind dc / du / wgrad / sum from torch.profiler, and the
      same weight-gradient products as torch.matmul calls, TF32 off, with TF32
      on as information).
-It prints the card's name and power limit, one `kernels` JSON line and, as
+It prints the card's name and power limit, one `kernels` JSON line (K1's
+entry also carries its 17-block sums at batch 6 in bf16 and fp32) and, as
 the last line, {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
 """
@@ -75,18 +77,22 @@ NUM_CLASSES = [20, 20, 27]
 HEIGHT, WIDTH = 512, 1024
 BATCHES = (1, 6)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# kernel vs plain, relative L2: fp32 sums in another order; in bf16 the plain
-# version rounds every conv output while the kernel keeps c in fp32
+# kernel vs plain, relative L2: fp32 sums in another order; in bf16 both round
+# c to bf16, but the plain version also rounds the 1x3 conv's output, the RAP
+# term and their sum to bf16, while the kernel keeps y in fp32 to its epilogue
 TOL_REL_L2 = {"f32": 1e-5, "bf16": 2e-2}
 TOL_CPU_REL_L2 = 1e-4  # fp32 forward on the card vs on the CPU, ~40 layers deep
 MIN_LABEL_AGREEMENT = 0.995
 # H100 SXM dense peaks (NVIDIA data sheet): fp32 on the CUDA cores (what the
 # fp32 kernel and its plain version use), bf16 and TF32 on the tensor cores; HBM3.
 # K3 does each fp32 product as 3 TF32 products (3xTF32), so its tensor-core
-# bound is 3x its FLOPs at the TF32 rate.
+# bound is 3x its FLOPs at the TF32 rate; K1's fp32 launches get the same
+# bound beside their CUDA-core one, as the least time of fp32-accurate work.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 LAUNCHES_PER_FORWARD = 17 * K.LAUNCHES_PER_BLOCK
+# K1's kernel by name in a profiler trace: fp32 on the CUDA cores, bf16 on the tensor cores
+K1_KERNEL = {"f32": "nb1d_pair_kernel", "bf16": "nb1d_pair_mma_kernel"}
 # the nb1d blocks of one 512x1024 forward: (name, C, dilation, rap, H, W, count)
 BLOCKS = (
     ("enc64_d1_rap", 64, 1, True, 128, 256, 5),
@@ -165,14 +171,19 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 def block_bound(n: int, spec, dt: str) -> dict:
     """Least time for one block: each input byte read once and each output
     byte written once (x, weights, per-channel vectors; out), against the
-    FLOPs of the two conv pairs, at the card's peak rates for the type."""
+    FLOPs of the two conv pairs, at the card's peak rates for the type. In
+    fp32 also `bound_3xtf32_ms`: the same FLOPs as 3xTF32 on the tensor
+    cores against the same bytes."""
     _, c, _, rap, h, w, _ = spec
     px, item = n * h * w, torch.finfo(DTYPES[dt]).bits // 8
     flops = px * (28 if rap else 24) * c * c  # 2 x (3C^2 + 3C^2 [+ C^2]) MACs per pixel
     nbytes = item * (2 * px * c + 12 * c * c + (2 * c * c if rap else 0)) + 4 * 6 * c
     t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    out = {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if dt == "f32":
+        out["bound_3xtf32_ms"] = max(3 * flops / PEAK_FLOPS["tf32"], t_bytes) * 1e3
+    return out
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -330,14 +341,19 @@ def phase_times(seed: int, dev: torch.device, model, imgs) -> dict:
             for dt, dtype in DTYPES.items():
                 x = x32.to(dtype).contiguous(memory_format=torch.channels_last)
                 ops = K.prepare_operands(blk, 2 if rap else None, dtype)
+                kern = lambda: K.nb1d_infer(x, ops, d)  # noqa: E731
                 row = {"block": name, "count": count, "shape": [n, h, w, c], "dtype": dt,
-                       "kernel_ms": time_ms(lambda: K.nb1d_infer(x, ops, d)),
+                       "kernel_ms": time_ms(kern),
+                       "kernel_device_ms": device_ms_by_kind(kern, {"k1": K1_KERNEL[dt]})["k1"],
                        "plain_ms": time_ms(lambda: K.nb1d_infer_plain(x, ops, d)),
                        **block_bound(n, spec, dt)}
                 blocks.append(row)
-                print(f"[time] {name} [{n},{h},{w},{c}] {dt}: kernel {row['kernel_ms']:.4f} ms, "
-                      f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']})")
+                tf32 = (f", 3xTF32 bound {row['bound_3xtf32_ms']:.4f} ms"
+                        if "bound_3xtf32_ms" in row else "")
+                print(f"[time] {name} [{n},{h},{w},{c}] {dt}: kernel {row['kernel_ms']:.4f} ms "
+                      f"(device {fmt_ms(row['kernel_device_ms'])}), plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']}){tf32}")
     forward = []
     for dt, dtype in DTYPES.items():
         fn = serving.build_infer_fn(model, len(NUM_CLASSES) - 1, output="labels",
@@ -345,16 +361,36 @@ def phase_times(seed: int, dev: torch.device, model, imgs) -> dict:
         for n in BATCHES:
             x = imgs[n].to(dev)
             ms = time_ms(lambda: fn(x), iters=10, warmup=2)
-            sums = {k: sum(r[k] * r["count"] for r in blocks if r["dtype"] == dt
-                           and r["shape"][0] == n) for k in ("kernel_ms", "plain_ms", "bound_ms")}
+            sums = k1_sums(blocks, dt, n)
             forward.append({"dtype": dt, "batch": n, "forward_ms": ms, "img_per_s": n * 1e3 / ms,
-                            "nb1d_kernel_ms": sums["kernel_ms"],
-                            "nb1d_plain_ms": sums["plain_ms"], "nb1d_bound_ms": sums["bound_ms"]})
+                            "nb1d_kernel_ms": sums["ms"], "nb1d_plain_ms": sums["plain_ms"],
+                            "nb1d_bound_ms": sums["bound_ms"]})
+            tf32 = (f" ({sums['bound_3xtf32_ms']:.4f} ms 3xTF32)"
+                    if "bound_3xtf32_ms" in sums else "")
             print(f"[time] forward {n}x{HEIGHT}x{WIDTH} {dt} (labels, head "
                   f"{len(NUM_CLASSES) - 1}): {ms:.3f} ms, {n * 1e3 / ms:.2f} img/s; 17 nb1d "
-                  f"blocks: kernel {sums['kernel_ms']:.3f} ms, plain {sums['plain_ms']:.3f} ms, "
-                  f"bound {sums['bound_ms']:.4f} ms")
+                  f"blocks: kernel {sums['ms']:.3f} ms (device {fmt_ms(sums['device_ms'])}), "
+                  f"plain {sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms{tf32}")
     return {"blocks": blocks, "forward": forward}
+
+
+def k1_sums(blocks: list[dict], dt: str, n: int) -> dict:
+    """K1 summed over the 17 nb1d blocks of one n x 512 x 1024 forward in
+    type dt (phase 4's rows): kernel ms (CUDA events over back-to-back calls,
+    which include the host's time between launches where it is the longer),
+    device ms (torch.profiler; None if a trace missed it), plain and bound ms
+    (fp32 also its 3xTF32 bound), and what bounds the sum."""
+    rows = [r for r in blocks if r["dtype"] == dt and r["shape"][0] == n]
+    keys = {"ms": "kernel_ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms"}
+    if dt == "f32":
+        keys["bound_3xtf32_ms"] = "bound_3xtf32_ms"
+    out = {k: sum(r["count"] * r[src] for r in rows) for k, src in keys.items()}
+    out["device_ms"] = (None if any(r["kernel_device_ms"] is None for r in rows)
+                        else sum(r["count"] * r["kernel_device_ms"] for r in rows))
+    t_ops = sum(r["count"] * r["flops"] / PEAK_FLOPS[dt] for r in rows)
+    t_bytes = sum(r["count"] * r["bytes"] / PEAK_BYTES for r in rows)
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
 
 
 def phase_profile(model, imgs, dev: torch.device, iters: int = 3) -> list[dict]:
@@ -381,7 +417,7 @@ def phase_profile(model, imgs, dev: torch.device, iters: int = 3) -> list[dict]:
             for e in kernels:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
             device_ms = sum(by_name.values())
-            nb1d_ms = sum(v for k, v in by_name.items() if "nb1d_pair_kernel" in k)
+            nb1d_ms = sum(v for k, v in by_name.items() if any(p in k for p in K1_KERNEL.values()))
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             rows.append({"dtype": dt, "batch": n, "wall_ms": wall_ms, "device_ms": device_ms,
                          "nb1d_ms": nb1d_ms, "idle_share": 1.0 - device_ms / wall_ms,
@@ -803,7 +839,7 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    groups = {"K1": ("nb1d_pair_kernel",), "K2": ("fwd_pair_kernel",),
+    groups = {"K1": tuple(K1_KERNEL.values()), "K2": ("fwd_pair_kernel",),
               "K3": ("bwd_dc_kernel", "bwd_du_kernel", "bwd_wgrad_kernel"),
               "K2/K3 partial sums": ("namespace)::reduce_kernel(",)}
     shares = {g: sum(v for k, v in by_name.items() if any(p in k for p in pats))
@@ -932,9 +968,6 @@ def main(argv=None) -> int:
     del run
     card = card_line()
 
-    b1 = [r for r in times["blocks"] if r["dtype"] == "bf16" and r["shape"][0] == 1]
-    t_ops = sum(r["count"] * r["flops"] / PEAK_FLOPS["bf16"] for r in b1)
-    t_bytes = sum(r["count"] * r["bytes"] / PEAK_BYTES for r in b1)
     kernels = {"kernels": [{
         "name": "nb1d_infer", "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_infer.cu",
         "replaces": "mdilss_tpu/ops/pallas/nb1d.py:94",
@@ -942,12 +975,12 @@ def main(argv=None) -> int:
         "launches_train_path": train_path["launches"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
-        "ms": sum(r["count"] * r["kernel_ms"] for r in b1),
-        "plain_ms": sum(r["count"] * r["plain_ms"] for r in b1),
-        "bound_ms": sum(r["count"] * r["bound_ms"] for r in b1),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **k1_sums(times["blocks"], "bf16", 1),
         "library_ms": None,
         "at": "sum over the 17 nb1d blocks of one 1x512x1024 bf16 forward (2 launches each)",
+        "batch6": {dt: k1_sums(times["blocks"], dt, 6) for dt in DTYPES},
+        "batch6_at": "the same sums at 6x512x1024 in bf16 (tensor-core bound) and fp32 "
+                     "(CUDA-core bound; bound_3xtf32_ms: 3xTF32 on the tensor cores)",
     }, kernel_entry("nb1d_train_fwd", "mdilss_tpu/ops/pallas/nb1d_train.py:137",
                     train_path["launches"]["K2"], train_cases, ("y", "stats"),
                     train_times["blocks"], "fwd"),

@@ -10,28 +10,49 @@
 // column dilation d, both zero-padded "same" convs; (a, b) is the running-stats
 // BN folded with the 1x3 and RAP biases (mdilss_tpu_torch/ops/norm.py fold_bn).
 //
-// Design: one templated "conv-pair" kernel, launched twice per block.
+// Design: one "conv-pair" kernel, launched twice per block.
 //   pair 1: u = x, dilation 1, epilogue relu(a1*y + b1)      -> m (global)
 //   pair 2: u = m, dilation d, epilogue relu(a2*y + b2 + x)   -> out
 // m goes through global memory (<= 4 MB in bf16 per image at 512x1024, so it
 // stays in the 50 MB L2). With that split, the JAX kernel's zeroing of mid
 // rows outside the image (nb1d.py:118-125) is plain zero padding of pair 2's
-// row conv: a tap whose row falls outside the image is skipped.
+// row conv: a tap whose row falls outside the image is skipped, uniformly over
+// the CTA.
 //
-// One CTA owns one image row and TW output columns, all C channels.
-//   stage A: c = relu(rowconv_d(u) + b31) for the TW + 2d columns
-//            [w0-d, w0+TW+d), kept in shared memory as fp32; columns outside
-//            the image are 0 (the zero padding of the 1x3 conv's input).
-//   stage B: y = colconv_d(c) [+ u @ rap] for the TW columns, then the
-//            epilogue, written in the activation type.
-// Each stage is a small GEMM (pixels x 3C) @ (3C x C) done with plain fp32
-// FMAs: the K dimension streams through shared memory in chunks of KC input
-// channels (the C=128 weights, 3x128x128, do not fit beside the tile), and
-// every thread accumulates a 4-pixel x MC-channel tile in registers.
-// Activations are fp32 or bf16 (weights in the same type); accumulation and
-// the intermediate c are always fp32. Any N, H, W are taken: the last column
-// tile masks its ragged edge and a row tile is one row, so no tile has to
-// divide H or W. Activations are NHWC (torch.channels_last), C in {16,64,128}.
+// One CTA owns one image row and a tile of output columns, all C channels.
+//   stage A: c = relu(rowconv_d(u) + b31) for the tile's columns and d more on
+//            each side, kept in shared memory; columns outside the image are 0
+//            (the zero padding of the 1x3 conv's input).
+//   stage B: y = colconv_d(c) [+ u @ rap] for the tile's columns, then the
+//            epilogue relu(a*y + b [+ res]) in fp32, written in the activation
+//            type.
+// Each stage is a small GEMM, (pixels x 3C) @ (3C x C), with K streamed through
+// shared memory in chunks of input channels (the C=128 weights, 3x128x128, do
+// not fit beside the tile). Any N, H, W are taken: the last column tile masks
+// its ragged edge and a row tile is one row, so no tile has to divide H or W.
+// Activations are NHWC (torch.channels_last), C in {16, 64, 128}.
+//
+// Two kernels, one per activation type (weights in the same type):
+//   float32, nb1d_pair_kernel<float, C> (eval, and the train step's eval-mode
+//     teacher): plain fp32 FMAs on the CUDA cores, every thread a 4-pixel x
+//     MC-channel tile in registers; c in fp32.
+//   bfloat16, nb1d_pair_mma_kernel<C> (the serving default): every product of
+//     both stages is an mma.sync m16n8k16 bf16 tile GEMM with fp32
+//     accumulators. u rows and weight chunks reach shared memory through
+//     16-byte cp.async in a 3-deep ring (sm90_async.cuh), one barrier per
+//     chunk; fragments load with ldmatrix (A [pixel][k] as is, B [k][co]
+//     transposed), from rows padded by 8 bf16 so the 8 rows of one ldmatrix
+//     fall on distinct banks. c is rounded to bf16 in shared memory, as the
+//     Pallas kernel rounds it to the activation type (nb1d.py:112, :128), and
+//     stage B reads its A fragments straight from it at the column shifts k*d;
+//     RAP is one more K block, taken from u's own row. Eight warps per CTA,
+//     each a 32-column x 32-channel tile (x 16 channels at C=16), so a CTA
+//     takes TM = 64 / 128 / 256 output columns at C = 128 / 64 / 16. Every
+//     CTA streams all the weights through shared memory, so the pixels a CTA
+//     owns are what each weight byte is used for: four warps per CTA (TM = 32
+//     at C=128, 256 CTAs on the 64x128 map at batch 1) were measured slower on
+//     every block at batch 1 and 6 than these 128 CTAs of eight warps
+//     (tools_torch/k1_variants.py).
 //
 // What bounds it on the H100: per block at batch 1 in bf16, a C=64 or C=128
 // RAP block is ~3.76 GFLOP against ~8.5 MB (C=64 at 128x256) or ~4.7 MB
@@ -39,14 +60,16 @@
 // at the tensor-core rate: ~3.8 us at 989 TFLOP/s. The C=16 decoder block is
 // ~0.8 GFLOP against 8.4 MB, memory-bound: ~2.5 us at 3.35 TB/s. The 17
 // blocks of one forward are ~57 GFLOP, a bound of ~61 us per image (in fp32
-// on the CUDA cores, 67 TFLOP/s: ~0.85 ms). This simple design does little about that bound: it
-// keeps c out of device memory and m in L2, but it computes on the CUDA
-// cores in fp32 (67 TFLOP/s peak, ~15x below the bf16 tensor-core rate),
-// and stage A recomputes 2d halo columns per tile. Tensor cores (mma.sync or
-// wgmma with TMA) and a single-launch block are later work.
+// on the CUDA cores, 67 TFLOP/s: ~0.85 ms). Both kernels keep c out of device
+// memory and m in L2. Stage A recomputes the 2d halo columns of every tile
+// (at d=16, 96 columns for 64 outputs at C=128), and a kernel's CTAs are few
+// at batch 1, so launch tails weigh. wgmma with TMA, warp specialisation and a
+// single-launch block are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_async.cuh"
 
 namespace {
 
@@ -68,24 +91,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Channel of a thread's register slot: slot 4*j+q of channel group cg maps to
@@ -309,17 +316,273 @@ cudaError_t launch(const void* u, const void* w31, const void* b31, const void* 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_channels(int channels, const void* u, const void* w31, const void* b31,
-                              const void* w13, const void* rap, const void* a, const void* b,
-                              const void* res, void* out, int n, int h, int w, int d,
-                              cudaStream_t stream) {
-  switch (channels) {
-    case 16: return launch<T, 16>(u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, stream);
-    case 64: return launch<T, 64>(u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, stream);
-    case 128: return launch<T, 128>(u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, stream);
-    default: return cudaErrorInvalidValue;
+// ---- bfloat16: the tensor-core kernel ------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Tiles of nb1d_pair_mma_kernel<C>. The CTA's warps tile its TM output columns x C channels as
+// WM x WN warps, each MT m16 x NT n8 fragments (32 columns x 8NT channels). Stage A's TM + 2d c
+// columns are m16 tiles dealt to the WM warp rows in turn, up to MTA per warp per pass; one pass
+// covers d <= 16, a larger d takes more passes.
+template <int C>
+struct Mma {
+  static constexpr int THREADS = 256;
+  static constexpr int NT = C >= 64 ? 4 : 2;        // n8 tiles per warp
+  static constexpr int WN = C / (8 * NT);           // warps along channels: 4, 2, 1
+  static constexpr int WM = THREADS / 32 / WN;      // warps along columns: 2, 4, 8
+  static constexpr int MT = 2;                      // stage-B m16 tiles per warp
+  static constexpr int TM = WM * MT * 16;           // output columns per CTA: 64, 128, 256
+  static constexpr int MTA = 3;                     // stage-A m16 tiles per warp and pass
+  static constexpr int PA = WM * MTA * 16;          // stage-A c columns per pass: 96, 192, 384
+  static constexpr int KC = C < 32 ? C : 32;        // input channels per staged chunk
+  static constexpr int NCH = C / KC;
+  static constexpr int LDA = KC + 8;                // bf16 row strides, an odd multiple of 16
+  static constexpr int LDB = C + 8;                 // bytes: an ldmatrix's 8 rows hit 32 banks
+  static constexpr int B_OFF = PA * LDA;            // ring stage: A chunk [PA][LDA], then
+  static constexpr int STAGE = B_OFF + KC * LDB;    // B chunk [KC][LDB] (bf16 elements)
+  static_assert(WM * WN * 32 == THREADS && NT % 2 == 0 && KC % 16 == 0 && C % KC == 0,
+                "mma tile");
+  static_assert(PA >= TM + 32, "one stage-A pass covers d <= 16");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices, row addresses from lanes 0-7, 8-15, 16-23, 24-31
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a * b: bf16 in, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[i] += A_i[16 x KC] @ B[KC x 8NT] for the warp's m16 tiles i < live. Tile i's rows start
+// step * i rows after a (row stride LDA_, [pixel][k]); B ([k][co], row stride LDB_) starts at
+// the warp's first channel. Element (i, nt, e) of acc sits at row g + 8(e/2) of tile i and
+// channel 8nt + 2t + e%2 (g = lane/4, t = lane%4).
+template <int KC, int MT, int NT, int LDA_, int LDB_>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const bf16* a, int step,
+                                         int live, const bf16* b) {
+  const int lane = threadIdx.x & 31, j = lane >> 3, row = (j & 1) * 8 + (lane & 7);
+  // ldmatrix j of a tile: rows 8(j%2) .. +7, k (or channels) 8(j/2) .. +7
+  const bf16* a_lane = a + row * LDA_ + (j >> 1) * 8;
+  const bf16* b_lane = b + row * LDB_ + (j >> 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 16) {
+    uint32_t bf[NT][2];
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {  // one transposed x4 load: n8 tiles 2p and 2p + 1
+      uint32_t q[4];
+      ldsm_x4_trans(q, b_lane + kk * LDB_ + p * 16);
+      bf[2 * p][0] = q[0];
+      bf[2 * p][1] = q[1];
+      bf[2 * p + 1][0] = q[2];
+      bf[2 * p + 1][1] = q[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i < live) {  // uniform over the warp
+        uint32_t af[4];
+        ldsm_x4(af, a_lane + i * step * LDA_ + kk);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[i][nt], af, bf[nt]);
+      }
+    }
   }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_frags(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+}
+
+// One conv pair in bf16. rap (C x C, [ci][co]) and res may be null.
+template <int C>
+__global__ void __launch_bounds__(Mma<C>::THREADS, 512 / Mma<C>::THREADS)  // <= 128 registers
+nb1d_pair_mma_kernel(const bf16* __restrict__ u, const bf16* __restrict__ w31,
+                     const float* __restrict__ b31, const bf16* __restrict__ w13,
+                     const bf16* __restrict__ rap, const float* __restrict__ a,
+                     const float* __restrict__ b, const bf16* __restrict__ res,
+                     bf16* __restrict__ out, int H, int W, int d) {
+  using K = Mma<C>;
+  constexpr int AV = K::KC / 8;  // 16-byte copies per row of an A chunk
+  extern __shared__ uint4 smem16[];
+  bf16* ring = reinterpret_cast<bf16*>(smem16);  // kStages x (A chunk, B chunk)
+  bf16* c_s = ring + kStages * K::STAGE;         // [TM + 2d][LDB]: c at columns w0-d ..
+
+  const int w0 = blockIdx.x * K::TM, r = blockIdx.y;
+  const size_t img_row0 = static_cast<size_t>(blockIdx.z) * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
+  const int cols = K::TM + 2 * d;
+
+  // A chunk row m <- src_row[col0 + m, 0 : KC] for m < rows (0 outside the image)
+  auto fetch_a = [&](bf16* A, const bf16* src_row, int col0, int rows) {
+    for (int idx = threadIdx.x; idx < rows * AV; idx += K::THREADS) {
+      const int m = idx / AV, v = (idx % AV) * 8, col = col0 + m;
+      bf16* dst = A + m * K::LDA + v;
+      if (col >= 0 && col < W) cp_async16(dst, src_row + static_cast<size_t>(col) * C + v);
+      else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  // B chunk <- KC rows of a [rows][C] weight matrix from w
+  auto fetch_b = [&](bf16* B, const bf16* w) {
+    constexpr int V = C / 8;
+    for (int e = threadIdx.x; e < K::KC * V; e += K::THREADS) {
+      const int row = e / V, c8 = (e % V) * 8;
+      cp_async16(B + row * K::LDB + c8, w + row * C + c8);
+    }
+  };
+  const auto no_fixup = [](int, int) {};
+
+  // ---- stage A: c = relu(rowconv_d(u) + b31) as bf16, 0 outside the image ----
+  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2;  // row taps inside the image
+  for (int p0 = 0; p0 < cols; p0 += K::PA) {
+    const int rows = min(K::PA, cols - p0), mtiles = (rows + 15) / 16;
+    const int live = (mtiles - wm + K::WM - 1) / K::WM;  // this warp row's tiles wm + i*WM
+    float acc[K::MTA][K::NT][4];
+    zero_frags(acc);
+    pipeline(
+        (k1 - k0 + 1) * K::NCH,
+        [&](int s, int buf) {
+          const int tap = k0 + s / K::NCH, ci0 = (s % K::NCH) * K::KC;
+          bf16* A = ring + buf * K::STAGE;
+          fetch_a(A, u + (img_row0 + (r + (tap - 1) * d)) * W * C + ci0, w0 - d + p0, rows);
+          fetch_b(A + K::B_OFF, w31 + (static_cast<size_t>(tap) * C + ci0) * C);
+        },
+        no_fixup,
+        [&](int, int buf) {
+          const bf16* A = ring + buf * K::STAGE;
+          warp_mma<K::KC, K::MTA, K::NT, K::LDA, K::LDB>(
+              acc, A + wm * 16 * K::LDA, K::WM * 16, live, A + K::B_OFF + wn * K::NT * 8);
+        });
+#pragma unroll
+    for (int i = 0; i < K::MTA; ++i)
+#pragma unroll
+      for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = p0 + (wm + i * K::WM) * 16 + g + 8 * h, col = w0 - d + m;
+          if (m >= cols) continue;
+          const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+          float2 v = make_float2(0.f, 0.f);
+          if (col >= 0 && col < W) {
+            const float2 bias = *reinterpret_cast<const float2*>(b31 + co);
+            v.x = fmaxf(acc[i][nt][2 * h] + bias.x, 0.f);
+            v.y = fmaxf(acc[i][nt][2 * h + 1] + bias.y, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(c_s + m * K::LDB + co) =
+              __floats2bfloat162_rn(v.x, v.y);
+        }
+  }
+
+  // ---- stage B: y = colconv_d(c) [+ u @ rap], A fragments straight from c_s ----
+  // (the first barrier of the ring orders the c_s writes above before these reads)
+  float acc[K::MT][K::NT][4];
+  zero_frags(acc);
+  constexpr int kConv = 3 * K::NCH;  // stage s < kConv: tap s / NCH, rows s*KC of w13
+  pipeline(
+      kConv + (rap != nullptr ? K::NCH : 0),
+      [&](int s, int buf) {
+        bf16* A = ring + buf * K::STAGE;
+        if (s < kConv) {
+          fetch_b(A + K::B_OFF, w13 + static_cast<size_t>(s) * K::KC * C);
+        } else {
+          const int ci0 = (s - kConv) * K::KC;
+          fetch_a(A, u + (img_row0 + r) * W * C + ci0, w0, K::TM);
+          fetch_b(A + K::B_OFF, rap + static_cast<size_t>(ci0) * C);
+        }
+      },
+      no_fixup,
+      [&](int s, int buf) {
+        const bf16* stage = ring + buf * K::STAGE;
+        const bf16* B = stage + K::B_OFF + wn * K::NT * 8;
+        const int m0 = wm * K::MT * 16;
+        if (s < kConv) {
+          const int tap = s / K::NCH, ci0 = (s % K::NCH) * K::KC;
+          warp_mma<K::KC, K::MT, K::NT, K::LDB, K::LDB>(
+              acc, c_s + (m0 + tap * d) * K::LDB + ci0, 16, K::MT, B);
+        } else {
+          warp_mma<K::KC, K::MT, K::NT, K::LDA, K::LDB>(acc, stage + m0 * K::LDA, 16, K::MT, B);
+        }
+      });
+
+  // ---- epilogue: relu(a*y + b [+ res]) in fp32, written as bf16 ----
+#pragma unroll
+  for (int i = 0; i < K::MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
+        if (col >= W) continue;
+        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+        const size_t off = ((img_row0 + r) * W + col) * C + co;
+        const float2 av = *reinterpret_cast<const float2*>(a + co);
+        const float2 bv = *reinterpret_cast<const float2*>(b + co);
+        float y0 = fmaf(av.x, acc[i][nt][2 * h], bv.x);
+        float y1 = fmaf(av.y, acc[i][nt][2 * h + 1], bv.y);
+        if (res != nullptr) {
+          const float2 rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + off));
+          y0 += rv.x;
+          y1 += rv.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + off) =
+            __floats2bfloat162_rn(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
+      }
+}
+
+template <int C>
+cudaError_t launch_mma(const void* u, const void* w31, const void* b31, const void* w13,
+                       const void* rap, const void* a, const void* b, const void* res, void* out,
+                       int n, int h, int w, int d, cudaStream_t stream) {
+  using K = Mma<C>;
+  const size_t smem = sizeof(bf16) * (static_cast<size_t>(kStages) * K::STAGE +
+                                      static_cast<size_t>(K::TM + 2 * d) * K::LDB);
+  auto kernel = nb1d_pair_mma_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w + K::TM - 1) / K::TM, h, n);
+  kernel<<<grid, K::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(u), static_cast<const bf16*>(w31), static_cast<const float*>(b31),
+      static_cast<const bf16*>(w13), static_cast<const bf16*>(rap), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const bf16*>(res), static_cast<bf16*>(out), h, w,
+      d);
+  return cudaGetLastError();
+}
+
+// dtype 0: the float32 FMA kernel; dtype 1: the bf16 tensor-core kernel
+template <int C>
+cudaError_t launch_channels(int dtype, const void* u, const void* w31, const void* b31,
+                            const void* w13, const void* rap, const void* a, const void* b,
+                            const void* res, void* out, int n, int h, int w, int d,
+                            cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float, C>(u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, stream);
+  if (dtype == 1) return launch_mma<C>(u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -335,11 +598,12 @@ extern "C" int nb1d_pair(int dtype, int channels, const void* u, const void* w31
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_channels<float>(channels, u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, s);
-  else if (dtype == 1)
-    err = dispatch_channels<__nv_bfloat16>(channels, u, w31, b31, w13, rap, a, b, res, out, n, h,
-                                           w, d, s);
+  if (channels == 16)
+    err = launch_channels<16>(dtype, u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, s);
+  else if (channels == 64)
+    err = launch_channels<64>(dtype, u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, s);
+  else if (channels == 128)
+    err = launch_channels<128>(dtype, u, w31, b31, w13, rap, a, b, res, out, n, h, w, d, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

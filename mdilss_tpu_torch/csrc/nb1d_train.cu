@@ -68,6 +68,8 @@
 
 #include <type_traits>
 
+#include "sm90_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -387,26 +389,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N groups (the newest ones) are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void st2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
-
-constexpr int kStages = 3;  // cp.async ring depth: stages s+1, s+2 load while s multiplies
 
 // A warp's MT m16 x NT n8 output fragments. Element i of fragment (mt, nt) sits at row
 // mt*16 + g + 8*(i/2) and column nt*8 + 2t + i%2 of the warp's tile (g = lane/4, t = lane%4).
@@ -464,31 +449,6 @@ __device__ __forceinline__ void mma_k8(const float* a_s, const float* b_s,
       mma_tf32(loc[mt][nt], ah[mt], bh0, bh1);
     }
   }
-}
-
-// Runs stages 0 .. S-1 through the ring: fetch(s, buf) starts the cp.async copies of stage s into
-// buffer buf (and the zero fill of what it does not copy), fixup(s, buf) runs on each thread's
-// own copies once they have landed (before the barrier that publishes them), compute(s, buf)
-// multiplies. One barrier per stage: the buffer refilled after it was last read before it.
-template <typename Fetch, typename Fixup, typename Compute>
-__device__ __forceinline__ void pipeline(int S, Fetch fetch, Fixup fixup, Compute compute) {
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < S) fetch(s, s);
-    cp_async_commit();  // empty groups keep the count: wait<kStages-2> means "stage s landed"
-  }
-  int buf = 0;
-  for (int s = 0; s < S; ++s) {
-    cp_async_wait<kStages - 2>();
-    fixup(s, buf);
-    __syncthreads();
-    const int next = s + kStages - 1;
-    if (next < S) fetch(next, buf == 0 ? kStages - 1 : buf - 1);
-    cp_async_commit();
-    compute(s, buf);
-    buf = buf == kStages - 1 ? 0 : buf + 1;
-  }
-  __syncthreads();  // the buffers are free for the caller's next use
 }
 
 // K3's conv launches: one CTA per (image, row, TM columns) x all C output channels; the warps

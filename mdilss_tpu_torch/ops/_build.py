@@ -6,8 +6,9 @@ interface under `build/kernels/` at the root of the checkout (git-ignored):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source and flags, so an edited source
-is rebuilt and a current one is reused. No PyTorch header is included, which
+The file name carries a hash of the source, of every header in `csrc/`
+(`*.cuh`) and of the flags, so an edited source or header is rebuilt and a
+current one is reused. No PyTorch header is included, which
 keeps a build to seconds. `build()` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
@@ -44,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict[str, Path]:

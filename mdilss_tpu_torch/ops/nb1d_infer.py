@@ -5,11 +5,13 @@ Port of mdilss_tpu/ops/pallas/nb1d.py `nb1d_fused_infer`. The block
     relu(3x1 + b) -> 1x3 (+ RAP 1x1 on x) -> folded BN -> relu = m
     relu(3x1 dil d + b) -> 1x3 dil d (+ RAP 1x1 on m) -> folded BN + x -> relu
 
-runs on CUDA tensors as two launches of the hand-written conv-pair kernel in
-`csrc/nb1d_infer.cu` (see the note there), and on CPU tensors as
-`nb1d_infer_plain`, an F.conv2d chain computing the same function. The
-dispatcher picks by the tensor's device only; a CUDA tensor the kernel does
-not take raises, it never falls back to the plain version.
+runs on CUDA tensors as two launches of a hand-written conv-pair kernel in
+`csrc/nb1d_infer.cu` (see the note there): float32 with fp32 FMAs on the CUDA
+cores, bfloat16 with bf16 `mma.sync` on the tensor cores. On CPU tensors it
+runs as `nb1d_infer_plain`, an F.conv2d chain computing the same function.
+The dispatcher picks by the tensor's device only; a CUDA tensor the kernel
+does not take raises, it never falls back to the plain version or to the
+other kernel.
 
 `LAUNCHES` counts kernel launches (two per block).
 """
@@ -126,7 +128,8 @@ def nb1d_infer_plain(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.
 
 def nb1d_infer(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.Tensor:
     """The block on x [N,C,H,W]: CPU tensor -> plain version; CUDA tensor ->
-    the kernel (channels_last, float32 or bfloat16, C in 16/64/128) or raise."""
+    the kernel of its type (channels_last, float32 or bfloat16, C in
+    16/64/128) or raise."""
     if x.device.type == "cpu":
         return nb1d_infer_plain(x, ops, dilated)
     if x.device.type != "cuda":

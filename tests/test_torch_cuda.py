@@ -7,8 +7,9 @@ them, and the launches of one train step. Run on a machine with an H100:
 
 Tolerances: float32 relative L2 1e-5 with TF32 off in the plain version
 (cuDNN would otherwise run the float32 convs in TF32); bfloat16 relative L2
-2e-2, since the kernel keeps the intermediate c in float32 while the plain
-version rounds every conv to bfloat16. K2/K3 (float32 only) at relative L2
+2e-2: both round c to bfloat16, but the plain version also rounds each conv
+output (the 1x3 conv's y, the RAP term and their sum) to bfloat16 and sums in
+cuDNN's order, while the kernel keeps y in float32 up to its epilogue. K2/K3 (float32 only) at relative L2
 1e-5, and K3 (3xTF32 on the tensor cores) at its tile edges against float64;
 the training block's gradients at 1e-4 (the BN backward divides by the batch
 std).
@@ -48,6 +49,23 @@ def _randomize_bn(module, gen):
             bn.running_var.copy_(torch.empty(c).uniform_(0.5, 1.5, generator=gen))
 
 
+# K1's bf16 kernel tiles a row by 64 / 128 / 256 output columns (C = 128 / 64 / 16) and computes c
+# for d more columns on each side, in passes of 96 / 192 / 384 columns: W below one tile or a
+# multiple of none, H <= 2d (a row's taps skipped at both ends), a d that takes two passes,
+# batch 1 and 6
+K1_EDGE_SHAPES = [  # c, d, n, h, w
+    (128, 16, 1, 20, 45),
+    (128, 4, 6, 9, 150),
+    (128, 40, 1, 5, 90),
+    (64, 1, 6, 5, 300),
+    (64, 16, 1, 7, 40),
+    (64, 40, 1, 4, 100),
+    (16, 1, 6, 8, 300),
+    (16, 2, 1, 3, 50),
+    (16, 70, 1, 4, 90),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("c,d,rap,n,h,w", [
     (64, 1, True, 2, 16, 48),
@@ -55,6 +73,7 @@ def _randomize_bn(module, gen):
     (128, 16, True, 2, 13, 37),   # ragged: H, W multiples of no tile
     (64, 1, False, 1, 24, 200),
     (16, 1, False, 2, 16, 300),
+    *[(c, d, rap, n, h, w) for c, d, n, h, w in K1_EDGE_SHAPES for rap in (True, False)],
 ])
 def test_kernel_matches_plain(cuda, dtype, c, d, rap, n, h, w):
     gen = torch.Generator().manual_seed(c * 100 + d)
@@ -84,6 +103,36 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     x = x.contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="operand"):
         K.nb1d_infer(x.to(torch.bfloat16), ops, 1)  # float32 weights for bf16 x
+
+
+def _random_block(c, d, rap, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    blk = NonBottleneck1dRAP(c, d, 3) if rap else NonBottleneck1d(c, d)
+    _randomize_bn(blk, gen)
+    return blk.to(dev), gen
+
+
+@pytest.mark.parametrize("c,d", [(128, 8), (64, 1), (16, 1)])
+def test_bf16_kernel_bitwise_repeatable(cuda, c, d):
+    blk, gen = _random_block(c, d, c != 16, c + d, cuda)
+    x = torch.randn(6, c, 16, 100, generator=gen).to(cuda, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    ops = K.prepare_operands(blk, 0 if c != 16 else None, torch.bfloat16)
+    assert torch.equal(K.nb1d_infer(x, ops, d), K.nb1d_infer(x, ops, d))
+
+
+def test_kernels_raise_where_they_cannot_launch(cuda):
+    """No fallback: a dilation whose halo does not fit in shared memory makes
+    the launch fail and the wrapper raise, in either type."""
+    for dtype in (torch.bfloat16, torch.float32):
+        blk, gen = _random_block(128, 1, False, 3, cuda)
+        x = torch.randn(1, 128, 4, 8, generator=gen).to(cuda, dtype).contiguous(
+            memory_format=torch.channels_last)
+        ops = K.prepare_operands(blk, None, dtype)
+        before = K.LAUNCHES
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K.nb1d_infer(x, ops, 1000)
+        assert K.LAUNCHES == before + 1  # pair 1 (dilation 1) ran, pair 2 did not
 
 
 def test_forward_launches_kernel_for_every_block(cuda):

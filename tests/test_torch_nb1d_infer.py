@@ -1,7 +1,10 @@
 """Port of the fused nb1d inference block (mdilss_tpu_torch/ops/nb1d_infer.py)
 against the JAX package: the plain PyTorch version, on the same weights and
 inputs, equals the Pallas kernel in interpret mode and the unfused XLA
-block. Tolerance as tests/test_pallas_nb1d.py: fp32, atol 2e-5, rtol 1e-4."""
+block. Tolerance as tests/test_pallas_nb1d.py: fp32, atol 2e-5, rtol 1e-4.
+In bf16 the plain version is held to the Pallas kernel in relative L2 (see
+`TOL_BF16_VS_JAX`); on the card the bf16 kernel is held to the plain version
+(tests/test_torch_cuda.py), which chains the kernel to the JAX package."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,14 @@ NB_TASKS = 3
 CASES = [(16, 1, False, None)] + [
     (c, d, True, t) for c, d in ((64, 1), (64, 16), (128, 2)) for t in range(NB_TASKS)
 ]
+# bf16 plain version vs the Pallas kernel, relative L2. bf16 keeps 8 bits
+# (unit roundoff 2^-9 ~ 2e-3), and the two round at different places: the
+# Pallas kernel rounds each tap's partial product and their running sum to
+# bf16 (nb1d.py:37-44, :64-74), the plain version each whole conv and the
+# RAP sum; c and m are rounded to bf16 by both. That is about one bf16
+# rounding per element, 1.0e-3 to 2.4e-3 over CASES; the gate leaves 2.5x of
+# room and stays well below the card's kernel-vs-plain 2e-2.
+TOL_BF16_VS_JAX = 6e-3
 
 
 def _block(c, d, rap, seed):
@@ -55,6 +66,26 @@ def test_plain_matches_jax_kernel_and_xla_block(c, d, rap, task):
     got = K.nb1d_infer_plain(to_nchw(x), ops, d).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, np.asarray(fused), atol=2e-5, rtol=1e-4)
     np.testing.assert_allclose(got, np.asarray(ref), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("c,d,rap,task", CASES)
+def test_plain_bf16_matches_jax_kernel(c, d, rap, task):
+    p, s, blk, x = _block(c, d, rap, seed=c + d)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    if rap:
+        fused = nb1d_fused_infer(xj, p, s["bns1"], s["bns2"], dilated=d, task=task,
+                                 interpret=True)
+    else:
+        fused = nb1d_fused_infer(xj, p, s["bn1"], s["bn2"], dilated=d, interpret=True)
+    assert fused.dtype == jnp.bfloat16
+    want = np.array(fused.astype(jnp.float32))
+    ops = K.prepare_operands(blk, task, torch.bfloat16)
+    xt = to_nchw(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    got = K.nb1d_infer_plain(xt, ops, d)
+    assert got.dtype == torch.bfloat16
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    err = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert err <= TOL_BF16_VS_JAX, err
 
 
 def test_fold_bn_matches_jax_fold():

@@ -5,8 +5,9 @@ against float64.
 
     python3 tools_torch/k3_variants.py [--out build/k3_variants.json]
 
-Variants, each a text substitution of the committed source built into
-build/k3_variants/<name>/ and run in its own process:
+Variants, each a text substitution of the committed sources (nb1d_train.cu,
+and sm90_async.cuh for the ring depth) built into build/k3_variants/<name>/
+and run in its own process:
   as_built      the source as it is (run first and last);
   one_level     the products summed straight in the mma accumulator, with no
                 second, round-to-nearest accumulator per K chunk;
@@ -35,24 +36,28 @@ WORK = ROOT / "build" / "k3_variants"
 ORDER = ("as_built", "one_level", "lo_truncated", "stages2", "stages4", "as_built")
 
 
+SOURCE, RING = "nb1d_train.cu", "sm90_async.cuh"
+
+
 def _sub(text: str, old: str, new: str, count: int) -> str:
     if text.count(old) != count:
-        raise RuntimeError(f"expected {count} x {old!r} in nb1d_train.cu")
+        raise RuntimeError(f"expected {count} x {old!r} in the K3 sources")
     return text.replace(old, new)
 
 
-def variants(src: str) -> dict[str, str]:
+def variants(src: str, ring: str) -> dict[str, dict[str, str]]:
+    """name -> {file in csrc/: its text} for each file the variant changes."""
     one = _sub(src, "f.loc);", "f.acc);", 4)
     one = _sub(one, "true>(", "false>(", 2)
     one = _sub(one, "f.flush();", "", 2)
     stages = "constexpr int kStages = 3;"
     return {
-        "as_built": src,
-        "one_level": one,
-        "lo_truncated": _sub(src, "lo = tf32_rna(x - __uint_as_float(hi));",
-                             "lo = __float_as_uint(x - __uint_as_float(hi));", 1),
-        "stages2": _sub(src, stages, "constexpr int kStages = 2;", 1),
-        "stages4": _sub(src, stages, "constexpr int kStages = 4;", 1),
+        "as_built": {},
+        "one_level": {SOURCE: one},
+        "lo_truncated": {SOURCE: _sub(src, "lo = tf32_rna(x - __uint_as_float(hi));",
+                                      "lo = __float_as_uint(x - __uint_as_float(hi));", 1)},
+        "stages2": {RING: _sub(ring, stages, "constexpr int kStages = 2;", 1)},
+        "stages4": {RING: _sub(ring, stages, "constexpr int kStages = 4;", 1)},
     }
 
 
@@ -110,13 +115,14 @@ def main(argv=None) -> int:
     if args.measure:
         print(json.dumps(measure(Path(args.measure[0]), args.measure[1])))
         return 0
-    src = (PACKAGE / "csrc" / "nb1d_train.cu").read_text()
-    for name, text in variants(src).items():
+    csrc = PACKAGE / "csrc"
+    for name, files in variants((csrc / SOURCE).read_text(), (csrc / RING).read_text()).items():
         root = WORK / name
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PACKAGE, root / PACKAGE.name,
                         ignore=shutil.ignore_patterns("__pycache__"))
-        (root / PACKAGE.name / "csrc" / "nb1d_train.cu").write_text(text)
+        for fname, text in files.items():
+            (root / PACKAGE.name / "csrc" / fname).write_text(text)
     results = []
     for name in ORDER:
         proc = subprocess.run([sys.executable, __file__, "--measure", str(WORK / name), name],
