@@ -39,11 +39,11 @@ Phases, each fatal on failure (non-zero exit):
   8. one step at 2x128x256 on the card and on the CPU (plain versions) from
      the same weights, masks and batch: loss, running statistics, gradients;
   9. time the train step (ms/step, img/s, peak memory), profile one step, and
-     time K2/K3 per block shape against their plain versions and bounds (K3:
-     the fp32 CUDA-core bound and the 3xTF32 tensor-core bound, its device
-     time per launch kind dc / du / wgrad / sum from torch.profiler, and the
-     same weight-gradient products as torch.matmul calls, TF32 off, with TF32
-     on as information).
+     time K2/K3 per block shape against their plain versions and bounds (the
+     fp32 CUDA-core bound and the 3xTF32 tensor-core bound; the device time
+     per launch kind from torch.profiler: K2 pair / sum, K3 dc / du / wgrad /
+     sum; for K3 also the same weight-gradient products as torch.matmul
+     calls, TF32 off, with TF32 on as information).
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32) and, as
 the last line, {"ok": true, "device": {...}}. The full record goes to --out.
@@ -756,9 +756,12 @@ def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str) -> dict:
             "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
 
 
-# K3's launches by kernel name: c and dc, du, the weight-gradient partials, their fixed-order sum
+# K2's and K3's launches by kernel name: K2's pair and the fixed-order sum of its partial stats;
+# K3's c and dc, du, the weight-gradient partials, their fixed-order sum
+K2_KINDS = {"pair": "fwd_pair_mma_kernel", "sum": "namespace)::reduce_kernel("}
 K3_KINDS = {"dc": "bwd_dc_kernel", "du": "bwd_du_kernel", "wgrad": "bwd_wgrad_kernel",
             "sum": "namespace)::reduce_kernel("}
+PAIR_KINDS = {"fwd": K2_KINDS, "bwd": K3_KINDS}
 
 
 def device_ms_by_kind(fn, kinds: dict, iters: int = 3, tries: int = 3) -> dict:
@@ -839,7 +842,7 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    groups = {"K1": tuple(K1_KERNEL.values()), "K2": ("fwd_pair_kernel",),
+    groups = {"K1": tuple(K1_KERNEL.values()), "K2": (K2_KINDS["pair"],),
               "K3": ("bwd_dc_kernel", "bwd_du_kernel", "bwd_wgrad_kernel"),
               "K2/K3 partial sums": ("namespace)::reduce_kernel(",)}
     shares = {g: sum(v for k, v in by_name.items() if any(p in k for p in pats))
@@ -875,13 +878,12 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
                 b = pair_bound(n, c, h, w, rap, kind)
                 vals = [("ms", time_ms(call(kern), iters=10, warmup=2)),
                         ("plain_ms", time_ms(call(plain), iters=5, warmup=1)),
-                        ("bound_ms", b["bound_ms"])]
+                        ("bound_ms", b["bound_ms"]), ("bound_3xtf32_ms", b["bound_3xtf32_ms"])]
                 if kind == "bwd":
-                    vals += [("bound_3xtf32_ms", b["bound_3xtf32_ms"]),
-                             ("wgrad_library_ms", wgrad_library_ms(x, gy, rap, False)),
+                    vals += [("wgrad_library_ms", wgrad_library_ms(x, gy, rap, False)),
                              ("wgrad_library_tf32_ms", wgrad_library_ms(x, gy, rap, True))]
-                    vals += [(f"{k}_ms", v) for k, v in
-                             device_ms_by_kind(call(kern), K3_KINDS).items()]
+                vals += [(f"{k}_ms", v) for k, v in
+                         device_ms_by_kind(call(kern), PAIR_KINDS[kind]).items()]
                 for key, val in vals:
                     row[f"{kind}_{key}"] = add_ms(row.get(f"{kind}_{key}", 0.0), val)
                 row[f"{kind}_bound_by"] = b["bound_by"]
@@ -889,8 +891,10 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
                 row[f"{kind}_bytes"] = row.get(f"{kind}_bytes", 0) + b["bytes"]
         blocks.append(row)
         print(f"[train-time] {name} [{n},{h},{w},{c}] two pairs: K2 {row['fwd_ms']:.4f} ms "
-              f"(plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f}), "
-              f"K3 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
+              f"(plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f} fp32 / "
+              f"{row['fwd_bound_3xtf32_ms']:.4f} 3xTF32; device "
+              + ", ".join(f"{k} {fmt_ms(row[f'fwd_{k}_ms'])}" for k in K2_KINDS)
+              + f"), K3 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
               f"{row['bwd_bound_ms']:.4f} fp32 / {row['bwd_bound_3xtf32_ms']:.4f} 3xTF32; device "
               + ", ".join(f"{k} {fmt_ms(row[f'bwd_{k}_ms'])}" for k in K3_KINDS)
               + f"; weight-gradient matmuls {row['bwd_wgrad_library_ms']:.4f} fp32, "
@@ -907,13 +911,12 @@ def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], key
     which are sums over up to 786k pixels)."""
     t_ops = sum(r["count"] * r[f"{kind}_flops"] / PEAK_FLOPS["f32"] for r in blocks)
     t_bytes = sum(r["count"] * r[f"{kind}_bytes"] / PEAK_BYTES for r in blocks)
-    extra = {}
-    if kind == "bwd":
-        extra = {k: sum(r["count"] * r[f"bwd_{k}"] for r in blocks)
-                 for k in ("bound_3xtf32_ms", "wgrad_library_ms", "wgrad_library_tf32_ms")}
-        extra["device_ms_by_kind"] = {
-            k: None if any(r[f"bwd_{k}_ms"] is None for r in blocks)
-            else sum(r["count"] * r[f"bwd_{k}_ms"] for r in blocks) for k in K3_KINDS}
+    sums = ("bound_3xtf32_ms",) + (("wgrad_library_ms", "wgrad_library_tf32_ms")
+                                   if kind == "bwd" else ())
+    extra = {k: sum(r["count"] * r[f"{kind}_{k}"] for r in blocks) for k in sums}
+    extra["device_ms_by_kind"] = {
+        k: None if any(r[f"{kind}_{k}_ms"] is None for r in blocks)
+        else sum(r["count"] * r[f"{kind}_{k}_ms"] for r in blocks) for k in PAIR_KINDS[kind]}
     return {
         "name": name, "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_train.cu",
         "replaces": replaces, "launches": launches,

@@ -16,9 +16,12 @@ import torch
 
 def confusion_matrix(preds, targets, *, num_classes: int) -> torch.Tensor:
     """[N,H,W] integer preds/targets -> [C, C] int64 counts cm[target, pred],
-    on the inputs' device."""
+    on the inputs' device. As `jnp.bincount(length=C*C)`: a flat index below 0
+    counts in bin 0 and one of C*C or more is dropped."""
+    cc = num_classes * num_classes
     idx = targets.reshape(-1).to(torch.int64) * num_classes + preds.reshape(-1).to(torch.int64)
-    cm = torch.bincount(idx, minlength=num_classes * num_classes)
+    idx = idx.clamp(min=0)
+    cm = torch.bincount(idx[idx < cc], minlength=cc)
     return cm.reshape(num_classes, num_classes)
 
 

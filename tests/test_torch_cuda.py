@@ -10,9 +10,9 @@ Tolerances: float32 relative L2 1e-5 with TF32 off in the plain version
 2e-2: both round c to bfloat16, but the plain version also rounds each conv
 output (the 1x3 conv's y, the RAP term and their sum) to bfloat16 and sums in
 cuDNN's order, while the kernel keeps y in float32 up to its epilogue. K2/K3 (float32 only) at relative L2
-1e-5, and K3 (3xTF32 on the tensor cores) at its tile edges against float64;
-the training block's gradients at 1e-4 (the BN backward divides by the batch
-std).
+1e-5, and both (3xTF32 on the tensor cores) at their tile edges against
+float64 (K2's batch mean and variance at 1e-4); the training block's
+gradients at 1e-4 (the BN backward divides by the batch std).
 """
 import numpy as np
 import pytest
@@ -226,6 +226,101 @@ def test_bwd_pair_tile_edges_match_float64(cuda, c, d, n, h, w, use_rap, use_pre
             continue
         assert g.shape == g_p.shape and g.dtype == torch.float32, name
         assert _rel(g, g_p) <= 1e-5, (name, _rel(g, g_p))
+
+
+# K2 on the tensor cores tiles a row by 64 / 128 / 256 output columns (C = 128 / 64 / 16) and
+# computes c for d more columns on each side in stage-A passes of 96 / 192 / 384 columns: W below
+# one tile or a multiple of none, d >= TM (d = 40 and 70, two or three passes), H < 2d (both row
+# taps skipped), batch 1 and 6
+K2_EDGE_SHAPES = [  # c, d, n, h, w
+    (128, 1, 1, 5, 71),
+    (128, 40, 2, 9, 150),
+    (128, 70, 1, 5, 90),
+    (64, 1, 1, 3, 135),
+    (64, 2, 6, 7, 300),
+    (64, 40, 1, 4, 100),
+    (16, 1, 1, 3, 263),
+    (16, 4, 2, 7, 37),
+    (16, 70, 1, 4, 90),
+]
+
+
+def _f64(t):
+    return None if t is None else (tuple(x.double() for x in t) if isinstance(t, tuple)
+                                   else t.double())
+
+
+@pytest.mark.parametrize("use_rap,use_pre", [(True, True), (False, False), (True, False),
+                                             (False, True)])
+@pytest.mark.parametrize("c,d,n,h,w", K2_EDGE_SHAPES)
+def test_fwd_pair_tile_edges_match_float64(cuda, c, d, n, h, w, use_rap, use_pre):
+    """y at 1e-5 relative L2 against the plain pair in float64; the batch mean
+    and variance from the stats at 1e-4 against a float64 two-pass over y."""
+    gen = torch.Generator().manual_seed(5 * c + d + w)
+    args = _pair_args(gen, c, use_rap, use_pre, cuda)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    y, st = T.fwd_pair(x, *args, d)
+    y64, _ = T.fwd_pair_plain(x.double(), *(_f64(a) for a in args), d)
+    assert y.shape == x.shape and y.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(y, y64) <= 1e-5, _rel(y, y64)
+    count = n * h * w
+    yd = y.double()
+    m64 = yd.mean((0, 2, 3))
+    v64 = (yd - m64.view(1, -1, 1, 1)).square().mean((0, 2, 3))
+    mu = st[0].double() / count
+    var = torch.clamp(st[1].double() / count - mu * mu, min=0.0)
+    assert float((mu - m64).norm() / v64.sqrt().norm()) <= 1e-4
+    assert float((var - v64).norm() / v64.norm()) <= 1e-4
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_fwd_and_bwd_compute_the_same_c(cuda):
+    """K2's stage A and K3's bwd_dc_kernel compute c with the same code in the
+    same order. With w13 the identity at its centre tap and no RAP, K2's y is
+    3xTF32 of c x 1, which is hi(c) + lo(c) exactly; so y must equal hi + lo
+    of the c that K3 writes to its scratch, bit for bit."""
+    c, d, n, h, w = 64, 2, 2, 9, 150
+    gen = torch.Generator().manual_seed(11)
+    w31, b31, _, _, pre = _pair_args(gen, c, False, True, cuda)
+    w13 = torch.zeros(c, c, 1, 3, device=cuda)
+    w13[:, :, 0, 1] = torch.eye(c, device=cuda)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    gy = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    y, _ = T.fwd_pair(x, w31, b31, w13, None, pre, d)
+    lib = T._library()
+    w31s, b31v, w13s, _, pa, pb = T._kernel_operands(x, w31, b31, w13, None, pre)
+    scratch = torch.empty(lib.nb1d_train_bwd_scratch(c, n, h, w, 0), device=cuda)
+    du = torch.empty_like(x)
+    grads = torch.empty(lib.nb1d_train_grad_len(c, 0), device=cuda)
+    rc = lib.nb1d_train_bwd(c, x.data_ptr(), gy.data_ptr(), w31s.data_ptr(), b31v.data_ptr(),
+                            T._stack_t(w13s).data_ptr(), T._stack_t(w31s).data_ptr(), None,
+                            pa.data_ptr(), pb.data_ptr(), du.data_ptr(), grads.data_ptr(),
+                            scratch.data_ptr(), n, h, w, d, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    c_k3 = scratch[: n * h * w * c].view(n, h, w, c)  # K3's c, NHWC
+    hi = _tf32_rna(c_k3)
+    want = hi + _tf32_rna(c_k3 - hi)
+    got = y.permute(0, 2, 3, 1)
+    assert int((c_k3 > 0).sum()) > 0
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_fwd_pair_raises_where_its_halo_does_not_fit(cuda):
+    """No fallback: c for TM + 2d columns past the shared memory of a block
+    makes the launch fail and the wrapper raise."""
+    gen = torch.Generator().manual_seed(2)
+    for c in (128, 16):
+        args = _pair_args(gen, c, False, False, cuda)
+        x = torch.randn(1, c, 4, 8, generator=gen).to(cuda).contiguous(
+            memory_format=torch.channels_last)
+        before = T.LAUNCHES_FWD
+        with pytest.raises(RuntimeError, match="launch failed"):
+            T.fwd_pair(x, *args, 1000)
+        assert T.LAUNCHES_FWD == before
 
 
 def test_train_pairs_bitwise_repeatable(cuda):

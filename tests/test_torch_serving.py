@@ -99,6 +99,27 @@ def test_iou_evaluator_matches_jax():
     assert metrics.IoUEvaluator(nc, nc).ignore_index is None
 
 
+@pytest.mark.parametrize("case", ["listed", "random"])
+def test_confusion_matrix_drops_out_of_range_targets_as_jax(case):
+    """A target of C or more makes a flat index past C*C: JAX's
+    bincount(length=C*C) drops it (a negative one counts in bin 0)."""
+    if case == "listed":
+        nc, preds, targets = 3, np.array([[[0, 1, 2, 1]]]), np.array([[[0, 1, 5, 2]]])
+    else:
+        rng = np.random.default_rng(4)
+        nc = 5
+        preds = rng.integers(0, nc, (2, 8, 16))
+        targets = rng.integers(-1, nc + 3, (2, 8, 16))
+    want = np.asarray(jax_metrics.confusion_matrix(jnp.asarray(preds), jnp.asarray(targets),
+                                                   num_classes=nc))
+    got = metrics.confusion_matrix(torch.from_numpy(preds), torch.from_numpy(targets),
+                                   num_classes=nc)
+    assert got.shape == (nc, nc)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "listed":
+        assert want.tolist() == [[1, 0, 0], [0, 1, 0], [0, 1, 0]]
+
+
 def test_prepare_batch_relabels_void():
     imgs = np.full((1, 2, 2, 3), 255, np.uint8)
     lbls = np.array([[[0, 255], [3, 255]]], np.uint8)
