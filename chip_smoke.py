@@ -18,9 +18,11 @@ Phases, each fatal on failure (non-zero exit):
      with the same weights run on the CPU (plain versions) and the bf16
      labels with the fp32 labels;
   4. time each nb1d block shape (kernel with CUDA events and its device time
-     from torch.profiler, plain version, bound; fp32 also its 3xTF32 bound)
-     and the whole forward with CUDA events, then profile a few forwards
-     (torch.profiler) for the device's busy share and its time by kernel;
+     from torch.profiler, by kernel name: nb1d_pair_tf32_kernel in fp32,
+     nb1d_pair_mma_kernel in bf16; plain version, bound; fp32 also its 3xTF32
+     bound) and the whole forward with CUDA events, then profile a few
+     forwards (torch.profiler) for the device's busy share and its time by
+     kernel;
   5. hold the training conv-pair kernels K2 (fwd_pair) and K3 (bwd_pair),
      float32, against their plain versions run in float64 on the same inputs
      (the float32 plain versions are recorded beside them) at the 7 block
@@ -43,7 +45,11 @@ Phases, each fatal on failure (non-zero exit):
      fp32 CUDA-core bound and the 3xTF32 tensor-core bound; the device time
      per launch kind from torch.profiler: K2 pair / sum, K3 dc / du / wgrad /
      sum; for K3 also the same weight-gradient products as torch.matmul
-     calls, TF32 off, with TF32 on as information).
+     calls, TF32 off, with TF32 on as information), and split the step's
+     device time outside K1/K2/K3 into families (cuDNN conv and its backward,
+     BN and dropout glue, losses over the logits, Adam, ...) by the torch
+     ops and Python frames around each kernel's launch in a second profiled
+     step's chrome trace (`ms_by_family`).
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32) and, as
 the last line, {"ok": true, "device": {...}}. The full record goes to --out.
@@ -83,16 +89,17 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL_REL_L2 = {"f32": 1e-5, "bf16": 2e-2}
 TOL_CPU_REL_L2 = 1e-4  # fp32 forward on the card vs on the CPU, ~40 layers deep
 MIN_LABEL_AGREEMENT = 0.995
-# H100 SXM dense peaks (NVIDIA data sheet): fp32 on the CUDA cores (what the
-# fp32 kernel and its plain version use), bf16 and TF32 on the tensor cores; HBM3.
-# K3 does each fp32 product as 3 TF32 products (3xTF32), so its tensor-core
-# bound is 3x its FLOPs at the TF32 rate; K1's fp32 launches get the same
-# bound beside their CUDA-core one, as the least time of fp32-accurate work.
+# H100 SXM dense peaks (NVIDIA data sheet): fp32 on the CUDA cores (the plain
+# versions' rate), bf16 and TF32 on the tensor cores; HBM3. The fp32 kernels
+# (K1 fp32, K2, K3) do each fp32 product as 3 TF32 products (3xTF32), so their
+# tensor-core bound is 3x their FLOPs at the TF32 rate, the least time of
+# fp32-accurate work, beside the CUDA-core one.
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 LAUNCHES_PER_FORWARD = 17 * K.LAUNCHES_PER_BLOCK
-# K1's kernel by name in a profiler trace: fp32 on the CUDA cores, bf16 on the tensor cores
-K1_KERNEL = {"f32": "nb1d_pair_kernel", "bf16": "nb1d_pair_mma_kernel"}
+# K1's kernels by name in a profiler trace, both on the tensor cores: fp32 as 3xTF32 on the
+# training pair's mainloop (csrc/tf32_pair.cuh), bf16 with bf16 mma.sync
+K1_KERNEL = {"f32": "nb1d_pair_tf32_kernel", "bf16": "nb1d_pair_mma_kernel"}
 # the nb1d blocks of one 512x1024 forward: (name, C, dilation, rap, H, W, count)
 BLOCKS = (
     ("enc64_d1_rap", 64, 1, True, 128, 256, 5),
@@ -350,7 +357,8 @@ def phase_times(seed: int, dev: torch.device, model, imgs) -> dict:
                 blocks.append(row)
                 tf32 = (f", 3xTF32 bound {row['bound_3xtf32_ms']:.4f} ms"
                         if "bound_3xtf32_ms" in row else "")
-                print(f"[time] {name} [{n},{h},{w},{c}] {dt}: kernel {row['kernel_ms']:.4f} ms "
+                print(f"[time] {name} [{n},{h},{w},{c}] {dt} ({K1_KERNEL[dt]}): kernel "
+                      f"{row['kernel_ms']:.4f} ms "
                       f"(device {fmt_ms(row['kernel_device_ms'])}), plain "
                       f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']}){tf32}")
@@ -860,6 +868,24 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
     for k, v in top:
         print(f"[train-profile]    {v:8.4f} ms  {k[:100]}")
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "step_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        fam, fam_top, counts = ms_by_family(json.load(f)["traceEvents"])
+    os.remove(trace)
+    out["profile"].update(ms_by_family=fam, family_top=fam_top, family_counts=counts)
+    print(f"[train-profile] outside K1/K2/K3, device ms per step by family (a second profiled "
+          f"step, with Python stacks; {counts['device_events']} device events, launch found for "
+          f"{counts['launch_found']}, {counts['placed_by_name']} placed by the names around it): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fam.items()))
+    for k, rows in fam_top.items():
+        for name, v in rows:
+            print(f"[train-profile]    {k}: {v:8.4f} ms  {name[:90]}")
+
     blocks = []
     for i, spec in enumerate(BLOCKS):
         name, c, d, rap, h, w, count = spec
@@ -901,6 +927,130 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
               f"{row['bwd_wgrad_library_tf32_ms']:.4f} TF32)")
     out["blocks"] = blocks
     return out
+
+
+# R0: the step's device time outside K1/K2/K3 by family, from the chrome trace of one profiled
+# step (profile(with_stack=True)). Each device kernel, copy or fill is found where the host
+# launched it: its runtime call (cudaLaunchKernel, ...; the trace's "correlation" argument), else
+# the torch op of the same "External id". The torch ops and Python frames around that point on
+# the launching thread name it; for an op of the backward (autograd::engine::evaluate_function,
+# with a sequence number) so do those around the forward op that made its autograd node. It goes
+# to the first family one of whose patterns is in one of those names; what no launch or name
+# places goes by its own name (FAMILY_BY_KERNEL_NAME), else to "unattributed".
+OWN_KERNELS = ("nb1d_pair_", "fwd_pair_mma_kernel", "bwd_dc_kernel", "bwd_du_kernel",
+               "bwd_wgrad_kernel", "namespace)::reduce_kernel(")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+FAMILIES = (
+    ("cuDNN conv and its backward", ("convolution", "cudnn")),
+    ("Adam", ("train/optim.py",)),
+    ("losses over the logits", ("losses.py",)),
+    ("K1 operands (teacher's BN fold, weight stacks)", ("ops/nb1d_infer.py",)),
+    ("BN and dropout glue, K2/K3 operands", ("ops/nb1d_train.py", "ops/norm.py",
+                                              "ops/dropout.py")),
+    ("model glue (layout, pooling, concat)", ("mdilss_tpu_torch/models/",)),
+    ("gradient accumulation", ("AccumulateGrad",)),
+    ("other", ("mdilss_tpu_torch/",)),
+)
+FAMILY_BY_KERNEL_NAME = (("cuDNN conv and its backward", ("conv", "cudnn", "xmma", "implicit",
+                                                          "dgrad", "wgrad", "fprop")),)
+
+
+def family_of(names) -> str:
+    for fam, pats in FAMILIES:
+        if any(p in n for n in names for p in pats):
+            return fam
+    return "unattributed"
+
+
+def _end(e: dict) -> float:
+    return e["ts"] + e.get("dur", 0.0)
+
+
+def ms_by_family(events: list[dict], top: int = 3) -> tuple[dict, dict, dict]:
+    """(device ms by family, the `top` kernels of each family, counts) of the
+    device work outside K1/K2/K3 in a chrome trace's `traceEvents` (see
+    FAMILIES); counts: device events, those whose launch was found, those
+    placed by a name around it."""
+    device, launch, spans = [], {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if cat in DEVICE_CATS:
+            if not any(p in e["name"] for p in OWN_KERNELS):
+                device.append(e)
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            if "correlation" in args:
+                launch[args["correlation"]] = (e["tid"], e["ts"])
+        elif cat in ("cpu_op", "python_function", "user_annotation"):
+            spans.setdefault(e["tid"], []).append(e)
+    op_by_ext, fwd_by_seq = {}, {}
+    for ss in spans.values():
+        ss.sort(key=lambda e: (e["ts"], -e.get("dur", 0.0)))  # outer before inner
+        for e in ss:
+            if e["cat"] != "cpu_op":
+                continue
+            args = e.get("args") or {}
+            op_by_ext.setdefault(args.get("External id"), e)
+            seq = args.get("Sequence number", -1)
+            if (seq >= 0 and not e["name"].startswith("autograd::engine")
+                    and (seq not in fwd_by_seq or e["ts"] < fwd_by_seq[seq]["ts"])):
+                fwd_by_seq[seq] = e
+
+    def around(points):
+        """key -> the spans around each (tid, ts, key), outermost first"""
+        out, by_tid = {}, {}
+        for tid, ts, key in points:
+            by_tid.setdefault(tid, []).append((ts, key))
+        for tid, pts in by_tid.items():
+            ss, stack, i = spans.get(tid, []), [], 0
+            for ts, key in sorted(pts, key=lambda p: p[0]):
+                while i < len(ss) and ss[i]["ts"] <= ts:
+                    while stack and _end(stack[-1]) < ss[i]["ts"]:
+                        stack.pop()
+                    stack.append(ss[i])
+                    i += 1
+                out[key] = [e for e in stack if _end(e) >= ts]
+        return out
+
+    points = []
+    for k, e in enumerate(device):
+        args = e.get("args") or {}
+        at = launch.get(args.get("correlation"))
+        op = op_by_ext.get(args.get("External id")) if at is None else None
+        if op is not None:
+            at = (op["tid"], op["ts"])
+        if at is not None:
+            points.append((*at, k))
+    chains = around(points)
+    fwd_points = []
+    for k, chain in chains.items():
+        for e in chain:
+            seq = (e.get("args") or {}).get("Sequence number", -1)
+            if e["name"].startswith("autograd::engine::evaluate_function") and seq in fwd_by_seq:
+                f = fwd_by_seq[seq]
+                fwd_points.append((f["tid"], f["ts"], k))
+                break
+    fwd_chains = around(fwd_points)
+
+    names_ms: dict[str, dict[str, float]] = {}
+    placed = 0
+    for k, e in enumerate(device):
+        names = [s["name"] for s in chains.get(k, []) + fwd_chains.get(k, [])]
+        fam = family_of(names)
+        if fam == "unattributed":
+            fam = next((f for f, pats in FAMILY_BY_KERNEL_NAME
+                        if any(p in e["name"].lower() for p in pats)), fam)
+        else:
+            placed += 1
+        d = names_ms.setdefault(fam, {})
+        d[e["name"]] = d.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    order = [f for f, _ in FAMILIES] + ["unattributed"]
+    ms = {f: sum(names_ms[f].values()) for f in order if f in names_ms}
+    fam_top = {f: [[k[:90], v] for k, v in sorted(names_ms[f].items(), key=lambda kv: -kv[1])[:top]]
+               for f in ms}
+    counts = {"device_events": len(device), "launch_found": len(points), "placed_by_name": placed}
+    return ms, fam_top, counts
 
 
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
@@ -981,7 +1131,9 @@ def main(argv=None) -> int:
         **k1_sums(times["blocks"], "bf16", 1),
         "library_ms": None,
         "at": "sum over the 17 nb1d blocks of one 1x512x1024 bf16 forward (2 launches each)",
-        "batch6": {dt: k1_sums(times["blocks"], dt, 6) for dt in DTYPES},
+        "kernel_names": K1_KERNEL,
+        "batch6": {dt: {"kernel": K1_KERNEL[dt], **k1_sums(times["blocks"], dt, 6)}
+                   for dt in DTYPES},
         "batch6_at": "the same sums at 6x512x1024 in bf16 (tensor-core bound) and fp32 "
                      "(CUDA-core bound; bound_3xtf32_ms: 3xTF32 on the tensor cores)",
     }, kernel_entry("nb1d_train_fwd", "mdilss_tpu/ops/pallas/nb1d_train.py:137",

@@ -20,9 +20,10 @@
 // in revisited VMEM blocks. Here blocks run in parallel, so every cross-block sum is written as
 // per-block partials and summed by a second pass in a fixed order (in double); no float atomics,
 // so two runs on the same input give bitwise-equal outputs. The pieces:
-//   fwd_pair_mma_kernel  one CTA per (image, row, TM columns): stage A computes c for the TM + 2d
-//                        columns w0-d .. w0+TM+d-1 into shared memory, stage B y from it, then
-//                        the CTA's [2][C] partial stats;
+//   fwd_pair_mma_kernel  one CTA per (image, row, TM columns): the pair mainloop of
+//                        tf32_pair.cuh (stage A: c for the TM + 2d columns w0-d .. w0+TM+d-1
+//                        into shared memory; stage B: y from it), then y and the CTA's [2][C]
+//                        partial stats;
 //   bwd_dc_kernel        one CTA per (image, row, TM columns): c for the TM columns (also written
 //                        to a scratch buffer, its sign kept in registers), then dc; writing dc
 //                        keeps every halo 1-D (2 launches instead of one CTA needing u rows
@@ -39,42 +40,21 @@
 // (forward) or 4 (backward) reads and writes of C fp32 values per pixel, so both are bound by
 // operations: per student pass 5.10 ms (K2) and 12.4 ms (K3) at the CUDA cores' fp32 rate
 // (67 TFLOP/s), 2.07 and 5.05 ms on the tensor cores in 3xTF32 (3 TF32 products per fp32
-// product at 495 TFLOP/s, i.e. 165 TFLOP/s of fp32 work). Every product of K2 and K3 is an
-// mma.sync.m16n8k8 TF32 tile GEMM:
-//   - operands reach shared memory through 16-byte cp.async in a ring (3 deep for K3: K chunks
-//     s+1 and s+2 load while chunk s multiplies; 2 deep for K2), one barrier per chunk; row
-//     strides of KC+4 / C+8 floats put each fragment load of a warp on 32 distinct banks (K2
-//     loads its A fragments with ldmatrix);
+// product at 495 TFLOP/s, i.e. 165 TFLOP/s of fp32 work). Every product of K2 and K3 is a
+// 3xTF32 mma.sync.m16n8k8 tile GEMM (tf32_pair.cuh: the split, the second accumulator per K
+// chunk, ConvStages, the pair mainloop):
 //   - the conv GEMMs tile (pixels of one row) x (all C channels), K = taps x C input channels
-//     (conv_gemm); the pre-stage relu(a*x+b) cannot ride on cp.async, so each thread applies it
-//     in shared memory to the elements it copied, after they land and before the barrier that
-//     publishes the chunk; taps outside the image are skipped (rows, uniformly over the CTA) or
-//     zero-filled (columns);
-//   - K2 keeps c on chip, in fp32 shared memory at a row stride of C+4 floats, so stage B's
-//     fragment loads at the column shifts k*d hit 32 distinct banks. Stage A's TM + 2d columns
-//     are m16 tiles dealt to the warp rows in turn (a warp skips tiles past the end, uniformly
-//     over the warp; one pass covers d <= 16, a larger d takes more passes); each stage's
-//     product is added into c's shared memory rather than into registers, and the pass ends
-//     with relu(c + b31), 0 outside the image. Stage B streams only the w13 chunks and reads
-//     its A fragments straight from c; RAP is one more K block, u's own row through the ring
-//     and the pre-stage; the epilogue writes y as float2 pairs and sums the CTA's stats per
-//     thread, over the lanes (a fixed shuffle tree) and over the warp rows in a fixed order.
-//     The 3xTF32 instruction stream (the splits beside the mma) needs many warps per SM: K2
-//     keeps to 128 registers and a 2-deep ring so that two CTAs share an SM (one CTA per SM
-//     measured slower: `one_cta` in tools_torch/k2_variants.py), which is why stage A's sums
-//     live in shared memory;
+//     (ConvStages); K3's conv launches stream their operands through a 3-deep cp.async ring,
+//     K2 through the pair mainloop's 2-deep one; the pre-stage relu(a*x+b) cannot ride on
+//     cp.async, so each thread applies it in shared memory to the elements it copied, after they
+//     land and before the barrier that publishes the chunk; taps outside the image are skipped
+//     (rows, uniformly over the CTA) or zero-filled (columns);
+//   - K2's epilogue writes y as float2 pairs and sums the CTA's stats per thread, over the lanes
+//     (a fixed shuffle tree) and over the warp rows in a fixed order;
 //   - the weight gradients are [pixels x C]^T [pixels x C] products (M = ci, N = co, K = pixels)
 //     with tiles of one image row's pixels streamed the same way and a fixed grid of P CTAs per
 //     matrix (two per matrix at C = 128, one per half of the columns, to keep the fragments in
-//     registers).
-// Why 3xTF32 and not one TF32 pass: TF32 keeps 10 mantissa bits, so one pass is ~3e-4 off in
-// relative L2, far from the 1e-5 against float64 that K2 and K3 are held to. Splitting each
-// operand into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and summing lo*hi + hi*lo + hi*hi keeps
-// ~22 bits (the dropped lo*lo term is ~2^-22 relative). Each warp splits its fragments as it
-// loads them (splitting once per CTA in shared memory measured no faster for K3). The tensor
-// cores' fp32 accumulation truncates, so each warp sums one K chunk in the mma accumulator and
-// adds it to a second register accumulator with a round-to-nearest add (without it, K3's weight
-// gradients were 2.2e-5 off float64).
+//     registers). Splitting once per CTA in shared memory measured no faster for K3.
 // c in K2 and in K3: K2's stage A and K3's bwd_dc_kernel compute c with the same stages
 // (ConvStages) and products (mma_k8) in the same order (taps k0..k1, chunks of KC channels, one
 // fresh accumulator each, the small terms first, each chunk added to the running float32 sum
@@ -90,296 +70,19 @@
 
 #include <type_traits>
 
-#include "sm90_async.cuh"
+#include "tf32_pair.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-// relu(a * v + b) on channels ch .. ch+3: the pre-stage (BN affine of the previous pair + relu)
-__device__ __forceinline__ float4 pre4(float4 v, const float* __restrict__ a,
-                                       const float* __restrict__ b, int ch) {
-  const float4 av = ld4(a + ch), bv = ld4(b + ch);
-  return make_float4(fmaxf(fmaf(av.x, v.x, bv.x), 0.f), fmaxf(fmaf(av.y, v.y, bv.y), 0.f),
-                     fmaxf(fmaf(av.z, v.z, bv.z), 0.f), fmaxf(fmaf(av.w, v.w, bv.w), 0.f));
-}
 
 __device__ __forceinline__ size_t cta_index() {
   return (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
-
-// ---- 3xTF32 mma.sync ---------------------------------------------------------------------
-//
-// Every product is a tile GEMM on mma.sync.m16n8k8 TF32 with the operands split in two:
-// x = hi + lo, hi = rna_tf32(x), lo = rna_tf32(x - hi), and a*b ~ lo_a*hi_b + hi_a*lo_b +
-// hi_a*hi_b (the lo*lo term is below float32 rounding). A warp owns MT x NT fragments of the
-// output; each staged K chunk goes into a fresh fragment accumulator (`loc`) that is then added
-// to the running float32 sum (`acc`) with an ordinary round-to-nearest add, so the tensor cores
-// never sum more than one chunk (their float32 accumulation truncates). Operands stream through
-// a ring of shared-memory buffers filled by cp.async, one barrier per stage, and each warp splits
-// the fp32 values of its fragments as it loads them.
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero: what
-// cvt.rna.tf32.f32 computes for finite x, in two integer instructions (ptxas expands the
-// conversion into several on sm_90a)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d = a * b (a zero accumulator in)
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// d += a * b
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void st2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-// A warp's MT m16 x NT n8 output fragments. Element i of fragment (mt, nt) sits at row
-// g + 8*(i/2) of the warp's m16 tile mt and column nt*8 + 2t + i%2 of the warp's tile
-// (g = lane/4, t = lane%4).
-template <int MT, int NT>
-struct Frag {
-  float acc[MT][NT][4];
-  float loc[MT][NT][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  }
-
-  __device__ __forceinline__ void flush() {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += loc[mt][nt][i];
-  }
-};
-
-// loc (+)= A[0:16MT, 0:8] B[0:8, 0:8NT] in 3xTF32, small terms first; FIRST starts loc from
-// zero. A element (m, k) of the warp's m16 tile mt at a_s[(mt * TROWS + m) * AM + k * AK], B
-// element (k, n) at b_s[k * LDB + n], both already offset to the warp's tile and the k8 step.
-// Tiles mt >= live are skipped (live is uniform over the warp); FIRST zeroes their loc. LDSM
-// loads each A tile's fragment with one ldmatrix (the same registers as four scalar loads; A
-// row-major with 16-byte aligned rows).
-template <int MT, int NT, int AM, int AK, int LDB, bool FIRST, int TROWS = 16, bool LDSM = false>
-__device__ __forceinline__ void mma_k8(const float* a_s, const float* b_s,
-                                       float (&loc)[MT][NT][4], int live = MT) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    if (mt >= live) continue;
-    if constexpr (LDSM) {
-      static_assert(AK == 1 && AM % 4 == 0, "ldmatrix reads rows of 16 bytes");
-      // matrix j = lane / 8: rows (j % 2) * 8 .., k (j / 2) * 4 ..; register j is fragment
-      // element j, (g + 8 (j % 2), t + 4 (j / 2))
-      uint32_t r[4];
-      ldsm_x4(r, a_s + (mt * TROWS + ((lane >> 3) & 1) * 8 + (lane & 7)) * AM + (lane >> 4) * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), ah[mt][i], al[mt][i]);
-    } else {
-      const float* p = a_s + (mt * TROWS + g) * AM + t * AK;
-      split_tf32(p[0], ah[mt][0], al[mt][0]);
-      split_tf32(p[8 * AM], ah[mt][1], al[mt][1]);
-      split_tf32(p[4 * AK], ah[mt][2], al[mt][2]);
-      split_tf32(p[8 * AM + 4 * AK], ah[mt][3], al[mt][3]);
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const float* q = b_s + t * LDB + nt * 8 + g;
-    uint32_t bh0, bl0, bh1, bl1;
-    split_tf32(q[0], bh0, bl0);
-    split_tf32(q[4 * LDB], bh1, bl1);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      if (mt >= live) {
-        if constexpr (FIRST)
-          loc[mt][nt][0] = loc[mt][nt][1] = loc[mt][nt][2] = loc[mt][nt][3] = 0.f;
-        continue;
-      }
-      if constexpr (FIRST) mma_tf32_first(loc[mt][nt], al[mt], bh0, bh1);
-      else mma_tf32(loc[mt][nt], al[mt], bh0, bh1);
-      mma_tf32(loc[mt][nt], ah[mt], bl0, bl1);
-      mma_tf32(loc[mt][nt], ah[mt], bh0, bh1);
-    }
-  }
-}
-
-// ---- conv GEMMs on the tensor cores ---------------------------------------------------------
-
-// The warp grid of a conv GEMM: (pixels) x (all C channels) as WM x WN warps, each NT n8
-// fragments wide; K streams in chunks of KC input channels.
-template <int C>
-struct Warps {
-  static constexpr int KC = C < 32 ? C : 32;        // input channels per staged chunk
-  static constexpr int NT = C >= 64 ? 4 : 2;
-  static constexpr int WN = C / (8 * NT);           // 4, 2, 1 for C = 128, 64, 16
-  static constexpr int WM = kThreads / 32 / WN;     // 2, 4, 8
-  static constexpr int LDA = KC + 4;                // A chunk [ROWS][LDA]: fragment loads hit
-  static constexpr int LDB = C + 8;                 // 32 banks; B chunk [KC][LDB] likewise
-  static_assert(WM * WN * 32 == kThreads && KC % 8 == 0 && C % KC == 0, "conv warp grid");
-};
-
-// A conv GEMM's tiling: each warp MT m16 x NT n8 fragments; a staged A chunk holds ROWS pixels;
-// warp row wm's m16 tiles start at row wm * WROWS and follow each other every TROWS rows. The
-// operands stream through a ring of DEPTH stages; LDSM: A fragments by ldmatrix (mma_k8).
-template <int C, int MT_, int ROWS_, int WROWS_, int TROWS_, int DEPTH_ = kStages,
-          bool LDSM_ = false>
-struct Tiling : Warps<C> {
-  static constexpr int CH = C, MT = MT_, ROWS = ROWS_, WROWS = WROWS_, TROWS = TROWS_;
-  static constexpr int DEPTH = DEPTH_;
-  static constexpr bool LDSM = LDSM_;
-  static constexpr int B_OFF = ROWS * Warps<C>::LDA;              // stage: A then B
-  static constexpr int STAGE = B_OFF + Warps<C>::KC * Warps<C>::LDB;
-};
 
 // K3's conv launches: one CTA per (image, row, TM columns) x all C output channels; each warp
 // 2 consecutive m16 tiles, 32 pixels x 8NT channels.
 template <int C>
 struct TC : Tiling<C, 2, Warps<C>::WM * 32, 32, 16> {
   static constexpr int TM = Warps<C>::WM * 32;      // pixels per CTA: 64, 128, 256
-};
-
-// K2 runs two CTAs per SM where their shared memory fits: at most 128 registers a thread and a
-// ring 2 deep (K2_DEPTH).
-constexpr int K2_CTAS = 2, K2_DEPTH = 2;
-
-// K2's CTA tile and stage B: TM output columns x all C channels, each warp MT consecutive m16
-// tiles; c in shared memory at a row stride of LDC floats.
-template <int C>
-struct K2B : Tiling<C, 2, Warps<C>::WM * 32, 32, 16, K2_DEPTH, true> {
-  static constexpr int TM = Warps<C>::WM * 32;      // 64, 128, 256
-  static constexpr int LDC = C + 4;
-};
-
-// K2's stage A: the TM + 2d c columns in passes of ROWS, each pass's m16 tiles dealt to the WM
-// warp rows in turn (tile i of warp row wm at row (wm + i*WM) * 16), up to MT per warp row.
-template <int C>
-struct K2A : Tiling<C, 3, Warps<C>::WM * 48, 16, Warps<C>::WM * 16, K2_DEPTH, true> {
-  static_assert(Warps<C>::WM * 48 >= K2B<C>::TM + 32, "one stage-A pass covers d <= 16");
-};
-
-// One tap of a conv: output pixel (n, r, col) reads src[n, row, col + shift, :] (0 outside the
-// image) against the weight rows w[ci][co].
-struct Tap {
-  const float* src;
-  const float* w;
-  int row, shift;
-};
-
-// The stages of a conv GEMM in tiling L: stage s multiplies tap(s / NCH), input channels
-// (s % NCH) * KC .. + KC. Its A chunk holds the pixels w0 .. w0+rows-1 of the tap's row at the
-// tap's column shift, 0 outside the image, through the pre-stage relu(pa*v + pb) where pa is
-// non-null; its B chunk the matching KC rows of the tap's weights. The pre-stage cannot ride on
-// cp.async: each thread applies it in shared memory to the elements it copied itself.
-template <typename L, typename TapFn>
-struct ConvStages {
-  static constexpr int NCH = L::CH / L::KC, AV = L::KC / 4;
-  float* smem;
-  TapFn tap;
-  int n, w0, rows, H, W;
-  const float* pa;
-  const float* pb;
-
-  // source of A element group idx of stage s, or null where the column is outside the image
-  __device__ __forceinline__ const float* a_src(int s, int idx) const {
-    const Tap tp = tap(s / NCH);
-    const int col = w0 + idx / AV + tp.shift;
-    if (col < 0 || col >= W) return nullptr;
-    return tp.src + ((static_cast<size_t>(n) * H + tp.row) * W + col) * L::CH +
-           (s % NCH) * L::KC + (idx % AV) * 4;
-  }
-  __device__ __forceinline__ float* a_dst(int buf, int idx) const {
-    return smem + buf * L::STAGE + (idx / AV) * L::LDA + (idx % AV) * 4;
-  }
-  __device__ __forceinline__ void fetch_b(int s, int buf) const {
-    constexpr int C = L::CH;
-    float* B = smem + buf * L::STAGE + L::B_OFF;
-    const float* w = tap(s / NCH).w + static_cast<size_t>((s % NCH) * L::KC) * C;
-    for (int e = threadIdx.x; e < L::KC * (C / 4); e += kThreads) {
-      const int row = e / (C / 4), c4 = (e % (C / 4)) * 4;
-      cp_async16(B + row * L::LDB + c4, w + row * C + c4);
-    }
-  }
-  __device__ __forceinline__ void fetch(int s, int buf) const {
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int idx = threadIdx.x; idx < rows * AV; idx += kThreads) {
-      const float* src = a_src(s, idx);
-      if (src != nullptr) cp_async16(a_dst(buf, idx), src);
-      else st4(a_dst(buf, idx), zero4);
-    }
-    fetch_b(s, buf);
-  }
-  __device__ __forceinline__ void fixup(int s, int buf) const {
-    if (pa == nullptr) return;
-    const int ci0 = (s % NCH) * L::KC;
-    for (int idx = threadIdx.x; idx < rows * AV; idx += kThreads)
-      if (a_src(s, idx) != nullptr) {
-        float* p = a_dst(buf, idx);
-        st4(p, pre4(ld4(p), pa, pb, ci0 + (idx % AV) * 4));
-      }
-  }
-  // loc = the warp's tiles (< live) of A @ (the B chunk in buffer buf), A element (m, k) at
-  // a[m * AM + k]
-  template <int AM>
-  __device__ __forceinline__ void product(const float* a, int buf,
-                                          float (&loc)[L::MT][L::NT][4], int live) const {
-    const int warp = threadIdx.x >> 5, wm = warp % L::WM, wn = warp / L::WM;
-    const float* A = a + wm * L::WROWS * AM;
-    const float* B = smem + buf * L::STAGE + L::B_OFF + wn * L::NT * 8;
-#pragma unroll
-    for (int ks = 0; ks < L::KC / 8; ++ks) {
-      if (ks == 0)
-        mma_k8<L::MT, L::NT, AM, 1, L::LDB, true, L::TROWS, L::LDSM>(A, B, loc, live);
-      else
-        mma_k8<L::MT, L::NT, AM, 1, L::LDB, false, L::TROWS, L::LDSM>(
-            A + ks * 8, B + ks * 8 * L::LDB, loc, live);
-    }
-  }
-  // f.acc += the same product
-  template <int AM>
-  __device__ __forceinline__ void multiply(const float* a, int buf, Frag<L::MT, L::NT>& f,
-                                           int live) const {
-    product<AM>(a, buf, f.loc, live);
-    f.flush();
-  }
-  __device__ __forceinline__ void compute(int buf, Frag<L::MT, L::NT>& f, int live) const {
-    multiply<L::LDA>(smem + buf * L::STAGE, buf, f, live);
-  }
 };
 
 // f.acc += sum over taps j < ntaps of src'[tap(j)] @ w[tap(j)] for the `rows` pixels w0 .. of
@@ -397,27 +100,8 @@ __device__ __forceinline__ void conv_gemm(float* smem, TapFn tap, int ntaps, int
       [&](int, int buf) { cs.compute(buf, f, live); });
 }
 
-// Calls fn(mt, nt, h, m, co) for each pair of adjacent elements (2h, 2h+1) of the thread's
-// fragments in tiling L, its m16 tiles below live: row m0 + m of the A chunk (a pixel of the CTA
-// tile), channels co and co + 1.
-template <typename L, typename Fn>
-__device__ __forceinline__ void frag_pairs(int m0, Fn fn, int live = L::MT) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m1 = m0 + (warp % L::WM) * L::WROWS + (lane >> 2);
-  const int c0 = (warp / L::WM) * L::NT * 8 + 2 * (lane & 3);
-#pragma unroll
-  for (int mt = 0; mt < L::MT; ++mt) {
-    if (mt >= live) continue;  // uniform over the warp
-#pragma unroll
-    for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) fn(mt, nt, h, m1 + mt * L::TROWS + 8 * h, c0 + nt * 8);
-  }
-}
-
 // ---- K2: forward pair ---------------------------------------------------------------------
-// Shared memory: the ring (K2_DEPTH stages of K2A) and c, [TM + 2d rounded up to 16][LDC] (see
-// fwd below).
+// Shared memory: pair_smem_bytes (the ring and c).
 template <int C>
 __global__ void __launch_bounds__(kThreads, K2_CTAS)
 fwd_pair_mma_kernel(const float* __restrict__ x, const float* __restrict__ w31,
@@ -425,91 +109,14 @@ fwd_pair_mma_kernel(const float* __restrict__ x, const float* __restrict__ w31,
                     const float* __restrict__ rap, const float* __restrict__ pa,
                     const float* __restrict__ pb, float* __restrict__ y,
                     float* __restrict__ part, int H, int W, int d) {
-  using A = K2A<C>;
   using B = K2B<C>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* c_s = smem + A::DEPTH * A::STAGE;  // c at columns w0-d .. w0+TM+d-1
   const int w0 = blockIdx.x * B::TM, r = blockIdx.y, n = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % B::WM, wn = warp / B::WM, g = lane >> 2, t = lane & 3;
-  const int cols = B::TM + 2 * d;
-
-  // ---- stage A: c = relu(rowconv_d(u) + b31), 0 outside the image; the row taps inside the
-  // image are k0 .. k1. The stages are conv_gemm's, but the running float32 sum of each element
-  // lives in c_s rather than in registers (what keeps K2 within 128 registers): the first stage
-  // stores its chunk's product, each later one adds to it, to nearest, as Frag::flush does ----
-  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2;
-  const auto row_tap = [&](int j) {
-    return Tap{x, w31 + static_cast<size_t>(k0 + j) * C * C, r + (k0 + j - 1) * d, 0};
-  };
-  for (int p0 = 0; p0 < cols; p0 += A::ROWS) {
-    const int rows = min(A::ROWS, cols - p0);
-    const int live = ((rows + 15) / 16 - wm + A::WM - 1) / A::WM;  // tiles wm, wm + WM, ...
-    const ConvStages<A, decltype(row_tap)> cs{smem, row_tap, n, w0 - d + p0, rows, H, W, pa, pb};
-    float loc[A::MT][A::NT][4];
-    pipeline<A::DEPTH>(
-        (k1 - k0 + 1) * cs.NCH, [&](int s, int buf) { cs.fetch(s, buf); },
-        [&](int s, int buf) { cs.fixup(s, buf); },
-        [&](int s, int buf) {
-          cs.template product<A::LDA>(smem + buf * A::STAGE, buf, loc, live);
-          // the first stage stores its product in c_s, each later one adds to it (to nearest);
-          // a live tile's tail past cols lands in c_s's padding rows
-          frag_pairs<A>(p0, [&](int mt, int nt, int h, int m, int co) {
-            float* p = c_s + m * B::LDC + co;
-            float v0 = loc[mt][nt][2 * h], v1 = loc[mt][nt][2 * h + 1];
-            if (s > 0) {
-              const float2 sum = *reinterpret_cast<const float2*>(p);
-              v0 = sum.x + v0;
-              v1 = sum.y + v1;
-            }
-            st2(p, v0, v1);
-          }, live);
-        });
-    // each thread converts its own sums (stage B's first barrier publishes them)
-    frag_pairs<A>(p0, [&](int, int, int, int m, int co) {
-      float* p = c_s + m * B::LDC + co;
-      const int col = w0 - d + m;
-      float c0 = 0.f, c1 = 0.f;
-      if (col >= 0 && col < W) {
-        const float2 sum = *reinterpret_cast<const float2*>(p);
-        const float2 bias = *reinterpret_cast<const float2*>(b31 + co);
-        c0 = fmaxf(sum.x + bias.x, 0.f);
-        c1 = fmaxf(sum.y + bias.y, 0.f);
-      }
-      st2(p, c0, c1);
-    }, live);
-  }
-
-  // ---- stage B: y = colconv_d(c) [+ u @ rap]; stage s < kConv multiplies tap s / NCH of c,
-  // straight from c_s, with rows s*KC.. of w13; then the RAP chunks of u's own row ----
-  // (the ring's first barrier orders the c_s writes above before these reads)
-  constexpr int NCH = C / B::KC, kConv = 3 * NCH;
-  const auto col_tap = [&](int k) {
-    return Tap{nullptr, w13 + static_cast<size_t>(k) * C * C, r, 0};
-  };
-  const auto rap_tap = [&](int) { return Tap{x, rap, r, 0}; };
-  const ConvStages<B, decltype(col_tap)> cv{smem, col_tap, n, w0, B::TM, H, W, nullptr, nullptr};
-  const ConvStages<B, decltype(rap_tap)> rp{smem, rap_tap, n, w0, B::TM, H, W, pa, pb};
   Frag<B::MT, B::NT> f;
-  f.zero();
-  pipeline<B::DEPTH>(
-      kConv + (rap != nullptr ? NCH : 0),
-      [&](int s, int buf) {
-        if (s < kConv) cv.fetch_b(s, buf);
-        else rp.fetch(s - kConv, buf);
-      },
-      [&](int s, int buf) {
-        if (s >= kConv) rp.fixup(s - kConv, buf);
-      },
-      [&](int s, int buf) {
-        if (s < kConv) {
-          const int tap = s / NCH, ci0 = (s % NCH) * B::KC;
-          cv.template multiply<B::LDC>(c_s + tap * d * B::LDC + ci0, buf, f, B::MT);
-        } else {
-          rp.compute(buf, f, B::MT);
-        }
-      });
+  pair_mainloop<C>(smem, x, w31, b31, w13, rap, pa, pb, H, W, d, f);
 
   // ---- epilogue: write y; the CTA's [2][C] partial sum and sum of squares over its columns
   // inside the image, per thread, then over the 8 lanes of each channel pair (a fixed shuffle
@@ -849,20 +456,9 @@ cudaError_t launch_reduce(const float* part, int P, size_t len, float* out, cuda
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <int C>
-dim3 fwd_grid(int n, int h, int w) {
-  return dim3((w + K2B<C>::TM - 1) / K2B<C>::TM, h, n);
-}
-
 template <int C>
 size_t fwd_partials(int n, int h, int w) {
-  const dim3 g = fwd_grid<C>(n, h, w);
+  const dim3 g = pair_grid<C>(n, h, w);
   return static_cast<size_t>(g.x) * g.y * g.z;
 }
 
@@ -881,14 +477,12 @@ cudaError_t fwd(const float* x, const float* w31, const float* b31, const float*
                 const float* rap, const float* pa, const float* pb, float* y, float* stats,
                 float* scratch, int n, int h, int w, int d, cudaStream_t s) {
   // the ring and c; a halo past the card's shared memory per block fails here
-  const size_t c_rows = (K2B<C>::TM + 2 * static_cast<size_t>(d) + 15) / 16 * 16;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(K2A<C>::DEPTH) * K2A<C>::STAGE +
-                                       c_rows * K2B<C>::LDC);
+  const size_t smem = pair_smem_bytes<C>(d);
   if (smem > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fwd_pair_mma_kernel<C>, smem);
   if (err != cudaSuccess) return err;
-  fwd_pair_mma_kernel<C><<<fwd_grid<C>(n, h, w), kThreads, smem, s>>>(x, w31, b31, w13, rap, pa,
-                                                                      pb, y, scratch, h, w, d);
+  fwd_pair_mma_kernel<C><<<pair_grid<C>(n, h, w), kThreads, smem, s>>>(x, w31, b31, w13, rap, pa,
+                                                                       pb, y, scratch, h, w, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(scratch, static_cast<int>(fwd_partials<C>(n, h, w)), 2 * C, stats, s);

@@ -6,8 +6,9 @@ Port of mdilss_tpu/ops/pallas/nb1d.py `nb1d_fused_infer`. The block
     relu(3x1 dil d + b) -> 1x3 dil d (+ RAP 1x1 on m) -> folded BN + x -> relu
 
 runs on CUDA tensors as two launches of a hand-written conv-pair kernel in
-`csrc/nb1d_infer.cu` (see the note there): float32 with fp32 FMAs on the CUDA
-cores, bfloat16 with bf16 `mma.sync` on the tensor cores. On CPU tensors it
+`csrc/nb1d_infer.cu` (see the note there), both on the tensor cores: float32
+as 3xTF32 `mma.sync` on the training pair's mainloop (`csrc/tf32_pair.cuh`),
+bfloat16 with bf16 `mma.sync`. On CPU tensors it
 runs as `nb1d_infer_plain`, an F.conv2d chain computing the same function.
 The dispatcher picks by the tensor's device only; a CUDA tensor the kernel
 does not take raises, it never falls back to the plain version or to the

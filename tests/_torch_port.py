@@ -1,6 +1,8 @@
 """Shared helpers of the PyTorch-port tests (tests/test_torch_*.py): JAX
 models with randomised BatchNorm, moved into the port through the weight
-bridge, so both packages run the same weights on the same inputs."""
+bridge, so both packages run the same weights on the same inputs; and the
+3xTF32 arithmetic of the port's fp32 kernels emulated on the CPU (`tf32_rna`,
+`split`, the conv pair in its kernels' order)."""
 import numpy as np
 import torch
 
@@ -47,3 +49,69 @@ def to_nchw(x_nhwc: np.ndarray) -> torch.Tensor:
 def rel_l2(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# ---- the fp32 kernels' arithmetic (csrc/tf32_pair.cuh) --------------------------------------
+# TF32 keeps float32's exponent and 10 mantissa bits. `tf32_rna` emulates cvt.rna.tf32.f32
+# (round to nearest, ties away from zero) on the float32 bits, with the integer rounding the
+# kernels use. Each operand splits as hi = rna(x), lo = rna(x - hi); a product of TF32 values is
+# exact in float32 (11 x 11 significant bits), so float32 matmuls of the split operands give the
+# tensor cores' products, summed in float32.
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero), as float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def pair_emulated(x, w31s, b31, w13s, rap, pre, d: int, one_pass: bool = False):
+    """The conv pair of K2 and of K1's fp32 kernel (tf32_pair.cuh's mainloop) in their order:
+    y [N, H, W, C] and K2's stats [2, C] (float64) on x [N, H, W, C] float32.
+
+    Every operand split hi/lo with tf32_rna, each K chunk of 32 input channels (16 at C = 16)
+    summed in a fresh float32 accumulator and added to a running float32 sum; stage A
+    (c = relu(rowconv_d(u) + b31), kept in float32) over the row taps, stage B (y = colconv_d(c))
+    over the column taps, then RAP on u; the stats as float32 sums over one CTA tile (TM = 256 /
+    128 columns at C = 16 / 64: here one per image row) added in float64. `one_pass`: one TF32
+    product (hi x hi) in place of three."""
+    import torch.nn.functional as F
+
+    n, h, w, c = x.shape
+    kc = min(c, 32)
+
+    def gemm(blocks):
+        acc = torch.zeros(n, h, w, c)
+        for a, b in blocks:
+            for i in range(0, c, kc):
+                (ah, al), (bh, bl) = split(a[..., i:i + kc].contiguous()), split(b[i:i + kc])
+                acc = acc + (ah @ bh if one_pass else al @ bh + ah @ bl + ah @ bh)
+        return acc
+
+    u = x if pre is None else torch.relu(x * pre[0] + pre[1])
+    up = F.pad(u, (0, 0, 0, 0, d, d))  # zero rows above and below
+    cc = torch.relu(gemm([(up[:, k * d:k * d + h], w31s[k * c:(k + 1) * c]) for k in range(3)])
+                    + b31)
+    cp = F.pad(cc, (0, 0, d, d))  # zero columns left and right
+    blocks = [(cp[:, :, k * d:k * d + w], w13s[k * c:(k + 1) * c]) for k in range(3)]
+    y = gemm(blocks + ([(u, rap)] if rap is not None else []))
+    part = torch.stack([y.sum(2), y.square().sum(2)])  # [2, N, H, C]: one sum per CTA, float32
+    return y, part.double().sum((1, 2))
+
+
+def nb1d_fp32_emulated(x, ops, dilated: int, one_pass: bool = False) -> torch.Tensor:
+    """K1's fp32 block (two launches of nb1d_pair_tf32_kernel) in its order on x [N, H, W, C]
+    float32: each pair through `pair_emulated` with no pre-stage, the epilogue relu(fma(a, y,
+    b) [+ res]) in float32 (the fma rounded once, through float64), m kept in float32."""
+    def epilogue(y, a, b, res=None):
+        z = (a.double() * y.double() + b.double()).float()
+        return torch.relu(z if res is None else z + res)
+
+    y1, _ = pair_emulated(x, ops.w31a, ops.b31a, ops.w13a, ops.rap1, None, 1, one_pass)
+    m = epilogue(y1, ops.a1, ops.b1)
+    y2, _ = pair_emulated(m, ops.w31b, ops.b31b, ops.w13b, ops.rap2, None, dilated, one_pass)
+    return epilogue(y2, ops.a2, ops.b2, x)

@@ -11,7 +11,8 @@ Tolerances: float32 relative L2 1e-5 with TF32 off in the plain version
 output (the 1x3 conv's y, the RAP term and their sum) to bfloat16 and sums in
 cuDNN's order, while the kernel keeps y in float32 up to its epilogue. K2/K3 (float32 only) at relative L2
 1e-5, and both (3xTF32 on the tensor cores) at their tile edges against
-float64 (K2's batch mean and variance at 1e-4); the training block's
+float64 (K2's batch mean and variance at 1e-4); K1's fp32 kernel runs K2's
+mainloop and is held to K2's y bit for bit; the training block's
 gradients at 1e-4 (the BN backward divides by the batch std).
 """
 import numpy as np
@@ -49,7 +50,7 @@ def _randomize_bn(module, gen):
             bn.running_var.copy_(torch.empty(c).uniform_(0.5, 1.5, generator=gen))
 
 
-# K1's bf16 kernel tiles a row by 64 / 128 / 256 output columns (C = 128 / 64 / 16) and computes c
+# Both K1 kernels tile a row by 64 / 128 / 256 output columns (C = 128 / 64 / 16) and compute c
 # for d more columns on each side, in passes of 96 / 192 / 384 columns: W below one tile or a
 # multiple of none, H <= 2d (a row's taps skipped at both ends), a d that takes two passes,
 # batch 1 and 6
@@ -112,12 +113,13 @@ def _random_block(c, d, rap, seed, dev):
     return blk.to(dev), gen
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("c,d", [(128, 8), (64, 1), (16, 1)])
-def test_bf16_kernel_bitwise_repeatable(cuda, c, d):
+def test_kernel_bitwise_repeatable(cuda, c, d, dtype):
     blk, gen = _random_block(c, d, c != 16, c + d, cuda)
-    x = torch.randn(6, c, 16, 100, generator=gen).to(cuda, torch.bfloat16).contiguous(
+    x = torch.randn(6, c, 16, 100, generator=gen).to(cuda, dtype).contiguous(
         memory_format=torch.channels_last)
-    ops = K.prepare_operands(blk, 0 if c != 16 else None, torch.bfloat16)
+    ops = K.prepare_operands(blk, 0 if c != 16 else None, dtype)
     assert torch.equal(K.nb1d_infer(x, ops, d), K.nb1d_infer(x, ops, d))
 
 
@@ -307,6 +309,29 @@ def test_fwd_and_bwd_compute_the_same_c(cuda):
     got = y.permute(0, 2, 3, 1)
     assert int((c_k3 > 0).sum()) > 0
     assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("rap", [True, False], ids=["rap", "plain"])
+@pytest.mark.parametrize("d", [1, 16])
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_k1_fp32_and_k2_compute_the_same_y(cuda, c, d, rap):
+    """K1's fp32 kernel and K2 run the same pair mainloop (csrc/tf32_pair.cuh).
+    One K1 pair with a = 1, b = 0 and no residual writes relu(fma(1, y, 0)) =
+    relu(y), so it must equal relu of K2's y (no pre-stage) bit for bit; W
+    spans several column tiles and ends in a ragged one."""
+    gen = torch.Generator().manual_seed(7 * c + d + rap)
+    w31, b31, w13, rapw, _ = _pair_args(gen, c, rap, False, cuda)
+    n, h, w = 2, 9, 300
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda).contiguous(memory_format=torch.channels_last)
+    y, _ = T.fwd_pair(x, w31, b31, w13, rapw, None, d)
+    w31s, b31v, w13s, rapm, _, _ = T._kernel_operands(x, w31, b31, w13, rapw, None)
+    ones = torch.ones(c, device=cuda)
+    before = K.LAUNCHES
+    got = K._launch_pair(x, w31s, b31v, w13s, rapm, ones, torch.zeros_like(ones), None, d)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    assert int((y > 0).sum()) > 0 and int((y < 0).sum()) > 0
+    assert torch.equal(got, torch.relu(y)), int((got != torch.relu(y)).sum())
 
 
 def test_fwd_pair_raises_where_its_halo_does_not_fit(cuda):

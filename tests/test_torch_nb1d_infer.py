@@ -12,7 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_port import randomize_bn, to_nchw
+from _torch_port import nb1d_fp32_emulated, randomize_bn, rel_l2, to_nchw
 from mdilss_tpu.models import blocks as B
 from mdilss_tpu.ops.pallas.nb1d import _fold_bn, nb1d_fused_infer
 from mdilss_tpu_torch.ckpt.convert import nb_block_state_dict
@@ -86,6 +86,28 @@ def test_plain_bf16_matches_jax_kernel(c, d, rap, task):
     got = got.float().permute(0, 2, 3, 1).numpy()
     err = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert err <= TOL_BF16_VS_JAX, err
+
+
+@pytest.mark.parametrize("rap", [False, True], ids=["plain", "rap"])
+@pytest.mark.parametrize("c,d", [(16, 1), (16, 2), (64, 1), (64, 2)])
+def test_fp32_kernel_order_matches_jax_kernel(c, d, rap):
+    """K1's fp32 kernel (nb1d_pair_tf32_kernel: K2's 3xTF32 pair mainloop, no
+    pre-stage, the folded-BN epilogue, m in float32) emulated in its order on
+    the CPU: equal to the Pallas kernel at the fp32 tolerance above and within
+    1e-6 relative L2 of the block in float64; one TF32 pass misses 1e-5."""
+    task = 1 if rap else None
+    p, s, blk, x = _block(c, d, rap, seed=3 * c + d)
+    xj = jnp.asarray(x)
+    bn = (s["bns1"], s["bns2"]) if rap else (s["bn1"], s["bn2"])
+    fused = np.asarray(nb1d_fused_infer(xj, p, *bn, dilated=d, task=task, interpret=True))
+    ops = K.prepare_operands(blk, task, torch.float32)
+    got = nb1d_fp32_emulated(torch.from_numpy(x), ops, d)
+    np.testing.assert_allclose(got.numpy(), fused, atol=2e-5, rtol=1e-4)
+    ops64 = K.Nb1dOperands(*(None if t is None else t.double() for t in ops))
+    want = K.nb1d_infer_plain(to_nchw(x).double(), ops64, d).permute(0, 2, 3, 1).numpy()
+    assert rel_l2(got, want) <= 1e-6, rel_l2(got, want)
+    one = nb1d_fp32_emulated(torch.from_numpy(x), ops, d, one_pass=True)
+    assert rel_l2(one, want) > 1e-5, rel_l2(one, want)
 
 
 def test_fold_bn_matches_jax_fold():

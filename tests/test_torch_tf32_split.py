@@ -1,32 +1,19 @@
-"""The numeric premise of K2 and K3 on the tensor cores (mdilss_tpu_torch/csrc/nb1d_train.cu):
-a float32 product done as three TF32 products (3xTF32) is float32-accurate, one TF32
-product is not.
+"""The numeric premise of the port's fp32 kernels on the tensor cores (K1's fp32
+kernel, K2 and K3: mdilss_tpu_torch/csrc/tf32_pair.cuh): a float32 product done
+as three TF32 products (3xTF32) is float32-accurate, one TF32 product is not.
 
-TF32 keeps float32's exponent and 10 mantissa bits. `tf32_rna` emulates
-cvt.rna.tf32.f32 (round to nearest, ties away from zero) on the float32 bits,
-with the integer rounding the kernel itself uses. Each operand splits as
-hi = rna(x), lo = rna(x - hi); a product of TF32 values is exact in float32
-(11 x 11 significant bits), so float32 matmuls of the split operands give the
-tensor cores' products, summed in float32. The shapes are those of one K3
-weight-gradient product ([pixels x C]^T [pixels x C]) and of one tap-stacked
-conv chunk ([pixels x 3C] @ [3C x C]), at small size, and K2's whole pair in
-its kernel's order. Held to float64 in relative L2: 3xTF32 within 1e-6, one
-TF32 pass above 1e-5 (the card holds K2 and K3 to 1e-5).
+The emulation of the kernels' arithmetic (`tf32_rna`, `split`, `pair_emulated`)
+is in tests/_torch_port.py. The shapes are those of one K3 weight-gradient
+product ([pixels x C]^T [pixels x C]) and of one tap-stacked conv chunk
+([pixels x 3C] @ [3C x C]), at small size, and K2's whole pair in its kernel's
+order. Held to float64 in relative L2: 3xTF32 within 1e-6, one TF32 pass above
+1e-5 (the card holds K2 and K3 to 1e-5).
 """
 import numpy as np
 import pytest
 import torch
 
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (ties away from zero), as float32."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
+from _torch_port import pair_emulated, split, tf32_rna
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -78,37 +65,6 @@ def test_3xtf32_is_float32_accurate_and_one_tf32_pass_is_not(kind, m, k, n):
 
 
 # ---- K2 (the training pair's forward) in its kernel's order ---------------------------------
-# The kernel's arithmetic, emulated: every operand split hi/lo with tf32_rna, each K chunk of 32
-# input channels (16 at C = 16) summed in a fresh float32 accumulator and added to a running
-# float32 sum; stage A (c = relu(rowconv_d(u) + b31), kept in float32) over the row taps, stage B
-# (y = colconv_d(c)) over the column taps, then RAP on u; the stats as float32 sums over one CTA
-# tile (TM = 256 / 128 columns at C = 16 / 64: here one per image row) added in float64.
-
-def _k2_emulated(x, w31s, b31, w13s, rap, pre, d: int, one_pass: bool = False):
-    """y [N, H, W, C] and stats [2, C] (float64) of the pair on x [N, H, W, C] float32."""
-    import torch.nn.functional as F
-
-    n, h, w, c = x.shape
-    kc = min(c, 32)
-
-    def gemm(blocks):
-        acc = torch.zeros(n, h, w, c)
-        for a, b in blocks:
-            for i in range(0, c, kc):
-                (ah, al), (bh, bl) = split(a[..., i:i + kc].contiguous()), split(b[i:i + kc])
-                acc = acc + (ah @ bh if one_pass else al @ bh + ah @ bl + ah @ bh)
-        return acc
-
-    u = x if pre is None else torch.relu(x * pre[0] + pre[1])
-    up = F.pad(u, (0, 0, 0, 0, d, d))  # zero rows above and below
-    cc = torch.relu(gemm([(up[:, k * d:k * d + h], w31s[k * c:(k + 1) * c]) for k in range(3)])
-                    + b31)
-    cp = F.pad(cc, (0, 0, d, d))  # zero columns left and right
-    blocks = [(cp[:, :, k * d:k * d + w], w13s[k * c:(k + 1) * c]) for k in range(3)]
-    y = gemm(blocks + ([(u, rap)] if rap is not None else []))
-    part = torch.stack([y.sum(2), y.square().sum(2)])  # [2, N, H, C]: one sum per CTA, float32
-    return y, part.double().sum((1, 2))
-
 
 @pytest.mark.parametrize("c,d", [(16, 1), (16, 2), (64, 1), (64, 2)])
 def test_k2_order_is_float32_accurate_and_one_tf32_pass_is_not(c, d):
@@ -138,10 +94,10 @@ def test_k2_order_is_float32_accurate_and_one_tf32_pass_is_not(c, d):
         var = torch.clamp(st[1] / (n * h * w) - mu * mu, min=0.0)
         return float((mu - m64).norm() / v64.sqrt().norm()), float((var - v64).norm() / v64.norm())
 
-    y, st = _k2_emulated(x, w31s, b31, w13s, rap, pre, d)
+    y, st = pair_emulated(x, w31s, b31, w13s, rap, pre, d)
     assert rel_l2(y, y64) <= 1e-6, rel_l2(y, y64)
     assert max(stats_err(st)) <= 1e-6, stats_err(st)
-    y1, _ = _k2_emulated(x, w31s, b31, w13s, rap, pre, d, one_pass=True)
+    y1, _ = pair_emulated(x, w31s, b31, w13s, rap, pre, d, one_pass=True)
     assert rel_l2(y1, y64) > 1e-5, rel_l2(y1, y64)
     yp, stp = fwd_pair_plain(x_nchw, *args[:5], d)
     assert rel_l2(yp.permute(0, 2, 3, 1), y64) <= 1e-6, rel_l2(yp.permute(0, 2, 3, 1), y64)

@@ -5,8 +5,9 @@ accuracy against float64.
 
     python3 tools_torch/k2_variants.py [--out build/k2_variants.json] [--only NAME ...]
 
-Variants, each a text substitution of the committed source (nb1d_train.cu)
-built into build/k2_variants/<name>/ and run in its own process:
+Variants, each a text substitution of the committed sources (csrc/nb1d_train.cu
+and csrc/tf32_pair.cuh, which holds the pair mainloop K2 shares with K1's fp32
+kernel) built into build/k2_variants/<name>/ and run in its own process:
   as_built    the source as it is (run first and last);
   cuda_cores  the CUDA-core kernel K2 had before it moved to the tensor cores
               (fp32 FMAs, each thread a 4-pixel x 8-channel tile; kept here
@@ -43,7 +44,9 @@ PACKAGE = ROOT / "mdilss_tpu_torch"
 WORK = ROOT / "build" / "k2_variants"
 ORDER = ("as_built", "cuda_cores", "c_split", "ring3", "ring4", "tm_smaller", "one_cta",
          "as_built")
-SOURCE = "nb1d_train.cu"
+# the files a variant may change, relative to the package
+SOURCE, PAIR = "csrc/nb1d_train.cu", "csrc/tf32_pair.cuh"
+FILES = (SOURCE, PAIR)
 # device time by kernel name: the pair kernel (either design) and the fixed-order sum
 KINDS = {"pair": "fwd_pair", "sum": "namespace)::reduce_kernel("}
 
@@ -313,8 +316,8 @@ CUDA_CORES_LAUNCH = """\
   const size_t smem = sizeof(float) * (K::AB + static_cast<size_t>(K::TW + 2 * d) * C);
   cudaError_t err = set_smem(fwd_pair_kernel<C>, smem);
   if (err != cudaSuccess) return err;
-  fwd_pair_kernel<C><<<fwd_grid<C>(n, h, w), kThreads, smem, s>>>(x, w31, b31, w13, rap, pa, pb,
-                                                                  y, scratch, h, w, d);
+  fwd_pair_kernel<C><<<dim3((w + K::TW - 1) / K::TW, h, n), kThreads, smem, s>>>(
+      x, w31, b31, w13, rap, pa, pb, y, scratch, h, w, d);
   err = cudaGetLastError();
 """
 
@@ -386,16 +389,18 @@ def _between(text: str, start: str, end: str) -> str:
     return text[i:j]
 
 
-def variants(src: str) -> dict[str, dict[str, str]]:
-    """name -> {file in csrc/: its text} for each file the variant changes."""
-    grid = "template <int C>\ndim3 fwd_grid(int n, int h, int w) {"
-    cores = _sub(src, grid, CUDA_CORES + "\n" + grid)
-    cores = _sub(cores, "return dim3((w + K2B<C>::TM - 1) / K2B<C>::TM, h, n);",
-                 "return dim3((w + Cfg<C>::TW - 1) / Cfg<C>::TW, h, n);")
+def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
+    """name -> {file (relative to the package): its text} for each file the
+    variant changes; `files` holds the committed text of FILES."""
+    src, pair = files[SOURCE], files[PAIR]
+    partials = "template <int C>\nsize_t fwd_partials(int n, int h, int w) {"
+    cores = _sub(src, partials, CUDA_CORES + "\n" + partials)
+    cores = _sub(cores, "const dim3 g = pair_grid<C>(n, h, w);",
+                 "const dim3 g((w + Cfg<C>::TW - 1) / Cfg<C>::TW, h, n);")
     cores = _sub(cores, _between(cores, "  // the ring and c; a halo past",
                                  "  err = cudaGetLastError();\n"), CUDA_CORES_LAUNCH)
 
-    split = _sub(src, "  static constexpr int LDC = C + 4;",
+    split = _sub(pair, "  static constexpr int LDC = C + 4;",
                  "  static constexpr int LDC = 2 * C + 4;  // hi, then lo")
     split = _sub(split, "      st2(p, c0, c1);\n",
                  "      uint32_t h0, l0, h1, l1;\n"
@@ -407,10 +412,10 @@ def variants(src: str) -> dict[str, dict[str, str]]:
                         "B::MT);",
                  "multiply_presplit<B>(c_s + tap * d * B::LDC + ci0, "
                  "smem + buf * B::STAGE + B::B_OFF, f);")
-    k2 = "// ---- K2: forward pair"
-    split = _sub(split, k2, C_SPLIT + k2)
+    mainloop = "// ---- the pair mainloop"
+    split = _sub(split, mainloop, C_SPLIT + mainloop)
 
-    small = _sub(src, "struct K2B : Tiling<C, 2, Warps<C>::WM * 32, 32, 16,",
+    small = _sub(pair, "struct K2B : Tiling<C, 2, Warps<C>::WM * 32, 32, 16,",
                  "struct K2B : Tiling<C, 1, Warps<C>::WM * 16, 16, 16,")
     small = _sub(small, "  static constexpr int TM = Warps<C>::WM * 32;      // 64, 128, 256",
                  "  static constexpr int TM = Warps<C>::WM * 16;")
@@ -422,11 +427,11 @@ def variants(src: str) -> dict[str, dict[str, str]]:
     return {
         "as_built": {},
         "cuda_cores": {SOURCE: cores},
-        "c_split": {SOURCE: split},
-        "ring3": {SOURCE: _sub(src, occ, "constexpr int K2_CTAS = 2, K2_DEPTH = 3;")},
-        "ring4": {SOURCE: _sub(src, occ, "constexpr int K2_CTAS = 2, K2_DEPTH = 4;")},
-        "tm_smaller": {SOURCE: small},
-        "one_cta": {SOURCE: _sub(src, occ, "constexpr int K2_CTAS = 1, K2_DEPTH = 2;")},
+        "c_split": {PAIR: split},
+        "ring3": {PAIR: _sub(pair, occ, "constexpr int K2_CTAS = 2, K2_DEPTH = 3;")},
+        "ring4": {PAIR: _sub(pair, occ, "constexpr int K2_CTAS = 2, K2_DEPTH = 4;")},
+        "tm_smaller": {PAIR: small},
+        "one_cta": {PAIR: _sub(pair, occ, "constexpr int K2_CTAS = 1, K2_DEPTH = 2;")},
     }
 
 
@@ -481,6 +486,10 @@ def measure(root: Path, name: str) -> dict:
             "blocks": blocks, "worst_vs_f64": worst}
 
 
+def committed() -> dict[str, str]:
+    return {f: (PACKAGE / f).read_text() for f in FILES}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k2_variants.json")
@@ -490,8 +499,7 @@ def main(argv=None) -> int:
     if args.measure:
         print(json.dumps(measure(Path(args.measure[0]), args.measure[1])))
         return 0
-    csrc = PACKAGE / "csrc"
-    table = variants((csrc / SOURCE).read_text())
+    table = variants(committed())
     order = args.only or ORDER
     for name in dict.fromkeys(order):
         root = WORK / name
@@ -499,7 +507,7 @@ def main(argv=None) -> int:
         shutil.copytree(PACKAGE, root / PACKAGE.name,
                         ignore=shutil.ignore_patterns("__pycache__"))
         for fname, text in table[name].items():
-            (root / PACKAGE.name / "csrc" / fname).write_text(text)
+            (root / PACKAGE.name / fname).write_text(text)
     results = []
     for name in order:
         proc = subprocess.run([sys.executable, __file__, "--measure", str(WORK / name), name],

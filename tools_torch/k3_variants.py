@@ -5,9 +5,10 @@ against float64.
 
     python3 tools_torch/k3_variants.py [--out build/k3_variants.json]
 
-Variants, each a text substitution of the committed sources (nb1d_train.cu,
-and sm90_async.cuh for the ring depth) built into build/k3_variants/<name>/
-and run in its own process:
+Variants, each a text substitution of the committed sources (csrc/nb1d_train.cu,
+csrc/tf32_pair.cuh for the 3xTF32 products K3 shares with K2 and K1's fp32
+kernel, csrc/sm90_async.cuh for the ring depth) built into
+build/k3_variants/<name>/ and run in its own process:
   as_built      the source as it is (run first and last);
   one_level     the products summed straight in the mma accumulator, with no
                 second, round-to-nearest accumulator per K chunk;
@@ -36,7 +37,22 @@ WORK = ROOT / "build" / "k3_variants"
 ORDER = ("as_built", "one_level", "lo_truncated", "stages2", "stages4", "as_built")
 
 
-SOURCE, RING = "nb1d_train.cu", "sm90_async.cuh"
+# the files a variant may change, relative to the package
+SOURCE, PAIR, RING = "csrc/nb1d_train.cu", "csrc/tf32_pair.cuh", "csrc/sm90_async.cuh"
+FILES = (SOURCE, PAIR, RING)
+# ConvStages::multiply (f.acc += one K chunk's product, through the fresh accumulator f.loc) and
+# its one-level replacement (the products summed straight into f.acc)
+MULTIPLY = """    product<AM>(a, buf, f.loc, live);
+    f.flush();
+"""
+MULTIPLY_ONE_LEVEL = """    const int warp = threadIdx.x >> 5, wm = warp % L::WM, wn = warp / L::WM;
+    const float* A = a + wm * L::WROWS * AM;
+    const float* B = smem + buf * L::STAGE + L::B_OFF + wn * L::NT * 8;
+#pragma unroll
+    for (int ks = 0; ks < L::KC / 8; ++ks)
+      mma_k8<L::MT, L::NT, AM, 1, L::LDB, false, L::TROWS, L::LDSM>(
+          A + ks * 8, B + ks * 8 * L::LDB, f.acc, live);
+"""
 
 
 def _sub(text: str, old: str, new: str, count: int) -> str:
@@ -45,17 +61,19 @@ def _sub(text: str, old: str, new: str, count: int) -> str:
     return text.replace(old, new)
 
 
-def variants(src: str, ring: str) -> dict[str, dict[str, str]]:
-    """name -> {file in csrc/: its text} for each file the variant changes."""
-    one = _sub(src, "f.loc);", "f.acc);", 4)
-    one = _sub(one, "true>(", "false>(", 2)
-    one = _sub(one, "f.flush();", "", 2)
+def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
+    """name -> {file (relative to the package): its text} for each file the
+    variant changes; `files` holds the committed text of FILES."""
+    src, pair, ring = (files[f] for f in FILES)
+    one = _sub(src, "f.loc);", "f.acc);", 2)  # the weight gradients
+    one = _sub(one, "true>(", "false>(", 1)
+    one = _sub(one, "f.flush();", "", 1)
     stages = "constexpr int kStages = 3;"
     return {
         "as_built": {},
-        "one_level": {SOURCE: one},
-        "lo_truncated": {SOURCE: _sub(src, "lo = tf32_rna(x - __uint_as_float(hi));",
-                                      "lo = __float_as_uint(x - __uint_as_float(hi));", 1)},
+        "one_level": {SOURCE: one, PAIR: _sub(pair, MULTIPLY, MULTIPLY_ONE_LEVEL, 1)},
+        "lo_truncated": {PAIR: _sub(pair, "lo = tf32_rna(x - __uint_as_float(hi));",
+                                    "lo = __float_as_uint(x - __uint_as_float(hi));", 1)},
         "stages2": {RING: _sub(ring, stages, "constexpr int kStages = 2;", 1)},
         "stages4": {RING: _sub(ring, stages, "constexpr int kStages = 4;", 1)},
     }
@@ -107,6 +125,10 @@ def measure(root: Path, name: str) -> dict:
             "worst_rel_l2_vs_f64": worst}
 
 
+def committed() -> dict[str, str]:
+    return {f: (PACKAGE / f).read_text() for f in FILES}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/k3_variants.json")
@@ -115,14 +137,13 @@ def main(argv=None) -> int:
     if args.measure:
         print(json.dumps(measure(Path(args.measure[0]), args.measure[1])))
         return 0
-    csrc = PACKAGE / "csrc"
-    for name, files in variants((csrc / SOURCE).read_text(), (csrc / RING).read_text()).items():
+    for name, files in variants(committed()).items():
         root = WORK / name
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(PACKAGE, root / PACKAGE.name,
                         ignore=shutil.ignore_patterns("__pycache__"))
         for fname, text in files.items():
-            (root / PACKAGE.name / "csrc" / fname).write_text(text)
+            (root / PACKAGE.name / fname).write_text(text)
     results = []
     for name in ORDER:
         proc = subprocess.run([sys.executable, __file__, "--measure", str(WORK / name), name],
