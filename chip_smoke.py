@@ -49,10 +49,31 @@ Phases, each fatal on failure (non-zero exit):
      device time outside K1/K2/K3 into families (cuDNN conv and its backward,
      BN and dropout glue, losses over the logits, Adam, ...) by the torch
      ops and Python frames around each kernel's launch in a second profiled
-     step's chrome trace (`ms_by_family`).
+     step's chrome trace (`ms_by_family`);
+ 10. drive step 3's two-phase train step at full width and depth (reference
+     trainer_OURS.sh step 3, Cityscapes|BDD -> IDD): student ERFNet-RAP
+     [20, 20, 27] (current task 2, previous tasks 1 and 0), train-mode
+     teacher [20, 20], 6x512x1024 float32, IDD class weights, lambda 0.1, the
+     same LRs and epoch, iou_train, 3 batches on one batch of data; the
+     counts are zeroed before this phase and every batch must launch exactly
+     0 K1 / 170 K2 / 102 K3, take two Adam steps, count every pixel in its
+     confusion matrix, and leave the frozen student parameters and every
+     teacher parameter and buffer bitwise unchanged; then time the batch
+     (ms, img/s, peak memory) and profile one (device busy, idle share,
+     K2/K3 device ms);
+ 11. the other steps: the eval step on head 2 of that student (exactly 34 K1
+     and no K2/K3) and one CE step on ERFNet-RAP [20] at 6x512x1024
+     (Cityscapes weights; exactly 34 K2 and 34 K3, no K1), each with its
+     counts zeroed before it, timed and profiled; then one step-3 batch at
+     2x128x256 on the card and on the CPU from the same weights, masks and
+     batch (loss, ce, kld and running statistics within 1e-5, the teacher
+     unchanged on both), and the eval step on both (loss within 1e-5, the
+     confusion matrices equal on the pixels whose CPU top-2 gap exceeds 4x
+     the RMS card - CPU logit difference).
 It prints the card's name and power limit, one `kernels` JSON line (K1's
-entry also carries its 17-block sums at batch 6 in bf16 and fp32) and, as
-the last line, {"ok": true, "device": {...}}. The full record goes to --out.
+entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
+entry its launches on every path driven) and, as the last line,
+{"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
 """
 from __future__ import annotations
@@ -61,6 +82,7 @@ import argparse
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +142,21 @@ SHARED_LR, DS_LR, LAMBDA_C = 5e-6, 5e-4, 0.1
 SMALL = (2, 128, 256)  # the card-vs-CPU step
 # launches per train step: 2 student forwards x 17 blocks x 2 pairs; the teacher's 17 blocks x 2
 STEP_LAUNCHES = {"K1": 17 * K.LAUNCHES_PER_BLOCK, "K2": 68, "K3": 68}
+# the step-3 train step (reference trainer_OURS.sh step 3: Cityscapes|BDD -> IDD, config.step3):
+# the two-phase step with the train-mode teacher
+STEP3_STUDENT, STEP3_TEACHER = [20, 20, 27], [20, 20]
+STEP3_CURRENT, STEP3_PREV = 2, (1, 0)
+STEP3_STEPS = 3
+# launches per step-3 batch: 3 student and 2 train-mode teacher forwards x 17 blocks x 2 pairs
+# (K2); 3 student backwards x 34 (K3); no K1 (a teacher in eval mode would launch 68)
+STEP3_LAUNCHES = {"K1": 0, "K2": 170, "K3": 102}
+CE_CLASSES = [20]  # the CE step: step 1 on Cityscapes
+CE_LAUNCHES = {"K1": 0, "K2": 34, "K3": 34}  # one student forward and backward
+EVAL_LAUNCHES = {"K1": 34, "K2": 0, "K3": 0}  # one eval-mode forward
+# the step-3 step at 2x128x256 on the card vs the CPU: loss, ce, kld and the student's running
+# statistics (both phases' forwards; phase 2 after an Adam step whose sign noise moves an
+# element by at most 2 lr), relative; the eval step's loss likewise
+TOL_STEP3 = 1e-5
 # K2/K3 (float32) vs their plain versions in float64, relative L2: float32
 # sums over up to 786k pixels
 TOL_TRAIN_REL_L2 = 1e-5
@@ -824,25 +861,16 @@ def wgrad_library_ms(x: torch.Tensor, gy: torch.Tensor, rap: bool, tf32: bool) -
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def phase_train_times(seed: int, dev: torch.device, run) -> dict:
-    student, teacher, images, labels, masks, step, ts = run
-    n = images.shape[0]
-    state = {"ts": ts}
-
-    def one_step():
-        state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
-
-    ms = time_ms(one_step, iters=3, warmup=1)
-    out = {"step_ms": ms, "img_per_s": n * 1e3 / ms}
-    print(f"[train-time] step {n}x{HEIGHT}x{WIDTH} f32: {ms:.3f} ms/step, "
-          f"{n * 1e3 / ms:.2f} img/s")
-
+def profile_once(fn, tag: str, what: str) -> dict:
+    """One call of `fn` under torch.profiler (CUDA activity), printed under
+    `tag`: host ms, device busy ms, idle share, kernels launched, device ms of
+    K1 / K2 / K3 / their partial sums, K3 by launch kind, the top 10 kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    sync(dev)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        one_step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -858,18 +886,25 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
     k3_kinds = {kind: sum(v for k, v in by_name.items() if pat in k)
                 for kind, pat in K3_KINDS.items() if kind != "sum"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    out["profile"] = {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-                      "kernels_per_step": len(kernels), "ms_by_group": shares,
-                      "k3_ms_by_kind": k3_kinds, "top": [[k[:90], v] for k, v in top]}
-    print(f"[train-profile] one step: host {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
+    print(f"[{tag}] {what}: host {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
           f"share {1.0 - busy / wall_ms:.3f}, {len(kernels)} kernels; "
           + ", ".join(f"{g} {v:.3f} ms" for g, v in shares.items())
           + "; K3 " + ", ".join(f"{k} {v:.3f} ms" for k, v in k3_kinds.items()))
     for k, v in top:
-        print(f"[train-profile]    {v:8.4f} ms  {k[:100]}")
+        print(f"[{tag}]    {v:8.4f} ms  {k[:100]}")
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "kernels_per_step": len(kernels), "ms_by_group": shares,
+            "k3_ms_by_kind": k3_kinds, "top": [[k[:90], v] for k, v in top]}
+
+
+def family_split(fn, tag: str, what: str) -> dict:
+    """The device time of one call of `fn` outside K1/K2/K3 by family
+    (`ms_by_family`), from the chrome trace of a profiled call with Python
+    stacks; printed under `tag`."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True) as prof:
-        one_step()
+        fn()
         torch.cuda.synchronize()
     trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "step_trace.json")
     os.makedirs(os.path.dirname(trace), exist_ok=True)
@@ -877,14 +912,31 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
     with open(trace) as f:
         fam, fam_top, counts = ms_by_family(json.load(f)["traceEvents"])
     os.remove(trace)
-    out["profile"].update(ms_by_family=fam, family_top=fam_top, family_counts=counts)
-    print(f"[train-profile] outside K1/K2/K3, device ms per step by family (a second profiled "
-          f"step, with Python stacks; {counts['device_events']} device events, launch found for "
+    print(f"[{tag}] outside K1/K2/K3, device ms per {what} by family (a second profiled "
+          f"{what}, with Python stacks; {counts['device_events']} device events, launch found for "
           f"{counts['launch_found']}, {counts['placed_by_name']} placed by the names around it): "
           + ", ".join(f"{k} {v:.3f}" for k, v in fam.items()))
     for k, rows in fam_top.items():
         for name, v in rows:
-            print(f"[train-profile]    {k}: {v:8.4f} ms  {name[:90]}")
+            print(f"[{tag}]    {k}: {v:8.4f} ms  {name[:90]}")
+    return {"ms_by_family": fam, "family_top": fam_top, "family_counts": counts}
+
+
+def phase_train_times(seed: int, dev: torch.device, run) -> dict:
+    student, teacher, images, labels, masks, step, ts = run
+    n = images.shape[0]
+    state = {"ts": ts}
+
+    def one_step():
+        state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+    ms = time_ms(one_step, iters=3, warmup=1)
+    out = {"step_ms": ms, "img_per_s": n * 1e3 / ms}
+    print(f"[train-time] step {n}x{HEIGHT}x{WIDTH} f32: {ms:.3f} ms/step, "
+          f"{n * 1e3 / ms:.2f} img/s")
+
+    out["profile"] = profile_once(one_step, "train-profile", "one step")
+    out["profile"].update(family_split(one_step, "train-profile", "step"))
 
     blocks = []
     for i, spec in enumerate(BLOCKS):
@@ -949,6 +1001,8 @@ FAMILIES = (
                                               "ops/dropout.py")),
     ("model glue (layout, pooling, concat)", ("mdilss_tpu_torch/models/",)),
     ("gradient accumulation", ("AccumulateGrad",)),
+    ("confusion matrix (iou_train)", ("metrics.py", "_train_cm")),
+    ("the teacher's buffers saved and restored", ("_teacher_mode",)),
     ("other", ("mdilss_tpu_torch/",)),
 )
 FAMILY_BY_KERNEL_NAME = (("cuDNN conv and its backward", ("conv", "cudnn", "xmma", "implicit",
@@ -1053,9 +1107,242 @@ def ms_by_family(events: list[dict], top: int = 3) -> tuple[dict, dict, dict]:
     return ms, fam_top, counts
 
 
+def state_copy(module: torch.nn.Module) -> dict:
+    """Every parameter and buffer of `module`, cloned."""
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def changed(module: torch.nn.Module, before: dict) -> list[str]:
+    """Names of the parameters and buffers of `module` not bitwise as in `before`."""
+    return [k for k, v in module.state_dict().items() if not torch.equal(v, before[k])]
+
+
+def step3_setup(seed: int, dev, n: int, h: int, w: int):
+    """Student [20, 20, 27] and teacher [20, 20] with random weights and BN
+    from `seed`, a batch of random images and IDD labels, and the host dropout
+    masks of the three student forwards."""
+    torch.manual_seed(seed)
+    student = ERFNetRAP(STEP3_STUDENT, len(STEP3_STUDENT), device=dev)
+    teacher = ERFNetRAP(STEP3_TEACHER, len(STEP3_TEACHER), device=dev)
+    randomize_bn(student, torch.Generator().manual_seed(seed + 1))
+    randomize_bn(teacher, torch.Generator().manual_seed(seed + 2))
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.random((n, h, w, 3), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, STEP3_STUDENT[STEP3_CURRENT], (n, h, w)))
+    masks = [make_dropout_masks(rng, n) for _ in range(1 + len(STEP3_PREV))]
+    return student, teacher, images, labels, masks
+
+
+def make_step3(student):
+    lr = rap_lr_tree(student, current_task=STEP3_CURRENT, shared_lr=SHARED_LR, ds_lr=DS_LR)
+    step = steps.make_two_phase_distill_step(
+        current_task=STEP3_CURRENT, prev_tasks=STEP3_PREV, class_weight=CLASS_WEIGHTS["IDD"],
+        lr_tree=lr, num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C, iou_train=True)
+    return lr, step
+
+
+def phase_step3(seed: int, dev: torch.device):
+    """Phase 10: STEP3_STEPS two-phase step-3 batches at 6x512x1024 with the
+    train-mode teacher; every batch launches exactly STEP3_LAUNCHES, takes
+    two Adam steps, counts every pixel in its cm, and leaves the frozen
+    student parameters and every teacher parameter and buffer bitwise as
+    they were."""
+    student, teacher, images, labels, masks = step3_setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    images, labels = images.to(dev), labels.to(dev)
+    lr, step = make_step3(student)
+    frozen = {k: p.detach().clone() for k, p in student.named_parameters() if lr[k] == 0.0}
+    old = "|".join(str(t) for t in STEP3_PREV)
+    slice_or_head = re.compile(rf"\.(parallel_conv_[12]|bns_[12]|bn_ini)\.({old})\.|^decoder\.({old})\.")
+    check(frozen and all(slice_or_head.search(k) for k in frozen),
+          "the LR dict freezes other parameters than the old tasks' slices and heads")
+    teacher_before = state_copy(teacher)
+    ts = steps.init_train_state(student)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    record = {"steps": []}
+    pixels = TRAIN_BATCH * HEIGHT * WIDTH
+    zero_launch_counts()
+    for i in range(STEP3_STEPS):
+        before, count = launch_counts(), ts.opt.count
+        t0 = time.perf_counter()
+        ts, metrics = step(ts, teacher, images, labels, masks, 1)
+        cm = metrics.pop("cm")
+        vals = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        counted = int(cm.sum())
+        secs = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        params = dict(student.named_parameters())
+        moved = [k for k, p in frozen.items() if not torch.equal(params[k], p)]
+        t_moved = changed(teacher, teacher_before)
+        record["steps"].append({**vals, "launches": launched, "seconds": secs,
+                                "adam_steps": ts.opt.count - count, "cm_pixels": counted})
+        print(f"[step3] batch {i + 1}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} kld "
+              f"{vals['kld']:.6f}; launches {launched}; Adam steps {ts.opt.count - count}; cm "
+              f"counts {counted} pixels; {secs:.3f} s")
+        check(all(np.isfinite(v) for v in vals.values()), f"non-finite step-3 losses {vals}")
+        check(launched == STEP3_LAUNCHES, f"step-3 batch launched {launched}, "
+                                          f"expected {STEP3_LAUNCHES}")
+        check(ts.opt.count == count + 2, "a step-3 batch took other than two Adam steps")
+        check(counted == pixels, f"the cm counts {counted} pixels of {pixels}")
+        check(not moved, f"frozen student parameters moved: {moved[:5]}")
+        check(not t_moved, f"the teacher's parameters or buffers changed: {t_moved[:5]}")
+    record["launches"] = launch_counts()
+    check(record["launches"]["K2"] > 0 and record["launches"]["K3"] > 0,
+          "a kernel of the step-3 path never ran")
+    record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    record["frozen_params"] = len(frozen)
+    print(f"[step3] CE over {STEP3_STEPS} batches: {[round(r['ce'], 6) for r in record['steps']]}; "
+          f"{len(frozen)} frozen student parameters and all {len(teacher_before)} teacher "
+          f"parameters and buffers bitwise unchanged; peak memory "
+          f"{record['peak_memory_bytes'] / 2**30:.2f} GiB; launches {record['launches']}")
+    return (student, teacher, images, labels, masks, step, ts), record
+
+
+def phase_step3_times(run) -> dict:
+    """ms per step-3 batch (CUDA events after warm-up) and one profiled batch."""
+    student, teacher, images, labels, masks, step, ts = run
+    n = images.shape[0]
+    state = {"ts": ts}
+
+    def one_batch():
+        state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+    ms = time_ms(one_batch, iters=3, warmup=1)
+    print(f"[step3-time] batch {n}x{HEIGHT}x{WIDTH} f32: {ms:.3f} ms/batch, "
+          f"{n * 1e3 / ms:.2f} img/s")
+    prof = profile_once(one_batch, "step3-profile", "one batch")
+    prof.update(family_split(one_batch, "step3-profile", "batch"))
+    return {"batch_ms": ms, "img_per_s": n * 1e3 / ms, "profile": prof}
+
+
+def phase_other_steps(seed: int, dev: torch.device, run) -> dict:
+    """Phase 11, at full width: the eval step on head 2 of the step-3 student
+    (EVAL_LAUNCHES) and one CE step on a [20] model (CE_LAUNCHES), each with
+    its counts zeroed just before it, then timed and profiled."""
+    student, _, images, labels, _, _, _ = run
+    n = images.shape[0]
+    out = {}
+    nc = STEP3_STUDENT[STEP3_CURRENT]
+    ev = steps.make_eval_step(task=STEP3_CURRENT, class_weight=CLASS_WEIGHTS["IDD"],
+                              num_classes=nc)
+    zero_launch_counts()
+    loss, cm = ev(student, images, labels)
+    vals = {"loss": float(loss), "cm_pixels": int(cm.sum())}
+    launched = launch_counts()
+    print(f"[eval-step] head {STEP3_CURRENT} {n}x{HEIGHT}x{WIDTH}: loss {vals['loss']:.6f}, cm "
+          f"counts {vals['cm_pixels']} pixels; launches {launched}")
+    check(launched == EVAL_LAUNCHES, f"eval step launched {launched}, expected {EVAL_LAUNCHES}")
+    check(np.isfinite(vals["loss"]) and vals["cm_pixels"] == labels.numel(),
+          f"eval step gave {vals}")
+    ms = time_ms(lambda: ev(student, images, labels), iters=5, warmup=1)
+    print(f"[eval-step] {ms:.3f} ms/call, {n * 1e3 / ms:.2f} img/s")
+    out["eval"] = {**vals, "launches": launched, "ms": ms,
+                   "profile": profile_once(lambda: ev(student, images, labels), "eval-profile",
+                                           "one call")}
+
+    torch.manual_seed(seed + 6)
+    model = ERFNetRAP(CE_CLASSES, len(CE_CLASSES), device=dev)
+    randomize_bn(model, torch.Generator().manual_seed(seed + 7))
+    rng = np.random.default_rng(seed + 6)
+    ce_labels = torch.from_numpy(rng.integers(0, CE_CLASSES[0], labels.shape)).to(dev)
+    mask = make_dropout_masks(rng, n)
+    lr = rap_lr_tree(model, current_task=0, shared_lr=DS_LR, ds_lr=DS_LR)
+    ce = steps.make_ce_step(task=0, class_weight=CLASS_WEIGHTS["cityscapes"], lr_tree=lr,
+                            num_epochs=NUM_EPOCHS)
+    state = {"ts": steps.init_train_state(model)}
+    zero_launch_counts()
+    state["ts"], metrics = ce(state["ts"], images, ce_labels, mask, 1)
+    vals = {k: float(v) for k, v in metrics.items()}
+    launched = launch_counts()
+    print(f"[ce-step] [20] {n}x{HEIGHT}x{WIDTH}: loss {vals['loss']:.6f}; launches {launched}")
+    check(launched == CE_LAUNCHES, f"CE step launched {launched}, expected {CE_LAUNCHES}")
+    check(np.isfinite(vals["loss"]) and state["ts"].opt.count == 1, f"CE step gave {vals}")
+
+    def one_ce():
+        state["ts"], _ = ce(state["ts"], images, ce_labels, mask, 1)
+
+    ms = time_ms(one_ce, iters=3, warmup=1)
+    print(f"[ce-step] {ms:.3f} ms/step, {n * 1e3 / ms:.2f} img/s")
+    out["ce"] = {**vals, "launches": launched, "ms": ms,
+                 "profile": profile_once(one_ce, "ce-profile", "one step")}
+    return out
+
+
+def phase_step3_vs_cpu(seed: int, dev: torch.device) -> dict:
+    """One step-3 batch at 2x128x256 on the card and on the CPU (plain
+    versions) from the same weights, masks and batch; then the eval step on
+    the card's updated student and its CPU copy, its cm compared on labels
+    that leave out the pixels whose CPU top-2 logit gap is within 4x the RMS
+    card - CPU logit difference (a label of C counts nowhere)."""
+    n, h, w = SMALL
+    student, teacher, images, labels, masks = step3_setup(seed + 8, dev, n, h, w)
+    s_state, t_state = state_copy(student), state_copy(teacher)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        s = student if d == dev else ERFNetRAP(STEP3_STUDENT, len(STEP3_STUDENT), device=d)
+        t = teacher if d == dev else ERFNetRAP(STEP3_TEACHER, len(STEP3_TEACHER), device=d)
+        s.load_state_dict(s_state)
+        t.load_state_dict(t_state)
+        _, step = make_step3(s)
+        ts, m = step(steps.init_train_state(s), t, images.to(d), labels.to(d), masks, 1)
+        runs[name] = {"student": s, "metrics": {k: float(v) for k, v in m.items() if k != "cm"},
+                      "teacher_changed": changed(t, {k: v.to(d) for k, v in t_state.items()}),
+                      "adam_steps": ts.opt.count}
+    card, cpu = runs["card"], runs["cpu"]
+
+    def running(s):
+        return torch.cat([b.reshape(-1).cpu() for k, b in s.named_buffers() if "running" in k])
+
+    def params(s):
+        return torch.cat([p.detach().reshape(-1).cpu() for p in s.parameters()])
+
+    rec = {"shape": list(SMALL), "card": card["metrics"], "cpu": cpu["metrics"],
+           **{k: abs(card["metrics"][k] - cpu["metrics"][k]) / abs(cpu["metrics"][k])
+              for k in ("loss", "ce", "kld")},
+           "running": rel_l2(running(card["student"]), running(cpu["student"])),
+           "params": rel_l2(params(card["student"]), params(cpu["student"])),
+           "teacher_changed": card["teacher_changed"] + cpu["teacher_changed"]}
+    print(f"[step3-cpu] {n}x{h}x{w} batch, card vs CPU: loss {rec['loss']:.2e}, ce "
+          f"{rec['ce']:.2e}, kld {rec['kld']:.2e}, running stats {rec['running']:.2e}; "
+          f"parameters {rec['params']:.2e} (information: Adam's sign noise); teacher "
+          f"unchanged on both: {not rec['teacher_changed']}")
+    check(all(rec[k] <= TOL_STEP3 for k in ("loss", "ce", "kld", "running"))
+          and not rec["teacher_changed"] and card["adam_steps"] == cpu["adam_steps"] == 2,
+          f"step-3 batch card vs CPU above {TOL_STEP3}: {rec}")
+
+    nc = STEP3_STUDENT[STEP3_CURRENT]
+    ev = steps.make_eval_step(task=STEP3_CURRENT, class_weight=CLASS_WEIGHTS["IDD"],
+                              num_classes=nc)
+    s_cpu = ERFNetRAP(STEP3_STUDENT, len(STEP3_STUDENT), device="cpu")
+    s_cpu.load_state_dict(state_copy(student))
+    x_g, y_g = images.to(dev), labels.to(dev)
+    loss_g, _ = ev(student, x_g, y_g)
+    loss_c, _ = ev(s_cpu, images, labels)
+    logits_g, logits_c = student(x_g, STEP3_CURRENT).cpu(), s_cpu(images, STEP3_CURRENT)
+    noise = float((logits_g - logits_c).pow(2).mean().sqrt())
+    top2 = logits_c.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 4 * noise
+    kept = torch.where(decided, labels, torch.full_like(labels, nc))
+    _, cm_g = ev(student, x_g, kept.to(dev))
+    _, cm_c = ev(s_cpu, images, kept)
+    flips = logits_g.argmax(-1) != logits_c.argmax(-1)
+    rec["eval"] = {"loss": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+                   "logit_rms_diff": noise, "undecided_pixels": int((~decided).sum()),
+                   "flips": int(flips.sum()), "flips_decided": int(flips[decided].sum()),
+                   "cm_equal": bool(torch.equal(cm_g.cpu(), cm_c))}
+    e = rec["eval"]
+    print(f"[step3-cpu] eval step head {STEP3_CURRENT}, card vs CPU: loss {e['loss']:.2e}; "
+          f"logits RMS diff {noise:.2e}; {e['undecided_pixels']} of {labels.numel()} pixels "
+          f"within 4x of it of a tie ({e['flips']} argmax flips, {e['flips_decided']} off "
+          f"them); cm on the others equal: {e['cm_equal']}")
+    check(e["loss"] <= TOL_STEP3 and e["cm_equal"], f"eval step card vs CPU: {e}")
+    return rec
+
+
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
-                 kind: str) -> dict:
-    """The kernels-line entry of K2 or K3: times summed over the 17 blocks of
+                 kind: str, **more_launches) -> dict:
+    """The kernels-line entry of K2 or K3: `launches` on the step-2 path (and
+    `more_launches` on the other paths); times summed over the 17 blocks of
     one student forward (K2) or backward (K3) at 6x512x1024 float32; errors
     over the outputs `keys` of every case (max_abs_err without K2's stats,
     which are sums over up to 786k pixels)."""
@@ -1069,7 +1356,7 @@ def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], key
         else sum(r["count"] * r[f"{kind}_{k}_ms"] for r in blocks) for k in PAIR_KINDS[kind]}
     return {
         "name": name, "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_train.cu",
-        "replaces": replaces, "launches": launches,
+        "replaces": replaces, "launches": launches, **more_launches,
         "max_abs_err": max(c["max_abs_err"][k] for c in cases for k in keys
                            if k in c["max_abs_err"] and k != "stats"),
         "max_rel_l2": max(c["rel_l2"][k] for c in cases for k in keys if k in c["rel_l2"]),
@@ -1119,6 +1406,11 @@ def main(argv=None) -> int:
     train_path["vs_cpu"] = phase_train_vs_cpu(args.seed, dev)
     train_times = phase_train_times(args.seed, dev, run)
     del run
+    run3, step3_path = phase_step3(args.seed, dev)
+    step3_path["times"] = phase_step3_times(run3)
+    other_steps = phase_other_steps(args.seed, dev, run3)
+    del run3
+    other_steps["step3_vs_cpu"] = phase_step3_vs_cpu(args.seed, dev)
     card = card_line()
 
     kernels = {"kernels": [{
@@ -1126,6 +1418,8 @@ def main(argv=None) -> int:
         "replaces": "mdilss_tpu/ops/pallas/nb1d.py:94",
         "launches": main_path["launches"],
         "launches_train_path": train_path["launches"]["K1"],
+        "launches_step3_path": step3_path["launches"]["K1"],
+        "launches_eval_step": other_steps["eval"]["launches"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -1138,15 +1432,20 @@ def main(argv=None) -> int:
                      "(CUDA-core bound; bound_3xtf32_ms: 3xTF32 on the tensor cores)",
     }, kernel_entry("nb1d_train_fwd", "mdilss_tpu/ops/pallas/nb1d_train.py:137",
                     train_path["launches"]["K2"], train_cases, ("y", "stats"),
-                    train_times["blocks"], "fwd"),
+                    train_times["blocks"], "fwd",
+                    launches_step3_path=step3_path["launches"]["K2"],
+                    launches_ce_step=other_steps["ce"]["launches"]["K2"]),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
-                     ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd")]}
+                     ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd",
+                     launches_step3_path=step3_path["launches"]["K3"],
+                     launches_ce_step=other_steps["ce"]["launches"]["K3"])]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
               "kernel_cases": cases, "main_path": main_path, "times": times,
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
-              "train_path": train_path, "train_times": train_times,
+              "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
+              "other_steps": other_steps,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -1,1 +1,1 @@
-"""Training of the port: torch-exact Adam, LR trees and the train steps."""
+"""Training of the port: torch-exact Adam, the LR dicts, and the train and eval steps."""

@@ -51,6 +51,34 @@ def rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
+def cm_near_ties(got_cm, want_cm, jax_logits, port_logits, labels, tie: float = 1e-4) -> int:
+    """Hold the port's confusion matrix to JAX's where their argmaxes are
+    decided, and return the number of near-tie pixels. The two packages'
+    logits differ in the last bits (and, after an Adam step, by its sign
+    noise), so an argmax may flip where JAX's top-2 gap is within
+    max(`tie`, 4x the RMS logit difference); each flip moves two entries by
+    one, so the matrices agree to within 2 per near-tie pixel, exactly when
+    there are none."""
+    jax_logits, port_logits = np.asarray(jax_logits), np.asarray(port_logits)
+    got, want = np.asarray(got_cm, np.int64), np.asarray(want_cm, np.int64)
+    top2 = np.sort(jax_logits, axis=-1)[..., -2:]
+    noise = float(np.sqrt(np.mean((port_logits.astype(np.float64) - jax_logits) ** 2)))
+    ties = int((top2[..., 1] - top2[..., 0] <= max(tie, 4 * noise)).sum())
+    assert got.sum() == want.sum() == np.asarray(labels).size
+    assert np.abs(got - want).sum() <= 2 * ties, (got, want, ties)
+    return ties
+
+
+def port_train_logits(model, x: np.ndarray, task: int, masks) -> np.ndarray:
+    """The port's training-mode logits of head `task` on a copy of `model`
+    (the model's BN running statistics stay as they are)."""
+    import copy
+
+    twin = copy.deepcopy(model).train()
+    with torch.no_grad():
+        return twin(torch.from_numpy(x), task, masks).numpy()
+
+
 # ---- the fp32 kernels' arithmetic (csrc/tf32_pair.cuh) --------------------------------------
 # TF32 keeps float32's exponent and 10 mantissa bits. `tf32_rna` emulates cvt.rna.tf32.f32
 # (round to nearest, ties away from zero) on the float32 bits, with the integer rounding the

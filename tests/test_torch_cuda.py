@@ -429,3 +429,118 @@ def test_train_step_launches_every_kernel(cuda):
     assert (K.LAUNCHES - before[0], T.LAUNCHES_FWD - before[1],
             T.LAUNCHES_BWD - before[2]) == (34, 68, 68)
     assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+def _step3_setup(cuda, seed: int = 0):
+    """Student [5, 5, 6] at task 2 with previous tasks (1, 0), teacher [5, 5],
+    a 2x64x128 batch and the three student forwards' dropout masks."""
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+
+    torch.manual_seed(seed)
+    student, teacher = ERFNetRAP([5, 5, 6], 3, device=cuda), ERFNetRAP([5, 5], 2, device=cuda)
+    gen = torch.Generator().manual_seed(seed + 1)
+    _randomize_bn(student, gen)
+    _randomize_bn(teacher, gen)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((2, 64, 128, 3), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 6, (2, 64, 128))).to(cuda)
+    masks = [make_dropout_masks(rng, 2) for _ in range(5)]
+    return student, teacher, x, y, masks
+
+
+def _step3(student, **kw):
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    lr = rap_lr_tree(student, current_task=2, shared_lr=5e-6, ds_lr=5e-4)
+    return steps.make_two_phase_distill_step(current_task=2, prev_tasks=(1, 0),
+                                             class_weight=np.ones(6, np.float32), lr_tree=lr,
+                                             num_epochs=150, iou_train=True, **kw)
+
+
+def _launches():
+    return K.LAUNCHES, T.LAUNCHES_FWD, T.LAUNCHES_BWD
+
+
+@pytest.mark.parametrize("mode,want", [
+    # K2: 3 student + 2 train-mode teacher forwards x 34; K3: 3 student backwards x 34
+    ("train_teacher", (0, 170, 102)),
+    ("teacher_dropout", (0, 170, 102)),
+    # the eval-mode teacher runs K1: 2 forwards x 34
+    ("eval_teacher", (68, 102, 102)),
+])
+def test_two_phase_step_launches_and_leaves_the_teacher_as_it_was(cuda, mode, want):
+    from mdilss_tpu_torch.train import steps
+
+    kw = {"train_teacher": {}, "teacher_dropout": {"teacher_dropout": True},
+          "eval_teacher": {"teacher_training": False}}[mode]
+    student, teacher, x, y, masks = _step3_setup(cuda)
+    n_masks = 5 if mode == "teacher_dropout" else 3
+    before_state = {k: v.clone() for k, v in teacher.state_dict().items()}
+    step = _step3(student, **kw)
+    ts = steps.init_train_state(student)
+    for _ in range(2):
+        before = _launches()
+        count = ts.opt.count
+        ts, m = step(ts, teacher, x, y, masks[:n_masks], 1)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_launches(), before)) == want
+        assert ts.opt.count == count + 2
+        assert all(np.isfinite(float(m[k])) for k in ("loss", "ce", "kld"))
+        assert int(m["cm"].sum()) == y.numel()
+        assert all(torch.equal(v, before_state[k]) for k, v in teacher.state_dict().items())
+        assert not teacher.training
+
+
+def test_two_phase_step_is_bitwise_repeatable(cuda):
+    """Two runs of a step-3 batch from the same state give bitwise-equal
+    parameters, running statistics and losses. K2, K3, the BN glue and Adam
+    are deterministic; cuDNN's transposed convolutions (the upsamplers) are
+    not bit-reproducible between runs with its default algorithms, so the
+    test pins cuDNN to its deterministic ones."""
+    import copy
+
+    from mdilss_tpu_torch.train import steps
+
+    student, teacher, x, y, masks = _step3_setup(cuda, seed=3)
+    twin = copy.deepcopy(student)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for s in (student, twin):
+            _, m = _step3(s)(steps.init_train_state(s), teacher, x, y, masks[:3], 1)
+            out.append(m)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    for k in ("loss", "ce", "kld", "cm"):
+        assert torch.equal(out[0][k], out[1][k]), k
+    a, b = student.state_dict(), twin.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_ce_and_eval_steps_launch_their_kernels(cuda):
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    student, _, x, y, _ = _step3_setup(cuda)
+    ev = steps.make_eval_step(task=2, class_weight=np.ones(6, np.float32), num_classes=6)
+    before = _launches()
+    loss, cm = ev(student, x, y)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (34, 0, 0)
+    assert np.isfinite(float(loss)) and int(cm.sum()) == y.numel() and cm.device == x.device
+
+    torch.manual_seed(1)
+    model = ERFNetRAP([6], 1, device=cuda)
+    lr = rap_lr_tree(model, current_task=0, shared_lr=5e-4, ds_lr=5e-4)
+    ce = steps.make_ce_step(task=0, class_weight=np.ones(6, np.float32), lr_tree=lr,
+                            num_epochs=150, iou_train=True)
+    before = _launches()
+    ts, m = ce(steps.init_train_state(model), x, y, make_dropout_masks(np.random.default_rng(1), 2),
+               1)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 34, 34)
+    assert np.isfinite(float(m["loss"])) and int(m["cm"].sum()) == y.numel() and ts.opt.count == 1

@@ -89,22 +89,27 @@ def test_params_from_jax_equals_parameter_entries_of_from_jax():
         assert torch.equal(got[k], full[k]), k
 
 
-def test_rap_lr_tree_matches_jax():
-    params, _ = erfnet_rap.init(jax.random.key(0), [6, 6], 2)
-    jl = jmasks.rap_lr_tree(params, current_task=1, shared_lr=SHARED_LR, ds_lr=DS_LR)
+@pytest.mark.parametrize("classes,current_task", [([6, 6], 1), ([6, 6, 6], 1), ([6, 6, 6], 2)])
+def test_rap_lr_tree_matches_jax(classes, current_task):
+    n = len(classes)
+    params, _ = erfnet_rap.init(jax.random.key(0), classes, n)
+    jl = jmasks.rap_lr_tree(params, current_task=current_task, shared_lr=SHARED_LR, ds_lr=DS_LR)
     want = params_from_jax(jax.tree.map(
         lambda lr, p: np.broadcast_to(np.asarray(lr, np.float32), p.shape), jl, params))
-    got = rap_lr_tree(ERFNetRAP([6, 6], 2, device="cpu"), current_task=1, shared_lr=SHARED_LR,
-                      ds_lr=DS_LR)
+    got = rap_lr_tree(ERFNetRAP(classes, n, device="cpu"), current_task=current_task,
+                      shared_lr=SHARED_LR, ds_lr=DS_LR)
     assert set(got) == set(want)
     for k, v in want.items():
         v = v.numpy()
         assert (v == v.flat[0]).all(), k
         assert np.float32(got[k]) == v.flat[0], k
-    assert got["encoder.layers.3.parallel_conv_2.0.weight"] == 0.0
-    assert got["encoder.layers.3.parallel_conv_2.1.weight"] == DS_LR
+    for t in range(n):
+        lr_t = DS_LR if t == current_task else 0.0
+        assert got[f"encoder.layers.3.parallel_conv_2.{t}.weight"] == lr_t
+        assert got[f"encoder.initial_block.bn_ini.{t}.bias"] == lr_t
+        assert got[f"decoder.{t}.output_conv.bias"] == lr_t
+        assert got[f"decoder.{t}.layers.2.bn1.weight"] == lr_t
     assert got["encoder.layers.3.conv1x3_2.bias"] == SHARED_LR
-    assert got["decoder.0.output_conv.bias"] == 0.0 and got["decoder.1.layers.2.bn1.weight"] == DS_LR
 
 
 def test_dropout_masks_match_jax_draws():
