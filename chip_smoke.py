@@ -69,7 +69,30 @@ Phases, each fatal on failure (non-zero exit):
      batch (loss, ce, kld and running statistics within 1e-5, the teacher
      unchanged on both), and the eval step on both (loss within 1e-5, the
      confusion matrices equal on the pixels whose CPU top-2 gap exceeds 4x
-     the RMS card - CPU logit difference).
+     the RMS card - CPU logit difference);
+ 12. the trainer (cuDNN on its deterministic algorithms): the step-2 Trainer
+     (config.step2: student [20, 20] at task 1, eval-mode teacher [20],
+     6x512x1024 fp32, synthetic sources of 24 images per domain and subset,
+     2 epochs, both domains validated every epoch, device_cache "auto": every
+     set cached in full) with its counts zeroed just before fit: exactly 4 x
+     (34 K1, 68 K2, 68 K3) per train epoch and 4 x 34 K1 per validation,
+     finite losses, the frozen task-0 parameters and the teacher bitwise
+     unchanged; run B stops after epoch 1 and a new Trainer resumes it: every
+     parameter, buffer and Adam tensor, automated_log.txt and metrics.jsonl
+     (but its timing key) bitwise equal to run A; the hybrid arm (a budget of
+     12 rows: HybridCache with 12 of 24 rows on the card): its epoch's batches
+     equal to the streaming Loader's after device_prefetch and to a full
+     DeviceCache's, its trained epoch bitwise run A's first; the train epoch's
+     seconds and img/s beside phase 9's bare step, one profiled train epoch,
+     a cache take + augment_batch, each validation pass and the peak memory
+     with the cache resident; the step-3 Trainer (config.step3: student
+     [20, 20, 27] at task 2, train-mode teacher [20, 20], two batches of
+     6x512x1024, one epoch): exactly 0 K1 / 170 K2 / 102 K3 per batch, Adam's
+     count +4, the teacher bitwise unchanged; evaluate_checkpoint of run A's
+     best checkpoint (kind "rap", float32, batch 6, both heads): 34 K1 per
+     batch at full width, and at 2x128x256 its per-class IoU beside the CPU's
+     float64 run of the file and the two confusion matrices equal off the
+     near-tie pixels.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven) and, as the last line,
@@ -83,6 +106,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -90,8 +114,14 @@ import time
 import numpy as np
 import torch
 
+from mdilss_tpu_torch import config as PC
 from mdilss_tpu_torch import serving
 from mdilss_tpu_torch.data.class_weights import CLASS_WEIGHTS
+from mdilss_tpu_torch.data.device_cache import DeviceCache, HybridCache
+from mdilss_tpu_torch.data.loader import Loader, SyntheticSource, device_prefetch
+from mdilss_tpu_torch.data.transforms import augment_batch, draw_augment, prepare_batch
+from mdilss_tpu_torch.evaluate import evaluate_checkpoint, load_checkpoint
+from mdilss_tpu_torch.metrics import confusion_matrix
 from mdilss_tpu_torch.models import ERFNetRAP
 from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
 from mdilss_tpu_torch.models.topology import make_dropout_masks
@@ -99,6 +129,7 @@ from mdilss_tpu_torch.ops import _build
 from mdilss_tpu_torch.ops import nb1d_infer as K
 from mdilss_tpu_torch.ops import nb1d_train as T
 from mdilss_tpu_torch.train import steps
+from mdilss_tpu_torch.train.loop import Trainer
 from mdilss_tpu_torch.train.masks import rap_lr_tree
 
 NUM_CLASSES = [20, 20, 27]
@@ -1339,6 +1370,360 @@ def phase_step3_vs_cpu(seed: int, dev: torch.device) -> dict:
     return rec
 
 
+# ---- phase 12: the trainer ------------------------------------------------------------------
+# config.step2 / config.step3 at the reference trainer_OURS.sh settings (6x512x1024 fp32, LR 5e-4
+# domain-specific / 5e-6 shared, lambda 0.1, BDD / IDD class weights), synthetic data
+TRAINER_IMAGES = 24  # per (domain, subset) of step 2: 4 batches of 6; 24 x 2 MiB cached
+TRAINER_EPOCHS = 2
+STEP3_TRAINER_IMAGES = 12  # two step-3 batches
+# per step-2 train epoch: 4 steps of STEP_LAUNCHES; per domain's validation: 4 eval forwards
+TRAIN_EPOCH_LAUNCHES = {k: 4 * v for k, v in STEP_LAUNCHES.items()}
+VAL_LAUNCHES = {k: 4 * v for k, v in EVAL_LAUNCHES.items()}
+HYBRID_ROWS = 12  # the hybrid arm's budget: 12 rows of 512x1024 uint8 image + label
+EVAL_CKPT_BATCH = 6  # evaluate_checkpoint: 8 synthetic images per head, 2 batches of 6
+
+
+# The K4 glue (ops/nb1d_train.Nb1dTrain outside K2/K3: BN statistics and affine, dropout, the
+# residual, the BN backward) in float32: the least bytes it moves, each [N, C, H, W] activation
+# read or written once per pass its forward and backward need. Forward, one pass: read y2 and
+# x, write out (3). Backward, five passes: BN2's reductions (read out, g_out, y2: 3), BN2's
+# apply (the same three, write g_y2: 4), BN1's reductions (read dm, y1: 2), BN1's apply (the
+# same two, write g_y1: 3), dx = relu'(out) g_out + dx_c (read out, g_out, dx_c, write dx: 4).
+# A block's dropout mask and per-channel vectors are [N, C] and [C]: left out.
+GLUE_FWD_ACTS, GLUE_BWD_ACTS = 3, 3 + 4 + 2 + 3 + 4
+
+
+def glue_bound(n: int = TRAIN_BATCH) -> dict:
+    """K4's byte bound at n x 512 x 1024 float32 over the 17 blocks of one
+    forward: ms per forward without backward (a train-mode teacher), per
+    forward with backward (a student), per step-2 step (two students) and per
+    step-3 batch (three students, two teachers), at PEAK_BYTES."""
+    act = sum(count * n * c * h * w * 4 for _, c, _, _, h, w, count in BLOCKS)
+    fwd_ms = GLUE_FWD_ACTS * act / PEAK_BYTES * 1e3
+    fb_ms = (GLUE_FWD_ACTS + GLUE_BWD_ACTS) * act / PEAK_BYTES * 1e3
+    return {"activation_bytes_per_forward": act, "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms,
+            "step2_ms": 2 * fb_ms, "step3_ms": 3 * fb_ms + 2 * fwd_ms,
+            "blocks_step2": 2 * 17, "blocks_step3": 5 * 17, "blocks_step3_with_backward": 3 * 17,
+            "bound_by": "bytes"}
+
+
+def trainer_cfg(root: str, name: str, protocol: str, **kw):
+    kw = {"synthetic": True, "batch_size": TRAIN_BATCH, "height": HEIGHT, "width": WIDTH,
+          "device_cache": "auto", "savedir": os.path.join(root, name), **kw}
+    if protocol == "step2":
+        return PC.step2(num_epochs=TRAINER_EPOCHS, eval_every=1, eval_old_every=1,
+                        synthetic_size=TRAINER_IMAGES, **kw)
+    return PC.step3(num_epochs=1, synthetic_size=STEP3_TRAINER_IMAGES, **kw)
+
+
+def count_calls(tr, log: list, dev) -> None:
+    """Wrap the trainer's train_epoch and evaluate: each call appends its kind,
+    argument, launches and seconds (the device synchronised at both ends) to `log`."""
+    for kind, name in (("train", "train_epoch"), ("val", "evaluate")):
+        fn = getattr(tr, name)
+
+        def wrapped(*a, _fn=fn, _kind=kind):
+            sync(dev)
+            before, t0 = launch_counts(), time.perf_counter()
+            out = _fn(*a)
+            sync(dev)
+            log.append({"kind": _kind, "arg": a[0], "seconds": time.perf_counter() - t0,
+                        "launches": {k: v - before[k] for k, v in launch_counts().items()}})
+            return out
+
+        setattr(tr, name, wrapped)
+
+
+def trainer_state(tr) -> dict:
+    """The student's parameters and buffers and Adam's state, cloned."""
+    out = state_copy(tr.ts.model)
+    out.update(opt_m=tr.ts.opt.m.clone(), opt_v=tr.ts.opt.v.clone(),
+               opt_count=torch.tensor(tr.ts.opt.count))
+    return out
+
+
+def unequal(a: dict, b: dict) -> list[str]:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def run_files(savedir: str) -> tuple[str, list[dict]]:
+    """automated_log.txt, and metrics.jsonl's rows without their timing key."""
+    with open(os.path.join(savedir, "automated_log.txt")) as f:
+        log = f.read()
+    with open(os.path.join(savedir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        del r["epoch_seconds"]
+    return log, rows
+
+
+def batches_equal(a, b) -> bool:
+    """Two lists of (images, labels, valid) batches, bitwise."""
+    def host(t):
+        return torch.as_tensor(t).cpu()
+
+    return len(a) == len(b) and all(
+        all(torch.equal(host(x), host(y)) for x, y in zip(ba, bb)) for ba, bb in zip(a, b))
+
+
+def phase_trainer(seed: int, dev: torch.device, bare_img_per_s: float) -> dict:
+    """Phase 12: the step-2 Trainer at full width (run A: 2 epochs; run B: 1
+    epoch, a stop, a resumed Trainer, the second epoch; bitwise equal), the
+    hybrid cache arm, the step-3 Trainer and evaluate_checkpoint, with cuDNN
+    on its deterministic algorithms."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trainer_runs")
+    shutil.rmtree(root, ignore_errors=True)
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rec = phase_trainer_step2(seed, dev, root, bare_img_per_s)
+        rec["step3"] = phase_trainer_step3(seed, dev, root)
+        rec["evaluate_checkpoint"] = phase_evaluate_checkpoint(
+            dev, os.path.join(root, "a", "best"))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def phase_trainer_step2(seed: int, dev: torch.device, root: str, bare_img_per_s: float) -> dict:
+    torch.manual_seed(seed + 20)
+    teacher = ERFNetRAP(TEACHER_CLASSES, len(TEACHER_CLASSES), device=dev)
+    randomize_bn(teacher, torch.Generator().manual_seed(seed + 21))
+    teacher_before = state_copy(teacher)
+    cur = "BDD"
+    rec = {}
+
+    # run A: two epochs; the counts zeroed just before fit and read just after
+    calls: list[dict] = []
+    tr_a = Trainer(trainer_cfg(root, "a", "step2", seed=seed), teacher=teacher, device=dev)
+    lr = rap_lr_tree(tr_a.ts.model, current_task=CURRENT_TASK, shared_lr=SHARED_LR, ds_lr=DS_LR)
+    frozen = {k: p.detach().clone() for k, p in tr_a.ts.model.named_parameters() if lr[k] == 0.0}
+    count_calls(tr_a, calls, dev)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launch_counts()
+    hist_a = tr_a.fit()
+    rec["launches"] = launch_counts()
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    caches = [type(c).__name__ for c in (*tr_a._train_caches.values(),
+                                         *tr_a._val_caches.values())]
+    rec["calls"] = calls
+    for c in calls:
+        want = TRAIN_EPOCH_LAUNCHES if c["kind"] == "train" else VAL_LAUNCHES
+        print(f"[trainer] run A {c['kind']} {c['arg']}: launches {c['launches']}; "
+              f"{c['seconds']:.3f} s")
+        check(c["launches"] == want, f"trainer {c['kind']} {c['arg']} launched {c['launches']}, "
+                                     f"expected {want}")
+    check([c["kind"] for c in calls] == ["train", "val", "val"] * TRAINER_EPOCHS,
+          f"run A made the calls {[(c['kind'], c['arg']) for c in calls]}")
+    check(rec["launches"] == {k: sum(c["launches"][k] for c in calls) for k in rec["launches"]},
+          f"run A launched {rec['launches']} outside its epochs and validations")
+    check(caches == ["DeviceCache"] * 3, f"run A's caches {caches}: expected all three full")
+    rows = [json.loads(line) for line in open(os.path.join(tr_a.cfg.savedir, "metrics.jsonl"))]
+    losses = [r[k] for r in rows for k in ("train_loss", "train_ce", "train_kld",
+                                           f"val_loss_{cur}", "val_loss_cityscapes")]
+    check(len(rows) == TRAINER_EPOCHS and all(np.isfinite(losses)), f"run A's rows {rows}")
+    params = dict(tr_a.ts.model.named_parameters())
+    moved = [k for k, p in frozen.items() if not torch.equal(params[k], p)]
+    check(len(frozen) > 0 and not moved, f"frozen task-0 parameters moved: {moved[:5]}")
+    check(not changed(teacher, teacher_before), "the step-2 teacher changed")
+    epoch_s = [c["seconds"] for c in calls if c["kind"] == "train"]
+    val_ms = [c["seconds"] * 1e3 for c in calls if c["kind"] == "val"]
+    rec.update(rows=rows, epoch_seconds=epoch_s, val_ms=val_ms,
+               epoch_img_per_s=[TRAINER_IMAGES / s for s in epoch_s],
+               bare_step_img_per_s=bare_img_per_s, frozen_params=len(frozen))
+    print(f"[trainer] run A: losses {[round(v, 6) for v in losses]}; {len(frozen)} frozen "
+          f"task-0 parameters bitwise unchanged, the teacher unchanged; peak memory with the "
+          f"cache resident {rec['peak_memory_bytes'] / 2**30:.2f} GiB; launches "
+          f"{rec['launches']}")
+    print(f"[trainer-time] train epoch ({TRAINER_IMAGES} images, 6x{HEIGHT}x{WIDTH} f32): "
+          + ", ".join(f"{s:.3f} s ({TRAINER_IMAGES / s:.2f} img/s)" for s in epoch_s)
+          + f"; the bare step (phase 9) {bare_img_per_s:.2f} img/s; validation passes "
+          + ", ".join(f"{v:.3f}" for v in val_ms) + " ms")
+
+    # run B: stop after epoch 1, resume in a new Trainer
+    tr_b1 = Trainer(trainer_cfg(root, "b", "step2", seed=seed), teacher=teacher, device=dev)
+    tr_b1.fit(stop_after=1)
+    after_1 = trainer_state(tr_b1)
+    del tr_b1
+    tr_b2 = Trainer(trainer_cfg(root, "b", "step2", seed=seed, resume=True), teacher=teacher,
+                    device=dev)
+    check(tr_b2.start_epoch == 2, f"run B resumed at epoch {tr_b2.start_epoch}")
+    tr_b2.fit()
+    diff = unequal(trainer_state(tr_a), trainer_state(tr_b2))
+    files_a, files_b = run_files(tr_a.cfg.savedir), run_files(tr_b2.cfg.savedir)
+    rec["resume"] = {"unequal": diff, "files_equal": files_a == files_b,
+                     "gen_equal": torch.equal(tr_a.aug_gen.get_state(), tr_b2.aug_gen.get_state())}
+    print(f"[trainer] run B (stop after epoch 1, resume): {len(trainer_state(tr_a))} "
+          f"parameters, buffers and Adam tensors unequal to run A: {len(diff)}; "
+          f"automated_log.txt and metrics.jsonl (but epoch_seconds) equal: "
+          f"{rec['resume']['files_equal']}")
+    check(not diff and rec["resume"]["files_equal"] and rec["resume"]["gen_equal"],
+          f"resume is not bitwise the uninterrupted run: {rec['resume']}")
+    del tr_b2
+
+    # the hybrid arm: 12 of 24 training rows on the card
+    tr_h = Trainer(trainer_cfg(root, "h", "step2", seed=seed,
+                               device_cache=str(HYBRID_ROWS * HEIGHT * WIDTH * 4)),
+                   teacher=teacher, device=dev)
+    hybrid = tr_h._cache_for(cur, "train")
+    check(isinstance(hybrid, HybridCache) and hybrid.k == HYBRID_ROWS,
+          f"the hybrid budget gave {hybrid!r}")
+    ld = tr_h.train_loaders[cur]
+    full = DeviceCache(ld, device=dev)
+    ld.set_epoch(1)
+    got = {"hybrid": list(hybrid.epoch_batches(1)), "full": list(full.epoch_batches(1)),
+           "stream": list(device_prefetch(ld, device=dev))}
+    same = {k: batches_equal(got[k], got["stream"]) for k in ("hybrid", "full")}
+    del got, full
+    print(f"[trainer] hybrid arm ({HYBRID_ROWS}/{TRAINER_IMAGES} rows cached): epoch-1 batches "
+          f"equal to the streaming Loader's after device_prefetch: {same['hybrid']}; the full "
+          f"cache's equal to them: {same['full']}")
+    check(all(same.values()), f"cached batches differ from the streamed ones: {same}")
+    tr_h.fit(stop_after=1)
+    diff = unequal(after_1, trainer_state(tr_h))
+    row_equal = run_files(tr_h.cfg.savedir)[1][0] == files_a[1][0]
+    print(f"[trainer] hybrid arm epoch 1 vs run A's epoch 1: {len(diff)} tensors unequal; "
+          f"metrics row equal: {row_equal}")
+    check(not diff and row_equal, f"the hybrid arm's epoch 1 differs from run A's: {diff[:5]}")
+    rec["hybrid"] = {"batches_equal": same, "unequal": diff, "row_equal": row_equal}
+    del tr_h, hybrid
+
+    # timing: one profiled train epoch with cuDNN's deterministic algorithms (as the gates
+    # above ran), then one timed and one profiled with its default ones (as phase 9 runs the
+    # bare step)
+    def epoch():
+        Trainer.train_epoch(tr_a, TRAINER_EPOCHS)
+
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_per_step", "ms_by_group")
+    what = f"one train epoch ({TRAINER_IMAGES // TRAIN_BATCH} steps)"
+    prof = profile_once(epoch, "trainer-profile", f"{what}, cuDNN deterministic")
+    rec["profile"] = {k: prof[k] for k in keys}
+    torch.backends.cudnn.deterministic = False
+    try:
+        epoch()
+        sync(dev)
+        t0 = time.perf_counter()
+        epoch()
+        sync(dev)
+        rec["epoch_seconds_default_cudnn"] = time.perf_counter() - t0
+        prof = profile_once(epoch, "trainer-profile", f"{what}, cuDNN default")
+        rec["profile_default_cudnn"] = {k: prof[k] for k in keys}
+    finally:
+        torch.backends.cudnn.deterministic = True
+    s_def = rec["epoch_seconds_default_cudnn"]
+    print(f"[trainer-time] train epoch with cuDNN's default algorithms: {s_def:.3f} s "
+          f"({TRAINER_IMAGES / s_def:.2f} img/s; the bare step {bare_img_per_s:.2f})")
+    cache = tr_a._cache_for(cur, "train")
+    idx = np.arange(TRAIN_BATCH) * 3
+    flip, tx, ty = draw_augment(torch.Generator().manual_seed(seed), TRAIN_BATCH)
+
+    def take_augment():
+        return augment_batch(*cache.take(idx), flip, tx, ty, num_classes=20)
+
+    rec["take_augment_ms"] = time_ms(take_augment, iters=20, warmup=3)
+    prof = profile_once(take_augment, "take-augment-profile", "one take + augment_batch")
+    rec["take_augment_device_ms"] = prof["device_ms"]
+    print(f"[trainer-time] cache take + augment_batch at {TRAIN_BATCH}x{HEIGHT}x{WIDTH}: "
+          f"{rec['take_augment_ms']:.4f} ms per call (CUDA events), device busy "
+          f"{prof['device_ms']:.4f} ms")
+    return rec
+
+
+def phase_trainer_step3(seed: int, dev: torch.device, root: str) -> dict:
+    """The step-3 Trainer: two batches, one epoch; per batch exactly
+    STEP3_LAUNCHES, the teacher bitwise unchanged, Adam's count +4."""
+    torch.manual_seed(seed + 22)
+    teacher = ERFNetRAP(STEP3_TEACHER, len(STEP3_TEACHER), device=dev)
+    randomize_bn(teacher, torch.Generator().manual_seed(seed + 23))
+    before = state_copy(teacher)
+    tr = Trainer(trainer_cfg(root, "s3", "step3", seed=seed), teacher=teacher, device=dev)
+    batches: list[dict] = []
+    one_batch = tr._one_batch
+
+    def counted(*a):
+        b = launch_counts()
+        one_batch(*a)
+        batches.append({k: v - b[k] for k, v in launch_counts().items()})
+
+    tr._one_batch = counted
+    calls: list[dict] = []
+    count_calls(tr, calls, dev)
+    zero_launch_counts()
+    row = tr.fit()
+    launches = launch_counts()
+    t_moved = changed(teacher, before)
+    rec = {"batches": batches, "calls": calls, "launches": launches, "adam_count": tr.ts.opt.count,
+           "row": row, "teacher_changed": t_moved}
+    print(f"[trainer-step3] batches launched {batches}; Adam count {tr.ts.opt.count}; calls "
+          + ", ".join(f"{c['kind']} {c['arg']} {c['launches']} {c['seconds']:.3f} s"
+                      for c in calls)
+          + f"; teacher unchanged: {not t_moved}; loss {row['train_loss']:.6f}")
+    check(batches == [STEP3_LAUNCHES] * (STEP3_TRAINER_IMAGES // TRAIN_BATCH),
+          f"step-3 trainer batches launched {batches}, expected {STEP3_LAUNCHES} each")
+    check(tr.ts.opt.count == 2 * len(batches), f"Adam took {tr.ts.opt.count} steps")
+    check(not t_moved, f"the step-3 teacher changed: {t_moved[:5]}")
+    check(np.isfinite(row["train_loss"]) and [c["kind"] for c in calls] == ["train", "val"],
+          f"step-3 trainer: {row}, calls {calls}")
+    check(calls[1]["launches"]["K1"] == 34 * 2, f"step-3 validation launched {calls[1]}")
+    return rec
+
+
+def phase_evaluate_checkpoint(dev: torch.device, best: str) -> dict:
+    """evaluate_checkpoint of run A's best checkpoint: at full width exactly
+    34 K1 per batch; at 2x128x256 its per-class IoU beside the CPU's float64
+    run of the same file, and the confusion matrices of the same weights and
+    batches equal off the pixels whose float64 top-2 gap is within 4x the RMS
+    card - CPU logit difference."""
+    heads = ["cityscapes", "BDD"]
+    zero_launch_counts()
+    full = evaluate_checkpoint(best, kind="rap", datasets=heads, batch_size=EVAL_CKPT_BATCH,
+                               height=HEIGHT, width=WIDTH, synthetic=True, device=dev)
+    launches = launch_counts()
+    n_batches = len(heads) * -(-8 // EVAL_CKPT_BATCH)
+    print(f"[evaluate-checkpoint] {best}: mIoU {full}; launches {launches} over {n_batches} "
+          f"batches of {EVAL_CKPT_BATCH}x{HEIGHT}x{WIDTH}")
+    check(launches == {"K1": 34 * n_batches, "K2": 0, "K3": 0},
+          f"evaluate_checkpoint launched {launches}")
+    n, h, w = SMALL
+    kw = dict(kind="rap", datasets=heads, batch_size=n, height=h, width=w, synthetic=True,
+              return_per_class=True)
+    _, pc_card = evaluate_checkpoint(best, device=dev, **kw)
+    _, pc_cpu = evaluate_checkpoint(best, device="cpu", compute_dtype="float64", **kw)
+    model = load_checkpoint(best, kind="rap", device=dev)
+    model64 = load_checkpoint(best, kind="rap", device="cpu").to(torch.float64)
+    rec = {"launches": launches, "miou_full_width": full}
+    for t, d in enumerate(heads):
+        nc = model.decoder[t].output_conv.bias.shape[0]
+        cms, undecided, flips, noise_max = {"card": 0, "cpu": 0}, 0, 0, 0.0
+        for imgs, lbls, _ in Loader(SyntheticSource(nc, n=8, height=h, width=w),
+                                    batch_size=n, height=h, width=w):
+            x, y = prepare_batch(torch.from_numpy(imgs), torch.from_numpy(lbls), num_classes=nc)
+            l_card = model(x.to(dev), t).cpu().double()
+            l_cpu = model64(x.double(), t)
+            noise = float((l_card - l_cpu).pow(2).mean().sqrt())
+            top2 = l_cpu.topk(2, dim=-1).values
+            decided = (top2[..., 0] - top2[..., 1]) > 4 * noise
+            kept = torch.where(decided, y, torch.full_like(y, nc))  # a label of C counts nowhere
+            for name, logits in (("card", l_card), ("cpu", l_cpu)):
+                cms[name] = cms[name] + confusion_matrix(logits.argmax(-1), kept, num_classes=nc)
+            flips += int((l_card.argmax(-1) != l_cpu.argmax(-1)).sum())
+            undecided += int((~decided).sum())
+            noise_max = max(noise_max, noise)
+        pc_diff = float(np.abs(pc_card[d] - pc_cpu[d]).max())
+        rec[d] = {"cm_equal": bool(torch.equal(cms["card"], cms["cpu"])), "flips": flips,
+                  "undecided_pixels": undecided, "logit_rms_diff": noise_max,
+                  "per_class_max_abs_diff": pc_diff}
+        print(f"[evaluate-checkpoint] {d} at {n}x{h}x{w}, card float32 vs CPU float64: logits "
+              f"RMS diff <= {noise_max:.2e}; {undecided} pixels within 4x of it of a tie, "
+              f"{flips} argmax flips; cm off them equal: {rec[d]['cm_equal']}; per-class IoU "
+              f"max |diff| {pc_diff:.2e}")
+        check(rec[d]["cm_equal"] and (flips > 0 or pc_diff == 0.0),
+              f"evaluate_checkpoint card vs CPU float64 for {d}: {rec[d]}")
+    return rec
+
+
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
                  kind: str, **more_launches) -> dict:
     """The kernels-line entry of K2 or K3: `launches` on the step-2 path (and
@@ -1411,6 +1796,13 @@ def main(argv=None) -> int:
     other_steps = phase_other_steps(args.seed, dev, run3)
     del run3
     other_steps["step3_vs_cpu"] = phase_step3_vs_cpu(args.seed, dev)
+    trainer = phase_trainer(args.seed, dev, train_times["img_per_s"])
+    glue = glue_bound()
+    print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
+          f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
+          f"backward, {glue['fwd_ms']:.3f} per forward alone; {glue['step2_ms']:.3f} ms per "
+          f"step-2 step ({glue['blocks_step2']} blocks), {glue['step3_ms']:.3f} per step-3 batch "
+          f"({glue['blocks_step3']} blocks, {glue['blocks_step3_with_backward']} with a backward)")
     card = card_line()
 
     kernels = {"kernels": [{
@@ -1420,6 +1812,9 @@ def main(argv=None) -> int:
         "launches_train_path": train_path["launches"]["K1"],
         "launches_step3_path": step3_path["launches"]["K1"],
         "launches_eval_step": other_steps["eval"]["launches"]["K1"],
+        "launches_trainer_path": trainer["launches"]["K1"],
+        "launches_step3_trainer": trainer["step3"]["launches"]["K1"],
+        "launches_evaluate_checkpoint": trainer["evaluate_checkpoint"]["launches"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -1434,18 +1829,22 @@ def main(argv=None) -> int:
                     train_path["launches"]["K2"], train_cases, ("y", "stats"),
                     train_times["blocks"], "fwd",
                     launches_step3_path=step3_path["launches"]["K2"],
-                    launches_ce_step=other_steps["ce"]["launches"]["K2"]),
+                    launches_ce_step=other_steps["ce"]["launches"]["K2"],
+                    launches_trainer_path=trainer["launches"]["K2"],
+                    launches_step3_trainer=trainer["step3"]["launches"]["K2"]),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
                      ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd",
                      launches_step3_path=step3_path["launches"]["K3"],
-                     launches_ce_step=other_steps["ce"]["launches"]["K3"])]}
+                     launches_ce_step=other_steps["ce"]["launches"]["K3"],
+                     launches_trainer_path=trainer["launches"]["K3"],
+                     launches_step3_trainer=trainer["step3"]["launches"]["K3"])]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
               "kernel_cases": cases, "main_path": main_path, "times": times,
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
-              "other_steps": other_steps,
+              "other_steps": other_steps, "trainer": trainer, "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -1,1 +1,2 @@
-"""Data helpers of the port (eval-time batch preparation in this slice)."""
+"""Data pipeline of the port: dataset sources, the native decoder's and PIL's
+decode, the threaded Loader, device caches and device-side augment."""

@@ -60,6 +60,14 @@ class IoUEvaluator:
                               num_classes=self.num_classes)
         self._cm += cm.cpu().numpy()
 
+    def add_confusion(self, cm):
+        """Accumulate a precomputed [C, C] confusion matrix (a tensor on any
+        device, or an array). The port's matrices are int64 wherever they
+        live, so a trainer sums an epoch's on the device and fetches the
+        total once; the JAX package's int32 chunking (`loop.py`
+        `_accumulate_cms`) is not needed."""
+        self._cm += torch.as_tensor(cm).cpu().numpy().astype(np.int64)
+
     def get_iou(self):
         """(mean IoU, per-class IoU over the non-ignore classes)."""
         return iou_from_confusion(self._cm, self.ignore_index)

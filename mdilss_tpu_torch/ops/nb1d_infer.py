@@ -90,9 +90,10 @@ def prepare_operands(block, task: int | None, dtype) -> Nb1dOperands:
         bn1, bn2 = block.bn1, block.bn2
         rap1 = rap2 = None
         pre1, pre2 = block.conv1x3_1.bias, block.conv1x3_2.bias
-    a1, b1 = fold_bn(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, pre1, bn1.eps)
-    a2, b2 = fold_bn(bn2.weight, bn2.bias, bn2.running_mean, bn2.running_var, pre2, bn2.eps)
-    f32 = torch.float32
+    # float32 (float64 for a float64 forward, which only the plain version runs)
+    f32 = torch.promote_types(dtype, torch.float32)
+    a1, b1 = fold_bn(bn1.weight, bn1.bias, bn1.running_mean, bn1.running_var, pre1, bn1.eps, f32)
+    a2, b2 = fold_bn(bn2.weight, bn2.bias, bn2.running_mean, bn2.running_var, pre2, bn2.eps, f32)
     ops = Nb1dOperands(
         w31a=stack_taps(block.conv3x1_1.weight, dtype),
         b31a=block.conv3x1_1.bias.to(f32).contiguous(),
@@ -109,14 +110,17 @@ def prepare_operands(block, task: int | None, dtype) -> Nb1dOperands:
 
 def nb1d_infer_plain(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.Tensor:
     """Plain PyTorch version: x [N,C,H,W] -> same shape and type. Convs run
-    in x's type; the folded BN, residual and relu in float32."""
+    in x's type; the folded BN, residual and relu in float32 (float64 for a
+    float64 x)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+
     def pair(u, w31, b31, w13, rap, d):
         c = F.relu(F.conv2d(u, unstack_taps(w31, True), b31.to(u.dtype),
                             padding=(d, 0), dilation=(d, 1)))
         y = F.conv2d(c, unstack_taps(w13, False), padding=(0, d), dilation=(1, d))
         if rap is not None:
             y = y + F.conv2d(u, rap.t()[:, :, None, None])
-        return y.float()
+        return y.to(acc)
 
     def affine(y, a, b):
         return y * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
@@ -124,7 +128,7 @@ def nb1d_infer_plain(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.
     m = F.relu(affine(pair(x, ops.w31a, ops.b31a, ops.w13a, ops.rap1, 1), ops.a1, ops.b1))
     m = m.to(x.dtype)
     z = affine(pair(m, ops.w31b, ops.b31b, ops.w13b, ops.rap2, dilated), ops.a2, ops.b2)
-    return F.relu(z + x.float()).to(x.dtype)
+    return F.relu(z + x.to(acc)).to(x.dtype)
 
 
 def nb1d_infer(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.Tensor:

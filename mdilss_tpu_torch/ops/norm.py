@@ -25,12 +25,13 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def fold_bn(scale, bias, mean, var, pre_bias, eps: float = BN_EPS):
-    """BN(running stats) o (+pre_bias) -> per-channel float32 (a, b) with
-    BN(z + pre_bias) = z * a + b, exactly as mdilss_tpu/ops/pallas/nb1d.py
-    `_fold_bn`: a = scale / sqrt(var + eps), b = bias - (mean - pre_bias) * a."""
+def fold_bn(scale, bias, mean, var, pre_bias, eps: float = BN_EPS, dtype=torch.float32):
+    """BN(running stats) o (+pre_bias) -> per-channel (a, b) in `dtype` (float32
+    for the kernels) with BN(z + pre_bias) = z * a + b, exactly as
+    mdilss_tpu/ops/pallas/nb1d.py `_fold_bn`: a = scale / sqrt(var + eps),
+    b = bias - (mean - pre_bias) * a."""
     scale, bias, mean, var, pre_bias = (
-        t.to(torch.float32) for t in (scale, bias, mean, var, pre_bias)
+        t.to(dtype) for t in (scale, bias, mean, var, pre_bias)
     )
     a = scale / torch.sqrt(var + eps)
     b = bias - (mean - pre_bias) * a

@@ -1,0 +1,415 @@
+"""Epoch-loop trainer for the ERFNet-RAP protocols (port of
+mdilss_tpu/train/loop.py):
+
+  step1  train_RAPFT_step1.py     — RAP model, everything trainable, CE
+  step2  train_new_task_step2.py  — +1 task, old task slices frozen, CE + KLD
+                                    against the eval-mode teacher
+  step3  train_new_task_step3.py  — +1 task, two KLDs; two-phase (a CE Adam
+                                    step, then a KLD Adam step) with the
+                                    train-mode teacher, or the fused step-2 form
+
+Per epoch, as the reference: poly LR by epoch; validation of the current task
+every `eval_every` epochs (and the final one), old tasks every
+`eval_old_every`; best-checkpoint selection on the current task's val IoU
+(fallback -val_loss, train_new_task_step2.py:358-363), only among evaluated
+epochs; `automated_log.txt` rows; a checkpoint every epoch, with true resume.
+
+The data: a dataset on disk or a synthetic source, batched by `Loader`
+(host threads) and either cached on the device (`DeviceCache`, or
+`HybridCache` for the part that fits) or streamed through
+`device_prefetch`; augment runs on the device. The train and eval steps are
+`train/steps.py`'s, which run K1/K2/K3 on the card and their plain versions
+on the CPU.
+
+Deliberate differences from the JAX package: the augment draws come from one
+CPU `torch.Generator` seeded from `cfg.seed` (the checkpoint carries its
+state) in place of JAX's split keys, and the port's steps take no key;
+confusion matrices are int64 on the device and summed there; checkpoints
+are torch files (`ckpt/torch_io.py`). The other models and protocols, bf16
+training, spatial sharding and remat raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+import zlib
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ckpt import torch_io
+from ..config import TrainConfig
+from ..data import transforms
+from ..data.class_weights import CLASS_WEIGHTS
+from ..data.device_cache import DeviceCache, HybridCache, cache_bytes, plan_cache
+from ..data.loader import LearnableSource, Loader, SyntheticSource, device_prefetch
+from ..data.sources import make_source
+from ..losses import kld_corrected, kld_faithful
+from ..metrics import IoUEvaluator
+from ..models import ERFNetRAP
+from ..models.topology import make_dropout_masks
+from ..utils.logging import MetricLogger, getColorEntry
+from ..utils.profiling import StepTracer
+from . import steps
+from .masks import rap_lr_tree
+from .optim import poly_lr_factor
+
+PROTOCOLS = ("step1", "step2", "step3")
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item it waits for, for
+    what the port's Trainer does not run yet."""
+    if cfg.model != "erfnet_RA_parallel":
+        raise NotImplementedError(
+            f"model {cfg.model!r}: the port trains only erfnet_RA_parallel; the other "
+            "models wait for ROADMAP A8")
+    if cfg.protocol not in PROTOCOLS:
+        raise NotImplementedError(
+            f"protocol {cfg.protocol!r}: the port trains {PROTOCOLS}; multitask, ft, fe "
+            "and singletask wait for ROADMAP A8")
+    if cfg.compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16': bf16 training waits for ROADMAP R7")
+    if cfg.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 or bfloat16")
+    if cfg.spatial_shards != 1:
+        raise NotImplementedError(
+            f"spatial_shards={cfg.spatial_shards}: the port trains on one device; "
+            "sharding waits for ROADMAP A10")
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True: the port's training blocks keep their activations; "
+            "rematerialisation is not ported (ROADMAP 'remat')")
+
+
+class Trainer:
+    """`Trainer(cfg, teacher=..., init_state=..., device=None).fit()`.
+
+    `device` None -> the CUDA card (raises without one); "cpu" runs the
+    plain versions. `init_state`: the student's initial weights as a
+    reference-grammar state dict (`ckpt.from_jax`, `ckpt.load_pth_tar`);
+    None -> torch's default initialisation seeded from `cfg.seed`.
+    `teacher`: the previous step's model (an ERFNetRAP with the previous
+    tasks' heads), required by step2 and step3; it is moved to the device
+    and never updated.
+    """
+
+    def __init__(self, cfg: TrainConfig, *, teacher: torch.nn.Module | None = None,
+                 init_state: dict | None = None, device=None):
+        check_supported(cfg)
+        if cfg.protocol in ("step2", "step3") and teacher is None:
+            raise ValueError(f"protocol {cfg.protocol} distils from a teacher: pass teacher=")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        os.makedirs(cfg.savedir, exist_ok=True)
+        with open(os.path.join(cfg.savedir, "opts.txt"), "w") as f:
+            f.write(cfg.to_json())
+
+        nc = list(cfg.num_classes)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            model = ERFNetRAP(nc, len(nc), device="cpu")
+        if init_state is not None:
+            model.load_state_dict(init_state, strict=True)
+        self.ts = steps.init_train_state(model.to(self.device))
+        self.teacher = None if teacher is None else teacher.to(self.device)
+
+        with open(os.path.join(cfg.savedir, "model.txt"), "w") as f:
+            sizes = {k: list(p.shape) for k, p in model.named_parameters()}
+            f.write(json.dumps(sizes, indent=1))
+
+        self.aug_gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+        self._build_data()
+        self._build_steps()
+        self.logger = MetricLogger(cfg.savedir)
+        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" else None
+        self._tracer = StepTracer(cfg.profile_dir, n=cfg.profile_steps, sync=sync)
+        self.best_acc = -np.inf
+        self.start_epoch = 1
+        self._step_count = 0
+        self._sync_loss = None
+        if cfg.resume:
+            self._try_resume()
+
+    # ------------------------------------------------------------------
+    def _source(self, name: str, subset: str):
+        cfg = self.cfg
+        if cfg.synthetic or name not in cfg.data_roots:
+            cls = LearnableSource if cfg.synthetic_kind == "learnable" else SyntheticSource
+            nc = cfg.num_classes[cfg.datasets.index(name)]
+            # stable across processes (python's str hash is salted)
+            seed = zlib.crc32(f"{name}/{subset}".encode()) % 2**31
+            return cls(nc, n=cfg.synthetic_size, height=cfg.height, width=cfg.width, seed=seed)
+        return make_source(name, cfg.data_roots[name], subset)
+
+    def _build_data(self):
+        cfg = self.cfg
+
+        def mk(name, subset, shuffle):
+            return Loader(self._source(name, subset), batch_size=cfg.batch_size,
+                          height=cfg.height, width=cfg.width, shuffle=shuffle,
+                          num_threads=cfg.num_workers, seed=cfg.seed)
+
+        cur = cfg.datasets[cfg.current_task]
+        self.train_loaders = {cur: mk(cur, "train", True)}
+        self.val_loaders = {d: mk(d, "val", False) for d in cfg.datasets}
+        self._train_caches: dict = {}
+        self._val_caches: dict = {}
+        self._cache_budget = self._device_cache_budget()
+
+    def _device_cache_budget(self) -> int:
+        """Byte budget for the device-resident dataset caches: half of the
+        card's memory (`torch.cuda.mem_get_info`'s total), 1 GiB on the CPU,
+        an explicit integer, or 0 ("off")."""
+        if self.cfg.device_cache == "off":
+            return 0
+        if self.cfg.device_cache != "auto":
+            try:
+                return int(self.cfg.device_cache)
+            except ValueError:
+                raise ValueError(
+                    f"device_cache={self.cfg.device_cache!r}: expected 'auto', 'off', or an "
+                    "integer byte budget (e.g. '8589934592' for 8 GiB; suffixed forms like "
+                    "'8GiB' are not parsed)"
+                ) from None
+        if self.device.type == "cuda":
+            # leave half for the parameters, optimizer and activations of the step
+            return torch.cuda.mem_get_info(self.device)[1] // 2
+        return 1 << 30
+
+    def _cache_for(self, dataset: str, subset: str):
+        """Device cache for (dataset, subset) if caching is on and at least a
+        batch of it fits; the budget is claimed greedily, streaming otherwise."""
+        caches = self._train_caches if subset == "train" else self._val_caches
+        if dataset in caches:
+            return caches[dataset]
+        ld = (self.train_loaders if subset == "train" else self.val_loaders).get(dataset)
+        if ld is None:
+            caches[dataset] = None
+            return None
+        mode, rows = plan_cache(ld.source, height=ld.height, width=ld.width,
+                                budget_bytes=self._cache_budget, batch_size=ld.batch_size)
+        if mode == "stream":
+            caches[dataset] = None
+            return None
+        if mode == "full":
+            cache = DeviceCache(ld, device=self.device)
+        else:
+            print(f"device cache for {dataset}/{subset}: partial — {rows}/{len(ld.source)} "
+                  f"rows cached ({100 * rows // len(ld.source)}%), remainder streams")
+            cache = HybridCache(ld, rows, device=self.device)
+        self._cache_budget -= cache_bytes(rows, ld.height, ld.width)
+        caches[dataset] = cache
+        return cache
+
+    def _weight(self, dataset: str) -> np.ndarray:
+        nc = self.cfg.num_classes[self.cfg.datasets.index(dataset)]
+        if dataset in CLASS_WEIGHTS and len(CLASS_WEIGHTS[dataset]) == nc:
+            return CLASS_WEIGHTS[dataset]
+        # a non-standard class count (synthetic runs) or no precomputed table
+        # (IDD_union / VOC12): uniform weights, the ignore class zeroed
+        if dataset not in CLASS_WEIGHTS:
+            print(f"note: no precomputed class-weight table for '{dataset}'; training with "
+                  f"uniform weights (ignore class zeroed)")
+        w = np.ones(nc, np.float32)
+        w[-1] = 0.0
+        return w
+
+    def _build_steps(self):
+        cfg = self.cfg
+        kld_fn = kld_faithful if cfg.kld == "faithful" else kld_corrected
+        cur = cfg.current_task
+        cur_ds = cfg.datasets[cur]
+        lr_tree = rap_lr_tree(self.ts.model, current_task=cur,
+                              shared_lr=cfg.shared_lr_value(), ds_lr=cfg.lr)
+        common = dict(class_weight=self._weight(cur_ds), lr_tree=lr_tree,
+                      num_epochs=cfg.num_epochs, weight_decay=cfg.weight_decay,
+                      iou_train=cfg.iou_train)
+        prev = tuple(range(cur - 1, -1, -1))  # newest to oldest, the reference's order
+        if cfg.protocol == "step1":
+            self.train_step = steps.make_ce_step(task=cur, **common)
+        elif cfg.protocol == "step2" or not cfg.two_phase:
+            self.train_step = steps.make_distill_step(
+                current_task=cur, prev_tasks=prev, lambda_c=cfg.lambda_c, kld_fn=kld_fn,
+                **common)
+        else:
+            self.train_step = steps.make_two_phase_distill_step(
+                current_task=cur, prev_tasks=prev, lambda_c=cfg.lambda_c, kld_fn=kld_fn,
+                teacher_dropout=cfg.teacher_dropout, **common)
+        self.eval_steps = {
+            d: steps.make_eval_step(task=t, class_weight=self._weight(d),
+                                    num_classes=cfg.num_classes[t])
+            for t, d in enumerate(cfg.datasets)
+        }
+
+    # ------------------------------------------------------------------
+    def _try_resume(self):
+        ckpt_dir = os.path.join(self.cfg.savedir, "ckpt")
+        if torch_io.latest_epoch(ckpt_dir) is None:
+            print("resume requested but no checkpoint found; starting fresh")
+            return
+        self.ts, epoch, self.best_acc, aug_state = torch_io.restore(ckpt_dir, self.ts)
+        self.aug_gen.set_state(aug_state)
+        self.start_epoch = epoch + 1
+        print(f"resumed from epoch {epoch} (best_acc {self.best_acc:.4f})")
+
+    def _save(self, subdir: str, epoch: int) -> None:
+        torch_io.save(os.path.join(self.cfg.savedir, subdir), epoch, self.ts,
+                      best_acc=self.best_acc, aug_state=self.aug_gen.get_state())
+
+    # ------------------------------------------------------------------
+    def _train_batches(self, epoch: int):
+        """The current task's training batches of `epoch` on the device:
+        (images uint8, labels uint8, valid)."""
+        d = self.cfg.datasets[self.cfg.current_task]
+        cache = self._cache_for(d, "train")
+        if cache is not None:
+            return cache.epoch_batches(epoch)
+        ld = self.train_loaders[d]
+        ld.set_epoch(epoch)
+        return device_prefetch(ld, device=self.device)
+
+    def train_epoch(self, epoch: int) -> dict:
+        cfg = self.cfg
+        t0 = time.time()
+        # the dropout-mask RNG is (seed, epoch)-keyed: a resumed run draws the
+        # same mask stream an uninterrupted run draws for this epoch
+        self._np_rng = np.random.default_rng((cfg.seed + 1, epoch))
+        losses = {k: [] for k in ("loss", "ce", "kld")}
+        cms = []
+        cur = cfg.current_task
+        for imgs, lbls, _ in self._train_batches(epoch):
+            self._one_batch(cur, imgs, lbls, epoch, losses, cms)
+        # the epoch's device scalars are reduced on the device and fetched
+        # once per key here, not once per batch
+        out = {f"train_{k}": torch.stack(v).mean().item() for k, v in losses.items() if v}
+        if cms:
+            nc = cfg.num_classes[cur]
+            ev = IoUEvaluator(nc, nc - 1)
+            ev.add_confusion(torch.stack(cms).sum(0))
+            if ev._cm.sum():
+                iou, _ = ev.get_iou()
+                out[f"train_iou_{cfg.datasets[cur]}"] = iou
+                out["train_iou"] = iou
+        out["epoch_seconds"] = time.time() - t0
+        return out
+
+    def _one_batch(self, task: int, imgs, lbls, epoch: int, losses: dict, cms: list):
+        cfg = self.cfg
+        self._tracer.tick()
+        n = imgs.shape[0]
+        flip, tx, ty = transforms.draw_augment(self.aug_gen, n)
+        x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
+                                        num_classes=cfg.num_classes[task])
+        if cfg.protocol in ("step2", "step3"):
+            n_fwd = 1 + cfg.current_task
+            if cfg.protocol == "step3" and cfg.two_phase and cfg.teacher_dropout:
+                # the teacher's forwards draw their own masks, after the student's
+                n_fwd += cfg.current_task
+            masks = [make_dropout_masks(self._np_rng, n) for _ in range(n_fwd)]
+            self.ts, m = self.train_step(self.ts, self.teacher, x, y, masks, epoch)
+        else:
+            masks = make_dropout_masks(self._np_rng, n)
+            self.ts, m = self.train_step(self.ts, x, y, masks, epoch)
+        # device scalars until the epoch's end: reading one here would wait
+        # for the step every batch
+        for k in losses:
+            if k in m:
+                losses[k].append(m[k])
+        if "cm" in m:
+            cms.append(m["cm"])
+        # bounded pipeline: every 16 steps, read the loss saved at the
+        # previous sync point (long finished), so at most ~32 steps are queued
+        # and the device never waits for the host
+        self._step_count += 1
+        if self._step_count % 16 == 0:
+            if self._sync_loss is not None:
+                self._sync_loss.item()
+            self._sync_loss = m["loss"]
+
+    def evaluate(self, dataset: str, epoch: int) -> tuple[float, float]:
+        """(mean val loss, val mIoU) of one domain."""
+        t = self.cfg.datasets.index(dataset)
+        nc = self.cfg.num_classes[t]
+        estep = self.eval_steps[dataset]
+        cache = self._cache_for(dataset, "val")
+        batches = (cache.epoch_batches(0, shuffle=False) if cache is not None
+                   else device_prefetch(self.val_loaders[dataset], device=self.device))
+        losses, cms = [], []
+        for imgs, lbls, valid in batches:
+            x, y = transforms.prepare_batch(imgs, lbls, num_classes=nc)
+            # padded images -> all-ignore labels: they count in neither CE nor IoU
+            valid = torch.as_tensor(valid).to(self.device, non_blocking=True)
+            y = torch.where(valid[:, None, None], y, nc - 1)
+            loss, cm = estep(self.ts.model, x, y)
+            losses.append(loss)
+            cms.append(cm)
+            if len(cms) % 16 == 0 and len(cms) >= 32:
+                losses[-17].item()  # lagged sync: bounds the queued batches
+        if not cms:
+            return 0.0, 0.0
+        ev = IoUEvaluator(nc, nc - 1)
+        ev.add_confusion(torch.stack(cms).sum(0))
+        miou, _ = ev.get_iou()
+        return torch.stack(losses).mean().item(), miou
+
+    # ------------------------------------------------------------------
+    def fit(self, stop_after: int | None = None) -> dict:
+        """Run the epoch loop from `start_epoch`. `stop_after` ends the run
+        after that epoch's checkpoint is written (an interruption; the LR
+        schedule is keyed to cfg.num_epochs, so a resume must use the same
+        config)."""
+        cfg = self.cfg
+        cur_ds = cfg.datasets[cfg.current_task]
+        history = {}
+        for epoch in range(self.start_epoch, cfg.num_epochs + 1):
+            row = dict(epoch=epoch, **self.train_epoch(epoch))
+
+            # the final epoch always evaluates, so a run shorter than the
+            # cadence still writes best/
+            evaluated = epoch % cfg.eval_every == 0 or epoch == cfg.num_epochs
+            if evaluated:
+                val_loss, val_iou = self.evaluate(cur_ds, epoch)
+                row[f"val_loss_{cur_ds}"] = val_loss
+                row[f"val_acc_{cur_ds}"] = val_iou
+                print(f"epoch {epoch}: val {cur_ds} IoU "
+                      f"{getColorEntry(val_iou)}{val_iou * 100:.2f}\033[0m%")
+            else:
+                val_loss, val_iou = 0.0, 0.0
+
+            if cfg.protocol in ("step2", "step3") and epoch % cfg.eval_old_every == 0:
+                for d in cfg.datasets:
+                    if d != cur_ds:
+                        row[f"val_loss_{d}"], row[f"val_acc_{d}"] = self.evaluate(d, epoch)
+
+            # only evaluated epochs compete for best, as the reference compares
+            # val-IoU epochs only (train_RAPFT_step1.py:347-352)
+            current_acc = (val_iou if val_iou != 0 else -val_loss) if evaluated else None
+            is_best = current_acc is not None and current_acc > self.best_acc
+            if is_best:
+                self.best_acc = current_acc
+
+            # the optimizer's LRs this epoch; the automated_log column carries
+            # the DS group's, the last param group the reference's usedLr loop
+            # ends on (train_RAPFT_step1.py:274-276)
+            poly = poly_lr_factor(epoch, cfg.num_epochs)
+            row["lr_ds"] = cfg.lr * poly
+            row["lr_shared"] = cfg.shared_lr_value() * poly
+
+            self.logger.log(row)
+            self.logger.automated_log_row(
+                epoch, row.get("train_loss", 0.0), row.get(f"val_loss_{cur_ds}", 0.0),
+                row.get("train_iou", 0.0), row.get(f"val_acc_{cur_ds}", 0.0), row["lr_ds"])
+            self._save("ckpt", epoch)
+            if is_best:
+                with open(os.path.join(cfg.savedir, "best.txt"), "w") as f:
+                    f.write(f"Best epoch is {epoch}, with Val-IoU= {current_acc:.4f}")
+                self._save("best", epoch)
+            history = row
+            if stop_after is not None and epoch >= stop_after:
+                break
+        self._tracer.stop()
+        return history

@@ -143,3 +143,174 @@ def nb1d_fp32_emulated(x, ops, dilated: int, one_pass: bool = False) -> torch.Te
     m = epilogue(y1, ops.a1, ops.b1)
     y2, _ = pair_emulated(m, ops.w31b, ops.b31b, ops.w13b, ops.rap2, None, dilated, one_pass)
     return epilogue(y2, ops.a2, ops.b2, x)
+
+
+def jax_augment_draws(key, n: int):
+    """The flip / tx / ty that the JAX package's augment_batch draws from
+    `key` (mdilss_tpu/data/transforms.py:124-127), as the port's
+    `draw_augment` returns them."""
+    import jax
+
+    k_flip, k_tx, k_ty = jax.random.split(key, 3)
+    flip = jax.random.bernoulli(k_flip, 0.5, (n,))
+    tx = jax.random.randint(k_tx, (n,), -2, 3)
+    ty = jax.random.randint(k_ty, (n,), -2, 3)
+    return tuple(torch.from_numpy(np.array(a)) for a in (flip, tx, ty))
+
+
+# ---- the Trainer against the JAX package's (test_torch_trainer_jax*.py) ---------------------
+
+TRAINER_TINY = dict(synthetic=True, synthetic_size=4, batch_size=2, height=32, width=64,
+                    num_workers=2)
+# protocol -> (student classes, teacher classes, epochs)
+TRAINER_CASES = {
+    "step1": ((20,), None, 2),
+    "step2": ((20, 20), (20,), 1),
+    "step3": ((20, 20, 27), (20, 20), 1),
+}
+
+
+def _recording(step, out: list):
+    """`step` that also appends each call's losses (floats) to `out`."""
+    def wrapped(*args):
+        ts, m = step(*args)
+        out.append({k: float(v) for k, v in m.items() if k != "cm"})
+        return ts, m
+
+    return wrapped
+
+
+def trainer_parity(protocol: str, tmp_path, monkeypatch) -> None:
+    """Train `protocol` at TRAINER_TINY with the JAX package's Trainer and the
+    port's, from the same initial weights (JAX's init with random BN, into the
+    port through `ckpt.from_jax`) and teacher, and compare.
+
+    Both packages make the same synthetic data, batches and dropout masks
+    (default_rng((seed + 1, epoch))); the augment draws are the JAX Trainer's,
+    replayed from its key splits (mdilss_tpu/train/loop.py:80-81, :432;
+    transforms.py:124-127) and fed to the port's Trainer in place of its
+    generator's.
+
+    Tolerances, as tests/test_torch_train_step.py holds trajectories: the
+    first batch's loss, ce and kld 1e-4 relative (nothing has moved the two
+    packages' weights apart yet); every later batch's, and the per-epoch
+    means, 1e-3. Adam's first steps move each trained weight by ~lr, and
+    where a gradient is small against its float32 noise between the two
+    packages (this BN+relu stack's gradient moves ~2% under a 1e-7 input
+    change) its sign, and so the move, differs: step 3's second batch (after
+    two Adam steps) then differs by 3.4e-4 in ce. Val loss after each epoch
+    1e-4 (an eval forward averages those moves out); the final
+    weights' val confusion matrices within 2 counts per near-tie pixel
+    (`cm_near_ties`); the LR columns within one float32 ulp of the factor
+    (JAX's float32 `jnp.power` is off the correctly rounded power by an ulp
+    at some epochs); the same metrics.jsonl keys, automated_log.txt layout
+    and best epoch. Run with `pytest -s`, it prints each batch's and each
+    epoch's relative differences and the LR columns."""
+    import json
+    import re
+
+    import jax
+    import jax.numpy as jnp
+
+    from mdilss_tpu import config as JC
+    from mdilss_tpu.metrics import confusion_matrix as jax_confusion_matrix
+    from mdilss_tpu.models import erfnet_rap
+    from mdilss_tpu.train import steps as jsteps
+    from mdilss_tpu.train.loop import Trainer as JaxTrainer
+    from mdilss_tpu_torch import config as PC
+    from mdilss_tpu_torch.ckpt import from_jax
+    from mdilss_tpu_torch.data import transforms
+    from mdilss_tpu_torch.models import ERFNetRAP
+    from mdilss_tpu_torch.train.loop import Trainer
+
+    nc, teacher_nc, epochs = TRAINER_CASES[protocol]
+    tiny = TRAINER_TINY
+    rng = np.random.default_rng(0)
+    params, bn = randomize_bn(*erfnet_rap.init(jax.random.key(1), list(nc), len(nc)), rng)
+    init_state = from_jax(params, bn)  # before the JAX steps donate (delete) these arrays
+    j_teacher = p_teacher = None
+    if teacher_nc is not None:
+        tp, tb = randomize_bn(*erfnet_rap.init(jax.random.key(2), list(teacher_nc),
+                                               len(teacher_nc)), rng)
+        p_teacher = ERFNetRAP(list(teacher_nc), len(teacher_nc), device="cpu")
+        p_teacher.load_state_dict(from_jax(tp, tb), strict=True)
+        j_teacher = jsteps.ModelState(tp, tb)
+    kw = dict(num_epochs=epochs, eval_old_every=1, **tiny)
+    jtr = JaxTrainer(getattr(JC, protocol)(savedir=str(tmp_path / "jax"), **kw),
+                     teacher=j_teacher, init_params=params, init_bn=bn)
+    cur = jtr.cfg.datasets[jtr.cfg.current_task]
+    j_batches, p_batches = [], []
+    jtr.train_steps[cur] = _recording(jtr.train_steps[cur], j_batches)
+    jtr.fit()
+
+    key = jax.random.split(jax.random.key(0))[0]  # the JAX Trainer's self.rng
+    draws = []
+    for _ in range(epochs * tiny["synthetic_size"] // tiny["batch_size"]):
+        key, k_aug, _ = jax.random.split(key, 3)
+        draws.append(jax_augment_draws(k_aug, tiny["batch_size"]))
+    draws = iter(draws)
+    monkeypatch.setattr(transforms, "draw_augment", lambda gen, n: next(draws))
+    ptr = Trainer(getattr(PC, protocol)(savedir=str(tmp_path / "port"), **kw),
+                  teacher=p_teacher, init_state=init_state, device="cpu")
+    ptr.train_step = _recording(ptr.train_step, p_batches)
+    ptr.fit()
+    assert next(draws, None) is None  # every replayed draw was used
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    assert len(p_batches) == len(j_batches) > 1
+    for i, (g, w) in enumerate(zip(p_batches, j_batches)):
+        assert set(g) == set(w)
+        print(f"[trainer_parity {protocol}] batch {i + 1}, relative to JAX: "
+              + ", ".join(f"{k} {rel(g[k], w[k]):.2e}" for k in sorted(w)))
+        for k in w:
+            assert rel(g[k], w[k]) <= (1e-4 if i == 0 else 1e-3), (i, k, g[k], w[k])
+
+    def rows(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    got, want = rows(tmp_path / "port/metrics.jsonl"), rows(tmp_path / "jax/metrics.jsonl")
+    assert [list(r) for r in got] == [list(r) for r in want]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g["epoch"] == w["epoch"] == i + 1
+        print(f"[trainer_parity {protocol}] epoch {i + 1}, relative to JAX: "
+              + ", ".join(f"{k} {rel(g[k], w[k]):.2e}" for k in w
+                          if k.startswith(("train_", "val_loss_"))) + f"; lr_ds {g['lr_ds']!r} "
+              f"(JAX {w['lr_ds']!r})")
+        for k in ("train_loss", "train_ce", "train_kld"):
+            if k in w:
+                assert rel(g[k], w[k]) <= 1e-3, (i, k, g[k], w[k])
+        for k in (k for k in w if k.startswith("val_loss_")):
+            assert rel(g[k], w[k]) <= 1e-4, (i, k, g[k], w[k])
+        for k in ("lr_ds", "lr_shared"):
+            assert rel(g[k], w[k]) <= 2.0**-23, (i, k, g[k], w[k])
+    row = re.compile(r"^\d+(\t\t-?\d+\.\d{4}){4}\t\t\d+\.\d{8}$")
+    for name in ("automated_log.txt", "best.txt"):
+        with open(tmp_path / "port" / name) as f:
+            g = f.read()
+        with open(tmp_path / "jax" / name) as f:
+            w = f.read()
+        if name == "best.txt":
+            assert g.split(",")[0] == w.split(",")[0]  # "Best epoch is N"
+            continue
+        g, w = g.split("\n"), w.split("\n")
+        assert g[0] == w[0] and len(g) == len(w) == 1 + epochs
+        assert all(row.match(line) for line in g[1:]), g
+
+    # the final weights' val confusion matrices, on the val batches
+    from mdilss_tpu_torch.data.transforms import prepare_batch
+
+    fwd = jax.jit(lambda p, s, x, t: erfnet_rap.apply(p, s, x, t, training=False)[0],
+                  static_argnums=3)
+    for t, d in enumerate(ptr.cfg.datasets):
+        for imgs, lbls, valid in ptr.val_loaders[d]:
+            assert valid.all()
+            x, y = prepare_batch(torch.from_numpy(imgs), torch.from_numpy(lbls),
+                                 num_classes=nc[t])
+            j_logits = np.asarray(fwd(jtr.ts.params, jtr.ts.bn, jnp.asarray(x.numpy()), t))
+            _, p_cm = ptr.eval_steps[d](ptr.ts.model, x, y)
+            j_cm = jax_confusion_matrix(jnp.asarray(j_logits.argmax(-1)),
+                                        jnp.asarray(y.numpy()), num_classes=nc[t])
+            cm_near_ties(p_cm, j_cm, j_logits, ptr.ts.model(x, t).numpy(), y)

@@ -544,3 +544,120 @@ def test_ce_and_eval_steps_launch_their_kernels(cuda):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 34, 34)
     assert np.isfinite(float(m["loss"])) and int(m["cm"].sum()) == y.numel() and ts.opt.count == 1
+
+
+# ---- the data path and the trainer on the card ----------------------------------------------
+
+def _synthetic_loader(n=7, batch=3, h=16, w=24, shuffle=True):
+    from mdilss_tpu_torch.data.loader import Loader, SyntheticSource
+
+    return Loader(SyntheticSource(6, n=n, height=h, width=w, seed=2), batch_size=batch,
+                  height=h, width=w, shuffle=shuffle, seed=3, num_threads=2)
+
+
+def test_augment_batch_on_the_card_equals_the_cpu(cuda):
+    from mdilss_tpu_torch.data.transforms import augment_batch, draw_augment
+
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (8, 32, 48, 3), dtype=np.uint8))
+    lbls = torch.from_numpy(rng.integers(0, 20, (8, 32, 48)).astype(np.uint8))
+    lbls[:, 5] = 255
+    for seed in range(3):
+        draws = draw_augment(torch.Generator().manual_seed(seed), 8)
+        want = augment_batch(imgs, lbls, *draws, num_classes=20)
+        got = augment_batch(imgs.to(cuda), lbls.to(cuda), *draws, num_classes=20)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)
+
+
+def test_device_caches_on_the_card_hold_the_host_rows(cuda):
+    from mdilss_tpu_torch.data.device_cache import DeviceCache, HybridCache
+
+    ld = _synthetic_loader()
+    full, hybrid = DeviceCache(ld, device=cuda), HybridCache(ld, 4, device=cuda)
+    assert full.images.device.type == "cuda" and full.images.dtype == torch.uint8
+    idx = np.array([6, 0, 4])
+    imgs, lbls = full.take(idx)
+    for row, i in enumerate(idx):
+        img, lbl = ld.source.decode(int(i), ld.height, ld.width)
+        assert torch.equal(imgs[row].cpu(), torch.from_numpy(img))
+        assert torch.equal(lbls[row].cpu(), torch.from_numpy(lbl))
+    for epoch in (0, 1):
+        ld.set_epoch(epoch)
+        stream = list(ld)
+        for cache in (full, hybrid):
+            got = list(cache.epoch_batches(epoch))
+            assert len(got) == len(stream) == 2
+            for (gi, gl, gv), (si, sl, sv) in zip(got, stream):
+                assert gi.device.type == "cuda" and np.array_equal(gv, sv)
+                assert torch.equal(gi.cpu(), torch.from_numpy(si))
+                assert torch.equal(gl.cpu(), torch.from_numpy(sl))
+
+
+def test_device_prefetch_under_a_busy_stream(cuda):
+    """The current stream is kept busy (a sleep kernel) before each batch is
+    read and its tensors are dropped at once: a batch read before its copy
+    landed, or memory handed to the next copy while a queued kernel still
+    reads it, would show as a batch unequal to the host's."""
+    from mdilss_tpu_torch.data.loader import device_prefetch
+
+    ld = _synthetic_loader(n=24, batch=2, h=64, w=96, shuffle=False)
+    host = list(ld)
+    copies = []
+    for imgs, lbls, valid in device_prefetch(ld, depth=2, device=cuda):
+        torch.cuda._sleep(2_000_000)
+        copies.append((imgs.clone(), lbls.clone(), valid.clone()))
+        del imgs, lbls, valid
+    torch.cuda.synchronize()
+    assert len(copies) == len(host) == 12
+    for got, want in zip(copies, host):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), torch.from_numpy(w))
+
+
+def test_trainer_epoch_is_bitwise_repeatable(cuda, tmp_path):
+    from mdilss_tpu_torch import config as C
+    from mdilss_tpu_torch.train.loop import Trainer
+
+    kw = dict(num_epochs=1, synthetic=True, synthetic_size=4, batch_size=2, height=64,
+              width=128, num_workers=2, iou_train=True)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for name in ("a", "b"):
+            torch.manual_seed(3)
+            teacher = ERFNetRAP([20], 1, device=cuda)
+            tr = Trainer(C.step2(savedir=str(tmp_path / name), **kw), teacher=teacher,
+                         device=cuda)
+            assert tr.device.type == "cuda"
+            before = _launches()
+            row = tr.fit()
+            assert all(a > b for a, b in zip(_launches(), before))
+            states.append((row, tr.ts.model.state_dict(), tr.ts.opt))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    (ra, sa, oa), (rb, sb, ob) = states
+    assert {k: v for k, v in ra.items() if k != "epoch_seconds"} == {
+        k: v for k, v in rb.items() if k != "epoch_seconds"}
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert torch.equal(oa.m, ob.m) and torch.equal(oa.v, ob.v) and oa.count == ob.count == 2
+
+
+def test_evaluate_checkpoint_raises_on_float64_on_the_card(cuda, tmp_path):
+    from mdilss_tpu_torch.ckpt import torch_io
+    from mdilss_tpu_torch.evaluate import evaluate_checkpoint
+    from mdilss_tpu_torch.train import steps
+
+    model = ERFNetRAP([6], 1, device=cuda)
+    torch_io.save(str(tmp_path / "ck"), 1, steps.init_train_state(model), best_acc=0.0,
+                  aug_state=torch.Generator().get_state())
+    for device in (None, "cuda"):
+        with pytest.raises(ValueError, match="float64"):
+            evaluate_checkpoint(str(tmp_path / "ck"), kind="rap", datasets=["cityscapes"],
+                                compute_dtype="float64", device=device)
+    out = evaluate_checkpoint(str(tmp_path / "ck"), kind="rap", datasets=["cityscapes"],
+                              height=64, width=128, synthetic=True)
+    assert 0.0 <= out["cityscapes"] <= 1.0
