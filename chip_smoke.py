@@ -92,7 +92,25 @@ Phases, each fatal on failure (non-zero exit):
      best checkpoint (kind "rap", float32, batch 6, both heads): 34 K1 per
      batch at full width, and at 2x128x256 its per-class IoU beside the CPU's
      float64 run of the file and the two confusion matrices equal off the
-     near-tie pixels.
+     near-tie pixels;
+ 13. the command line (cuDNN on its deterministic algorithms), in-process
+     through `mdilss_tpu_torch.cli.main`: `pipeline --with-baselines` at
+     6x512x1024 (12 synthetic images per domain and subset, one epoch per
+     stage, a pretrained-encoder file written from a seeded ERFNet under
+     `module.features.*`): step1 -> step2 -> step3, single_cs -> ft_step2 ->
+     ft_step3, multitask, with the counts zeroed just before and read just
+     after, each stage's launches exactly its train steps' (CE 0/34/34, step 2
+     34/68/68, step 3 0/170/102 per step) plus 34 K1 per validation batch;
+     step 1's initial shared convs equal to the file's and its per-task slots
+     untouched; build_trainer of step 2 again on the finished tree: its teacher
+     bitwise step1/best, its student extend_for_new_task of it (but the new
+     output_conv) and the pipeline's initial student; every LR-0 parameter of
+     step 2 (step 3) bitwise as in step1/best (step2/best); a second pipeline
+     call skips every stage and launches nothing; `--stages step3` on an empty
+     savedir raises ValueError; `eval` of step3/best and of multitask/best
+     (--kind multi_task), 34 K1 per batch per head; `convert --export` of
+     step3/best and `eval` of the file, the same mIoU; each stage's wall
+     seconds, train img/s and peak memory.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven) and, as the last line,
@@ -102,7 +120,10 @@ Without a CUDA card it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import dataclasses
+import io
 import json
 import os
 import re
@@ -114,22 +135,26 @@ import time
 import numpy as np
 import torch
 
+from mdilss_tpu_torch import cli
 from mdilss_tpu_torch import config as PC
 from mdilss_tpu_torch import serving
+from mdilss_tpu_torch.ckpt import torch_io
+from mdilss_tpu_torch.ckpt.surgery import extend_for_new_task
 from mdilss_tpu_torch.data.class_weights import CLASS_WEIGHTS
 from mdilss_tpu_torch.data.device_cache import DeviceCache, HybridCache
 from mdilss_tpu_torch.data.loader import Loader, SyntheticSource, device_prefetch
 from mdilss_tpu_torch.data.transforms import augment_batch, draw_augment, prepare_batch
 from mdilss_tpu_torch.evaluate import evaluate_checkpoint, load_checkpoint
 from mdilss_tpu_torch.metrics import confusion_matrix
-from mdilss_tpu_torch.models import ERFNetRAP
+from mdilss_tpu_torch.models import ERFNet, ERFNetRAP
 from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
 from mdilss_tpu_torch.models.topology import make_dropout_masks
 from mdilss_tpu_torch.ops import _build
 from mdilss_tpu_torch.ops import nb1d_infer as K
 from mdilss_tpu_torch.ops import nb1d_train as T
-from mdilss_tpu_torch.train import steps
-from mdilss_tpu_torch.train.loop import Trainer
+from mdilss_tpu_torch.train import pipeline as PL
+from mdilss_tpu_torch.train import protocols, steps
+from mdilss_tpu_torch.train.loop import Trainer, init_model
 from mdilss_tpu_torch.train.masks import rap_lr_tree
 
 NUM_CLASSES = [20, 20, 27]
@@ -1724,6 +1749,240 @@ def phase_evaluate_checkpoint(dev: torch.device, best: str) -> dict:
     return rec
 
 
+# ---- phase 13: the CLI chain ------------------------------------------------------------------
+# `python -m mdilss_tpu_torch pipeline --with-baselines` at the reference settings (6x512x1024
+# fp32, trainer_OURS.sh's LRs and lambda), in-process through cli.main, one epoch per stage on
+# synthetic sources of CHAIN_IMAGES per domain and subset (2 batches of 6)
+CHAIN_IMAGES = 12
+CHAIN_BATCHES = CHAIN_IMAGES // TRAIN_BATCH
+CHAIN_STAGES = ("step1", "step2", "step3", "single_cs", "ft_step2", "ft_step3", "multitask")
+# per stage: launches per train step, train steps in its epoch (multitask: one per domain in turn),
+# and the domains it validates in that epoch (the current one; step 2 and ft every old one too,
+# eval_old_every 1; step 3 and multitask none of the others at epoch 1: eval_old_every 10 / 5)
+CHAIN_PLAN = {
+    "step1": (CE_LAUNCHES, CHAIN_BATCHES, 1),
+    "step2": (STEP_LAUNCHES, CHAIN_BATCHES, 2),
+    "step3": (STEP3_LAUNCHES, CHAIN_BATCHES, 1),
+    "single_cs": (CE_LAUNCHES, CHAIN_BATCHES, 1),
+    "ft_step2": (CE_LAUNCHES, CHAIN_BATCHES, 2),
+    "ft_step3": (CE_LAUNCHES, CHAIN_BATCHES, 3),
+    "multitask": (CE_LAUNCHES, 3 * CHAIN_BATCHES, 1),
+}
+CHAIN_EVAL_BATCHES = 2  # eval: 8 synthetic images per head in batches of 6
+
+
+def chain_expected(stage: str) -> dict:
+    per_step, n_steps, n_val = CHAIN_PLAN[stage]
+    return {k: n_steps * v + (n_val * CHAIN_BATCHES * EVAL_LAUNCHES[k]) for k, v in
+            per_step.items()}
+
+
+def write_pretrained_encoder(seed: int, path: str) -> dict:
+    """A reference-grammar ImageNet encoder file: a seeded single-task ERFNet's
+    encoder with random BN, under `module.features.*`; returns its state dict
+    (without the prefix)."""
+    torch.manual_seed(seed)
+    net = ERFNet(20, device="cpu")
+    randomize_bn(net, torch.Generator().manual_seed(seed + 1))
+    enc = {k: v.clone() for k, v in net.state_dict().items() if k.startswith("encoder.")}
+    torch.save({"epoch": 90, "arch": "erfnet_imagenet", "best_acc": 0.0,
+                "state_dict": {"module.features." + k: v for k, v in enc.items()}}, path)
+    return enc
+
+
+def run_cli(argv: list[str]) -> tuple[str, float]:
+    """cli.main(argv) with its standard output captured (and echoed, its
+    last 3 lines); returns (output, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.strip().splitlines()[-3:]:
+        print(f"[cli-chain]   | {line[:300]}")
+    return out, secs
+
+
+def phase_cli_chain(seed: int, dev: torch.device) -> dict:
+    """Phase 13: the pipeline, eval and convert commands in-process, with the
+    gates fixed in PERF.md before the first run: exact launches per stage and
+    in all, the pretrained encoder in step 1's initial weights, the step-2
+    teacher and student rebuilt from step1/best, the frozen parameters across
+    the chain, a rerun that trains nothing, the predecessor rule, and the
+    export round trip."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_chain")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rec = _cli_chain(seed, dev, root)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+        PL.build_trainer = protocols.build_trainer
+    shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[cli-chain] phase 13 in {rec['seconds']:.1f} s")
+    return rec
+
+
+def _cli_chain(seed: int, dev: torch.device, root: str) -> dict:
+    enc_path = os.path.join(root, "encoder.pth.tar")
+    enc = write_pretrained_encoder(seed + 30, enc_path)
+    runs = os.path.join(root, "runs")
+    argv = ["pipeline", "--with-baselines", "--synthetic", "--synthetic-size", str(CHAIN_IMAGES),
+            "--num-epochs", "1", "--batch-size", str(TRAIN_BATCH), "--height", str(HEIGHT),
+            "--width", str(WIDTH), "--pretrained-encoder", enc_path, "--savedir", runs,
+            "--seed", str(seed)]
+    stages: dict[str, dict] = {}
+
+    def recording_build(cfg, device=None):
+        """build_trainer, recording each stage's initial student and timing its fit."""
+        tr = protocols.build_trainer(cfg, device=device)
+        stage = os.path.basename(cfg.savedir)
+        rec = stages[stage] = {"initial": {k: v.cpu() for k, v in state_copy(tr.ts.model).items()},
+                               "cfg": cfg}
+        fit = tr.fit
+
+        def timed_fit(*a, **kw):
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before, t0 = launch_counts(), time.perf_counter()
+            row = fit(*a, **kw)
+            sync(dev)
+            rec.update(seconds=time.perf_counter() - t0, row=row,
+                       launches={k: v - before[k] for k, v in launch_counts().items()},
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+            return row
+
+        tr.fit = timed_fit
+        return tr
+
+    PL.build_trainer = recording_build
+    zero_launch_counts()
+    _, chain_s = run_cli(argv)
+    launches = launch_counts()
+    PL.build_trainer = protocols.build_trainer
+    out = {"launches": launches, "seconds": chain_s, "stages": {}}
+    check(tuple(stages) == CHAIN_STAGES, f"the pipeline ran {tuple(stages)}")
+    want_all = {k: 0 for k in launches}
+    for stage in CHAIN_STAGES:
+        r, want = stages[stage], chain_expected(stage)
+        images = CHAIN_IMAGES * (3 if stage == "multitask" else 1)
+        row = r["row"]
+        info = {"launches": r["launches"], "expected": want, "seconds": r["seconds"],
+                "train_img_per_s": images / row["epoch_seconds"],
+                "epoch_seconds": row["epoch_seconds"],
+                "peak_memory_bytes": r["peak_memory_bytes"], "train_loss": row["train_loss"]}
+        out["stages"][stage] = info
+        print(f"[cli-chain] {stage}: {r['seconds']:.3f} s wall (fit), train epoch "
+              f"{row['epoch_seconds']:.3f} s = {info['train_img_per_s']:.2f} img/s, peak "
+              f"{info['peak_memory_bytes'] / 2**30:.2f} GiB; launches {r['launches']} "
+              f"(expected {want}); loss {row['train_loss']:.6f}")
+        check(r["launches"] == want, f"{stage} launched {r['launches']}, expected {want}")
+        check(np.isfinite(row["train_loss"]), f"{stage}: {row}")
+        for k in want_all:
+            want_all[k] += want[k]
+    print(f"[cli-chain] pipeline --with-baselines: {chain_s:.3f} s; launches {launches} "
+          f"(expected {want_all})")
+    check(launches == want_all, f"the pipeline launched {launches}, expected {want_all}")
+
+    # step 1's initial weights: the file's shared convs, its own per-task slots
+    init1 = stages["step1"]["initial"]
+    fresh = init_model(stages["step1"]["cfg"]).state_dict()
+    shared = [k for k in init1 if k in enc and ".bn" not in k and "num_batches" not in k]
+    slots = [k for k in init1 if "bn_ini" in k or "bns_" in k or "parallel_conv" in k]
+    bad = [k for k in shared if not torch.equal(init1[k], enc[k])]
+    bad += [k for k in slots if not torch.equal(init1[k], fresh[k])]
+    print(f"[cli-chain] step 1's initial weights: {len(shared)} shared encoder convs equal to "
+          f"the pretrained file's, {len(slots)} per-task slot entries untouched; unequal {bad}")
+    check(len(shared) == 110 and slots and not bad, f"step 1's pretrained encoder: {bad[:5]}")
+
+    # the step-2 teacher and student, rebuilt from step1/best on the finished tree
+    best = {s: os.path.join(runs, s, "best") for s in CHAIN_STAGES}
+    sd1 = torch_io.load_state(best["step1"], "rap")
+    cfg2 = stages["step2"]["cfg"]
+    tr2 = protocols.build_trainer(dataclasses.replace(cfg2, savedir=os.path.join(root, "s2b")),
+                                  device=dev)
+    t_sd, s_sd = tr2.teacher.state_dict(), tr2.ts.model.state_dict()
+    ext = extend_for_new_task(sd1, cfg2.num_classes[-1],
+                              generator=torch.Generator().manual_seed(cfg2.seed))
+    t_bad = [k for k in sd1 if not torch.equal(t_sd[k].cpu(), sd1[k])] + sorted(
+        set(t_sd) ^ set(sd1))
+    s_bad = [k for k in ext if ".1.output_conv." not in k
+             and not torch.equal(s_sd[k].cpu(), ext[k])] + sorted(set(s_sd) ^ set(ext))
+    s_init = [k for k in s_sd if not torch.equal(s_sd[k].cpu(), stages["step2"]["initial"][k])]
+    print(f"[cli-chain] step 2 rebuilt from step1/best: teacher keys unequal to the file "
+          f"{len(t_bad)} of {len(sd1)}; student keys unequal to extend_for_new_task (but the "
+          f"new output_conv) {len(s_bad)} of {len(ext)}; unequal to the pipeline's initial "
+          f"student {len(s_init)}")
+    check(not t_bad and not s_bad and not s_init,
+          f"step-2 rebuild: teacher {t_bad[:5]}, student {s_bad[:5]}, initial {s_init[:5]}")
+    del tr2, t_sd, s_sd
+
+    # frozen parameters across the chain: LR 0 in step t leaves step t-1's values
+    frozen = {}
+    for prev, cur, task in (("step1", "step2", 1), ("step2", "step3", 2)):
+        a, b = torch_io.load_state(best[prev], "rap"), torch_io.load_state(best[cur], "rap")
+        model = ERFNetRAP(stages[cur]["cfg"].num_classes, task + 1, device="cpu")
+        lr = rap_lr_tree(model, current_task=task, shared_lr=SHARED_LR, ds_lr=DS_LR)
+        keys = [k for k, v in lr.items() if v == 0.0]
+        moved = [k for k in keys if not torch.equal(a[k], b[k])]
+        frozen[cur] = {"frozen": len(keys), "moved": moved}
+        print(f"[cli-chain] {cur}/best vs {prev}/best: {len(keys)} parameters at LR 0, "
+              f"{len(moved)} moved")
+        check(keys and not moved, f"{cur}: frozen parameters moved: {moved[:5]}")
+    out["frozen"] = frozen
+
+    # a rerun trains nothing and launches nothing; a lone step 3 needs step 2
+    mtimes = {s: os.path.getmtime(os.path.join(best[s], f"{torch_io.latest_epoch(best[s])}.pt"))
+              for s in CHAIN_STAGES}
+    zero_launch_counts()
+    text, rerun_s = run_cli(argv)
+    rerun = launch_counts()
+    same = all(os.path.getmtime(os.path.join(best[s], "1.pt")) == mtimes[s] for s in CHAIN_STAGES)
+    skipped = text.count("found existing")
+    print(f"[cli-chain] rerun: {rerun_s:.3f} s, launches {rerun}, stages skipped {skipped}, "
+          f"checkpoints untouched {same}")
+    check(rerun == {"K1": 0, "K2": 0, "K3": 0} and skipped == len(CHAIN_STAGES) and same,
+          f"the rerun launched {rerun}, skipped {skipped}, checkpoints untouched {same}")
+    lone = argv[:-4] + ["--stages", "step3", "--savedir", os.path.join(root, "empty"),
+                        "--seed", str(seed)]
+    try:
+        run_cli(lone)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"[cli-chain] --stages step3 without step 2: ValueError {raised!r}")
+    check(raised is not None and "step2" in raised, "--stages step3 without step 2 did not raise")
+    out["rerun"] = {"launches": rerun, "seconds": rerun_s, "skipped": skipped}
+
+    # eval of step3/best and multitask/best; convert --export and eval of the file
+    ev = ["--synthetic", "--batch-size", str(TRAIN_BATCH), "--height", str(HEIGHT), "--width",
+          str(WIDTH), "--datasets", "cityscapes", "BDD", "IDD"]
+    want_eval = {"K1": 3 * CHAIN_EVAL_BATCHES * EVAL_LAUNCHES["K1"], "K2": 0, "K3": 0}
+    evals = {}
+    for name, extra in (("step3", [best["step3"]]),
+                        ("multitask", [best["multitask"], "--kind", "multi_task"]),
+                        ("exported", [os.path.join(root, "step3.pth.tar")])):
+        if name == "exported":
+            run_cli(["convert", best["step3"], extra[0], "--export", "--kind", "rap"])
+        zero_launch_counts()
+        text, secs = run_cli(["eval", *extra, *ev])
+        got = launch_counts()
+        miou = json.loads(text.strip().splitlines()[-1])
+        evals[name] = {"miou": miou, "launches": got, "seconds": secs}
+        print(f"[cli-chain] eval {name}: {miou}; launches {got}; {secs:.3f} s")
+        check(got == want_eval, f"eval {name} launched {got}, expected {want_eval}")
+    check(evals["exported"]["miou"] == evals["step3"]["miou"],
+          f"the exported file's mIoU {evals['exported']['miou']} differs from the "
+          f"directory's {evals['step3']['miou']}")
+    out["eval"] = evals
+    return out
+
+
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
                  kind: str, **more_launches) -> dict:
     """The kernels-line entry of K2 or K3: `launches` on the step-2 path (and
@@ -1797,6 +2056,7 @@ def main(argv=None) -> int:
     del run3
     other_steps["step3_vs_cpu"] = phase_step3_vs_cpu(args.seed, dev)
     trainer = phase_trainer(args.seed, dev, train_times["img_per_s"])
+    cli_chain = phase_cli_chain(args.seed, dev)
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -1815,6 +2075,8 @@ def main(argv=None) -> int:
         "launches_trainer_path": trainer["launches"]["K1"],
         "launches_step3_trainer": trainer["step3"]["launches"]["K1"],
         "launches_evaluate_checkpoint": trainer["evaluate_checkpoint"]["launches"]["K1"],
+        "launches_cli_chain": cli_chain["launches"]["K1"],
+        "launches_cli_eval": sum(e["launches"]["K1"] for e in cli_chain["eval"].values()),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -1831,20 +2093,23 @@ def main(argv=None) -> int:
                     launches_step3_path=step3_path["launches"]["K2"],
                     launches_ce_step=other_steps["ce"]["launches"]["K2"],
                     launches_trainer_path=trainer["launches"]["K2"],
-                    launches_step3_trainer=trainer["step3"]["launches"]["K2"]),
+                    launches_step3_trainer=trainer["step3"]["launches"]["K2"],
+                    launches_cli_chain=cli_chain["launches"]["K2"]),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
                      ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd",
                      launches_step3_path=step3_path["launches"]["K3"],
                      launches_ce_step=other_steps["ce"]["launches"]["K3"],
                      launches_trainer_path=trainer["launches"]["K3"],
-                     launches_step3_trainer=trainer["step3"]["launches"]["K3"])]}
+                     launches_step3_trainer=trainer["step3"]["launches"]["K3"],
+                     launches_cli_chain=cli_chain["launches"]["K3"])]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
               "kernel_cases": cases, "main_path": main_path, "times": times,
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
-              "other_steps": other_steps, "trainer": trainer, "glue_bound": glue,
+              "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
+              "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

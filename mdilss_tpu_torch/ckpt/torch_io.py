@@ -2,7 +2,9 @@
 
   * `load_pth_tar`: a reference checkpoint ({epoch, arch, state_dict,
     best_acc, optimizer}, `module.`-prefixed keys; train_RAPFT_step1.py:364-370)
-    -> its state dict without the prefix.
+    -> its state dict without the prefix; `load_state`: the state dict of
+    a `.pth.tar` or of a checkpoint directory for a model kind, the heads
+    renamed to the kind's grammar.
   * `save` / `latest_epoch` / `restore` / `infer_num_classes`: the trainer's
     checkpoints with true resume, in place of the JAX package's Orbax
     manager (mdilss_tpu/ckpt/orbax_io.py). One file `<directory>/<epoch>.pt`
@@ -20,21 +22,28 @@ import re
 
 import torch
 
+from ..models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
+from ..models.erfnet_multihead import head_prefixes
 from ..train.optim import AdamState
 from ..train.steps import TrainState
 
 MAX_TO_KEEP = 2
 _FILE = re.compile(r"^(\d+)\.pt$")
-_HEAD = re.compile(r"\.(\d+)\.output_conv\.bias$")
+_HEAD = re.compile(r"^(decoder(?:\.\d+|_old|_new|_old1|_old2)?)\.output_conv\.bias$")
+# task order of the named heads (erfnet.py `decoder`; erfnet_ftp1.py:139-141 decoder_old,
+# decoder_new; erfnet_ftp2.py:139-143 decoder_old1, decoder_old2, decoder_new)
+_HEAD_RANK = {"decoder": 0, "decoder_old": 0, "decoder_old1": 0, "decoder_old2": 1,
+              "decoder_new": 9}
 
 
-def load_pth_tar(path: str) -> dict[str, torch.Tensor]:
+def load_pth_tar(path: str, *, strip_module: bool = True) -> dict[str, torch.Tensor]:
     """The state dict of a reference checkpoint (or of one of `save`'s
     files) on the CPU, keys without the `module.` prefix that
-    nn.DataParallel adds."""
+    nn.DataParallel adds (kept with `strip_module=False`: the ImageNet
+    encoder's `module.features.*` keys are renamed as a whole)."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
     sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
-    return {k.removeprefix("module."): v for k, v in sd.items()}
+    return {(k.removeprefix("module.") if strip_module else k): v for k, v in sd.items()}
 
 
 def _epochs(directory: str) -> list[int]:
@@ -79,20 +88,68 @@ def _load(directory: str, epoch: int | None, device="cpu") -> dict:
     return torch.load(_path(directory, step), map_location=device, weights_only=True)
 
 
+def heads(state_dict) -> list[tuple[str, int]]:
+    """(prefix, class count) of every decoder head of a state dict, in task
+    order: digit-indexed (`decoder.{t}`: the RAP and multi-task models) or
+    named (`decoder`, `decoder_old`, ... : erfnet, ftp1, ftp2)."""
+    found = {m.group(1): int(v.shape[0]) for k, v in state_dict.items()
+             if (m := _HEAD.match(k.removeprefix("module.")))}
+
+    def order(prefix: str):
+        tail = prefix.split(".")[-1]
+        return (int(tail), "") if tail.isdigit() else (_HEAD_RANK.get(prefix, 0), prefix)
+
+    return [(p, found[p]) for p in sorted(found, key=order)]
+
+
 def heads_num_classes(state_dict, where: str) -> list[int]:
-    """Per-head class counts from the `.{i}.output_conv.bias` shapes of a
-    state dict (digit-indexed heads, the RAP model's `decoder.{i}`)."""
-    heads = {int(m.group(1)): int(v.shape[0])
-             for k, v in state_dict.items() if (m := _HEAD.search(k))}
-    if not heads:
-        raise ValueError(f"no digit-indexed output_conv heads found in {where}")
-    return [heads[i] for i in sorted(heads)]
+    """Per-head class counts from the heads' `output_conv.bias` shapes."""
+    found = heads(state_dict)
+    if not found:
+        raise ValueError(f"no output_conv heads found in {where}")
+    return [nc for _, nc in found]
 
 
 def infer_num_classes(directory: str, *, epoch: int | None = None) -> list[int]:
     """Per-head class counts of a checkpoint directory, read from the saved
     heads' bias shapes without building a model."""
     return heads_num_classes(_load(directory, epoch)["state_dict"], directory)
+
+
+def load_state(path: str, kind: str) -> dict[str, torch.Tensor]:
+    """The reference-grammar state dict of a checkpoint for a `kind` model:
+    a reference `.pth.tar` (`load_pth_tar`), or the newest file of one of the
+    port's checkpoint directories. For the shared-encoder kinds (multi_task,
+    erfnet, ftp1, ftp2) the heads are renamed, in task order, to the kind's
+    grammar, so a one-head `decoder.0.*` run (the single-task baseline) loads
+    as kind "erfnet" (`decoder.*`), as the JAX package's Orbax runs load as
+    any of those kinds (mdilss_tpu/train/protocols.py:65-70)."""
+    if os.path.isdir(path):
+        if latest_epoch(path) is None:
+            raise ValueError(
+                f"{path} holds no checkpoint of this package (<epoch>.pt). A checkpoint "
+                f"directory of the JAX package (Orbax) is not read here: convert it with "
+                f"`python -m mdilss_tpu convert {path} out.pth.tar --export --kind {kind}` "
+                f"and pass out.pth.tar")
+        sd = _load(path, None)["state_dict"]
+    else:
+        sd = load_pth_tar(path)
+    if kind not in MULTIHEAD_KINDS:
+        return sd
+    return rename_heads(sd, head_prefixes(kind, len(heads(sd))))
+
+
+def rename_heads(sd: dict, prefixes: list[str]) -> dict[str, torch.Tensor]:
+    """`sd` with its heads, in task order, renamed to `prefixes`."""
+    found = [p for p, _ in heads(sd)]
+    if len(found) != len(prefixes):
+        raise ValueError(f"{len(found)} heads {found} for {len(prefixes)} names {prefixes}")
+    rename = dict(zip(found, prefixes))
+    out = {}
+    for k, v in sd.items():
+        src = next((p for p in found if k.startswith(p + ".")), None)
+        out[k if src is None else rename[src] + k[len(src):]] = v
+    return out
 
 
 def restore(directory: str, ts: TrainState, *, epoch: int | None = None):

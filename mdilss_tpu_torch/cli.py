@@ -1,0 +1,403 @@
+"""Command-line interface: `python -m mdilss_tpu_torch <command> ...` (port of
+mdilss_tpu/cli.py, with its command names, options and defaults).
+
+  step1 / step2 / step3  the RAP protocol's steps (train_RAPFT_step1.py,
+                         train_new_task_step2.py, train_new_task_step3.py)
+  multitask / single / ft  the baselines (train_multi_task.py; the single-task
+                         ERFNet; main_ftp1_enc_newbn.py / main_FT2_flexible_new.py)
+  pipeline               step1 -> step2 -> step3 [+ the baselines] through
+                         <savedir>/<stage>/best (trainer_OURS.sh:49-63)
+  eval                   per-domain mIoU of a checkpoint (Evaluation_Notebook)
+  convert                .pth.tar -> a checkpoint directory of the port, and back
+                         with --export
+  weights                class weights over train labels (cal_class_weights.py)
+
+Deviations from the JAX package's CLI: `--device {cuda,cpu}` (default cuda;
+without a card it raises) in place of `--platform`; no
+`--compilation-cache` (XLA's); each `--data-root NAME=PATH` is checked and a
+bad one exits with a usage message naming it. `tsne`, `predict`, `export` and
+`parity-check` wait for ROADMAP A9 and `bench` for A2: they parse and exit
+non-zero. The ablation `--model` choices raise NotImplementedError (A8b).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from . import config as C
+from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
+
+DEVICES = ("cuda", "cpu")
+_CKPT_KINDS = ("rap", *MULTIHEAD_KINDS)  # the kinds with a state-dict grammar
+_KINDS = _CKPT_KINDS + C.ABLATION_MODELS
+# the reference step-1 trainer's model factory (train_RAPFT_step1.py:451-460)
+_MODELS = ("erfnet_RA_parallel", *C.ABLATION_MODELS)
+_WAITS = {
+    "tsne": "A9 (analysis)", "predict": "A9 (analysis)", "export": "A9 (serving export)",
+    "parity-check": "A9 (the parity runbook)", "bench": "A2 (the port's benchmark)",
+}
+
+
+def _name_path(kv: str) -> tuple[str, str]:
+    name, sep, path = kv.partition("=")
+    if not (sep and name and path):
+        raise argparse.ArgumentTypeError(
+            f"{kv!r}: expected NAME=PATH, e.g. cityscapes=/data/cityscapes")
+    return name, path
+
+
+def _add_data_root(p: argparse.ArgumentParser, **kw) -> None:
+    p.add_argument("--data-root", action="append", default=[], metavar="NAME=PATH",
+                   type=_name_path, **kw)
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", choices=DEVICES, default="cuda",
+                   help="run on the CUDA card (default; raises without one) or on the "
+                        "CPU's plain versions")
+
+
+def _add_common(p: argparse.ArgumentParser):
+    _add_device(p)
+    p.add_argument("--savedir", default="runs/dev")
+    p.add_argument("--state", help="init checkpoint (.pth.tar or a checkpoint directory)")
+    p.add_argument("--num-epochs", type=int, default=150)
+    p.add_argument("--batch-size", type=int, default=6)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--shared-lr", type=float, default=None)
+    p.add_argument("--lambdac", type=float, default=0.1)
+    p.add_argument("--kld", choices=("faithful", "corrected"), default="faithful")
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--iou-train", action="store_true",
+                   help="compute train IoU in the train step (reference --iouTrain)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--remat", action="store_true", help="not ported: raises")
+    p.add_argument("--fused-train", action="store_true",
+                   help="accepted: the training blocks always run the fused kernels on the card")
+    p.add_argument("--no-device-cache", action="store_true",
+                   help="disable the device-resident uint8 dataset cache")
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="one device only: anything but 1 raises (ROADMAP A10)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="bfloat16 training raises (ROADMAP R7)")
+    p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
+    p.add_argument("--synthetic-size", type=int, default=24)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler chrome trace of a few train steps here")
+    _add_data_root(p, help="dataset root, e.g. --data-root cityscapes=/data/cs (repeatable)")
+
+
+def _common_kwargs(args) -> dict:
+    return dict(
+        savedir=args.savedir, state=args.state, num_epochs=args.num_epochs,
+        batch_size=args.batch_size, height=args.height, width=args.width,
+        lr=args.lr, shared_lr=args.shared_lr, lambda_c=args.lambdac, kld=args.kld,
+        num_workers=args.num_workers, resume=args.resume, seed=args.seed,
+        iou_train=args.iou_train, remat=args.remat, compute_dtype=args.dtype,
+        synthetic=args.synthetic, fused_train=args.fused_train,
+        device_cache="off" if args.no_device_cache else "auto",
+        synthetic_size=args.synthetic_size, data_roots=dict(args.data_root),
+        profile_dir=args.profile_dir, spatial_shards=args.spatial_shards,
+    )
+
+
+def _add_analysis_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("ckpt")
+    p.add_argument("--kind", choices=_KINDS, default="rap")
+    p.add_argument("--dataset", default="cityscapes")
+    p.add_argument("--subset", default="val")
+    p.add_argument("--task", type=int, default=0)
+    p.add_argument("--num-classes", type=int, nargs="+", default=None)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--synthetic", action="store_true")
+    _add_data_root(p)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="mdilss_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p1 = sub.add_parser("step1", help="RAP-FT step 1 on Cityscapes")
+    p1.add_argument("--pretrained-encoder", help="ImageNet encoder .pth.tar")
+    p1.add_argument("--model", choices=_MODELS, default="erfnet_RA_parallel")
+    _add_common(p1)
+
+    p2 = sub.add_parser("step2", help="incremental step 2 with distillation")
+    p2.add_argument("--order", choices=("CS_BDD", "CS_IDD"), default="CS_BDD")
+    p2.add_argument("--model", choices=_MODELS, default="erfnet_RA_parallel")
+    _add_common(p2)
+
+    p3 = sub.add_parser("step3", help="incremental step 3 (two KLD terms)")
+    p3.add_argument("--order", choices=("CS_BDD_IDD", "CS_IDD_BDD"), default="CS_BDD_IDD")
+    p3.add_argument("--single-phase", action="store_true",
+                    help="fused single-backward variant instead of the faithful two-phase step")
+    p3.add_argument("--teacher-dropout", action="store_true",
+                    help="live Dropout2d on the teacher's KD forwards (the reference's "
+                         "train-mode model_old)")
+    p3.add_argument("--model", choices=_MODELS, default="erfnet_RA_parallel")
+    _add_common(p3)
+
+    pm = sub.add_parser("multitask", help="joint multi-task baseline")
+    pm.add_argument("--pretrained-encoder", help="ImageNet encoder .pth.tar (the reference "
+                    "passes it as --state, train_multi_task.py:414-423)")
+    _add_common(pm)
+
+    ps = sub.add_parser("single", help="independent single-task ERFNet baseline")
+    ps.add_argument("--dataset", default="cityscapes",
+                    choices=("cityscapes", "BDD", "IDD", "IDD_union", "VOC12"))
+    ps.add_argument("--pretrained-encoder", help="ImageNet encoder .pth.tar "
+                    "(main.py --pretrainedEncoder, trainer_single_task.sh:46)")
+    _add_common(ps)
+
+    pf = sub.add_parser("ft", help="fine-tuning baselines (2 or 3 heads)")
+    pf.add_argument("--heads", type=int, choices=(2, 3), default=None)
+    pf.add_argument("--order", choices=tuple(sorted(C.FT_ORDERS)), default=None,
+                    help="domain chain (last = the domain being fine-tuned); defaults "
+                         "to CS_BDD (2 heads) / CS_BDD_IDD (3 heads)")
+    pf.add_argument("--feature-extraction", action="store_true",
+                    help="train only the new head (FE) instead of encoder+head (FT)")
+    _add_common(pf)
+
+    pl = sub.add_parser("pipeline", help="chain step1 -> step2 -> step3 through "
+                        "<savedir>/<stage>/best (trainer_OURS.sh:49-63 as one command)")
+    pl.add_argument("--order", choices=("CS_BDD_IDD", "CS_IDD_BDD"), default="CS_BDD_IDD")
+    pl.add_argument("--pretrained-encoder", help="ImageNet encoder .pth.tar for step 1 "
+                    "and the baselines")
+    pl.add_argument("--with-baselines", action="store_true",
+                    help="also run the single -> ft chain and the joint multitask baseline")
+    pl.add_argument("--stages", nargs="+", default=["step1", "step2", "step3"],
+                    choices=("step1", "step2", "step3"))
+    _add_common(pl)
+
+    pe = sub.add_parser("eval", help="evaluate a checkpoint per domain")
+    pe.add_argument("ckpt")
+    pe.add_argument("--kind", choices=_KINDS, default="rap")
+    pe.add_argument("--datasets", nargs="+", default=["cityscapes", "BDD", "IDD"])
+    pe.add_argument("--num-classes", type=int, nargs="+", default=None,
+                    help="per-head class counts (default: read from the checkpoint's heads)")
+    pe.add_argument("--batch-size", type=int, default=1)
+    pe.add_argument("--height", type=int, default=512)
+    pe.add_argument("--width", type=int, default=1024)
+    pe.add_argument("--synthetic", action="store_true")
+    _add_data_root(pe)
+    pe.add_argument("--expect", metavar="SETTING", default=None,
+                    help="compare against the reference record (expected_miou.json, e.g. "
+                         "step3_CS_BDD_IDD); exits nonzero when a domain deviates beyond "
+                         "--expect-tol")
+    pe.add_argument("--expect-tol", type=float, default=0.5,
+                    help="tolerance in mIoU percentage points (default 0.5)")
+    pe.add_argument("--f64", action="store_true",
+                    help="float64 forward on the CPU's plain path (needs --device cpu)")
+    _add_device(pe)
+
+    pt = sub.add_parser("tsne", help="latent-space t-SNE plot (ROADMAP A9: not ported)")
+    _add_analysis_common(pt)
+    pt.add_argument("--which", choices=("encoder", "penultimate", "logits"), default="encoder")
+    pt.add_argument("--out", default="tsne_plots/tsne.png")
+    pt.add_argument("--n-samples", type=int, default=20000)
+    pt.add_argument("--first-image", action="store_true")
+
+    pp = sub.add_parser("predict", help="colorized prediction maps (ROADMAP A9: not ported)")
+    _add_analysis_common(pp)
+    pp.add_argument("--out-dir", default="predictions")
+    pp.add_argument("--max-images", type=int, default=None)
+    pp.add_argument("--save-gt", action="store_true")
+
+    pw = sub.add_parser("weights", help="compute class weights over train labels "
+                                        "(cal_class_weights.py workflow)")
+    pw.add_argument("--dataset", default="cityscapes")
+    pw.add_argument("--subset", default="train")
+    pw.add_argument("--q", type=float, default=1.1,
+                    help="w = 1/ln(q + p); reference used 1.1 (decoder), 1.2 (encoder)")
+    pw.add_argument("--height", type=int, default=512)
+    pw.add_argument("--width", type=int, default=1024)
+    pw.add_argument("--max-images", type=int, default=None)
+    _add_data_root(pw)
+
+    px = sub.add_parser("export", help="per-head serving artifacts (ROADMAP A9: not ported)")
+    px.add_argument("ckpt")
+    px.add_argument("out_dir")
+    px.add_argument("--kind", choices=_KINDS, default="rap")
+    px.add_argument("--num-classes", type=int, nargs="+", default=None)
+    px.add_argument("--tasks", type=int, nargs="+", default=None)
+    px.add_argument("--batch-size", type=int, default=1)
+    px.add_argument("--height", type=int, default=512)
+    px.add_argument("--width", type=int, default=1024)
+    px.add_argument("--output", choices=("logits", "labels"), default="logits")
+    px.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    px.add_argument("--platforms", nargs="+", default=["cpu", "tpu"])
+
+    py = sub.add_parser("parity-check", help="every recorded reference setting from a "
+                        "checkpoint directory (ROADMAP A9: not ported)")
+    py.add_argument("ckpt_root")
+    _add_data_root(py)
+    py.add_argument("--settings", nargs="+", default=None)
+    py.add_argument("--tol", type=float, default=0.5)
+    py.add_argument("--out", default=None)
+    py.add_argument("--synthetic", action="store_true")
+    py.add_argument("--batch-size", type=int, default=1)
+    py.add_argument("--height", type=int, default=512)
+    py.add_argument("--width", type=int, default=1024)
+    py.add_argument("--f64", action="store_true")
+
+    pc = sub.add_parser("convert", help="a .pth.tar -> a checkpoint directory of this "
+                                        "package, or back with --export")
+    pc.add_argument("src")
+    pc.add_argument("dst")
+    pc.add_argument("--kind", default="rap", choices=_CKPT_KINDS)
+    pc.add_argument("--nb-tasks", type=int, default=1,
+                    help="tasks to keep of a rap or multi_task file (the first ones)")
+    pc.add_argument("--num-classes", type=int, nargs="+", default=None,
+                    help="per-task class counts (export direction; default: read from the "
+                         "checkpoint's heads)")
+    pc.add_argument("--export", action="store_true",
+                    help="reverse direction: a checkpoint directory -> a reference-format "
+                         ".pth.tar")
+
+    pb = sub.add_parser("bench", help="throughput benchmark (ROADMAP A2: not ported)")
+    pb.add_argument("--mesh", default=None)
+    pb.add_argument("--steps", type=int, default=None)
+    pb.add_argument("--passes", type=int, default=None)
+    pb.add_argument("--bench-batch", type=int, default=None, dest="bench_batch")
+    pb.add_argument("--bench-height", type=int, default=None, dest="bench_height")
+    pb.add_argument("--bench-width", type=int, default=None, dest="bench_width")
+    pb.add_argument("--bench-dtype", choices=("bf16", "f32"), default=None, dest="bench_dtype")
+    pb.add_argument("--json-out", default=None, dest="bench_json_out")
+    return parser
+
+
+def _eval(parser, args) -> None:
+    from .evaluate import check_expected, evaluate_checkpoint
+
+    if args.f64 and args.device != "cpu":
+        parser.error("eval --f64 runs on the CPU's plain path: add --device cpu")
+    results = evaluate_checkpoint(
+        args.ckpt, kind=args.kind, datasets=args.datasets, num_classes=args.num_classes,
+        data_roots=dict(args.data_root), batch_size=args.batch_size, height=args.height,
+        width=args.width, synthetic=args.synthetic,
+        compute_dtype="float64" if args.f64 else "float32", device=args.device,
+    )
+    print(json.dumps({k: round(v, 4) for k, v in results.items()}))
+    if args.expect:
+        ok, report = check_expected(results, args.expect, tolerance_points=args.expect_tol)
+        print(report)
+        if not ok:
+            raise SystemExit(1)
+
+
+def _weights(parser, args) -> None:
+    from .data.class_weights import compute_class_weights
+    from .data.sources import make_source
+    from .data.transforms import decode_pair
+
+    roots = dict(args.data_root)
+    if args.dataset not in roots:
+        parser.error(f"weights --dataset {args.dataset} needs --data-root {args.dataset}=PATH")
+    source = make_source(args.dataset, roots[args.dataset], args.subset)
+    pairs = source.pairs[: args.max_images]
+
+    def labels():
+        for ip, lp in pairs:
+            yield decode_pair(ip, lp, height=args.height, width=args.width,
+                              label_map=source.label_map)[1]
+
+    w = compute_class_weights(labels(), source.num_classes, q=args.q)
+    print(json.dumps({"dataset": args.dataset, "n_images": len(pairs),
+                      "weights": [round(float(v), 6) for v in w]}))
+
+
+def _convert(args) -> None:
+    import torch
+
+    from .ckpt import torch_io
+    from .evaluate import infer_num_classes, load_checkpoint
+
+    if args.export:
+        # a checkpoint directory -> the reference's checkpoint dict
+        # (train_RAPFT_step1.py:364-370) with DataParallel's `module.` keys
+        ncls = args.num_classes or infer_num_classes(args.src)
+        model = load_checkpoint(args.src, kind=args.kind, num_classes=ncls, device="cpu")
+        torch.save({"epoch": 0, "arch": args.kind,
+                    "state_dict": {"module." + k: v for k, v in model.state_dict().items()},
+                    "best_acc": 0.0, "optimizer": {}}, args.dst)
+    else:
+        from .ckpt.surgery import keep_tasks
+        from .models import ERFNetMultiHead, ERFNetRAP
+        from .train.steps import init_train_state
+
+        sd = torch_io.load_state(args.src, args.kind)
+        if args.kind in ("rap", "multi_task"):
+            sd = keep_tasks(sd, args.nb_tasks)
+        ncls = torch_io.heads_num_classes(sd, args.src)
+        model = (ERFNetRAP(ncls, len(ncls), device="cpu") if args.kind == "rap"
+                 else ERFNetMultiHead(ncls, kind=args.kind, device="cpu"))
+        model.load_state_dict(sd, strict=True)
+        torch_io.save(args.dst, 0, init_train_state(model), best_acc=0.0,
+                      aug_state=torch.Generator().get_state())
+    print(f"converted {args.src} -> {args.dst}")
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    if args.cmd in _WAITS:
+        raise SystemExit(f"{args.cmd}: not ported to this package yet (ROADMAP "
+                         f"{_WAITS[args.cmd]}); the JAX package's `python -m mdilss_tpu "
+                         f"{args.cmd}` runs it")
+    if args.cmd == "eval":
+        return _eval(parser, args)
+    if args.cmd == "weights":
+        return _weights(parser, args)
+    if args.cmd == "convert":
+        return _convert(args)
+
+    from .train.protocols import build_trainer
+
+    kw = _common_kwargs(args)
+    if args.cmd == "pipeline":
+        from .train.pipeline import run_pipeline
+
+        savedir = kw.pop("savedir")
+        state = kw.pop("state")
+        results = run_pipeline(
+            order=args.order, savedir=savedir, common=kw, state=state,
+            pretrained_encoder=args.pretrained_encoder, with_baselines=args.with_baselines,
+            stages=tuple(args.stages), device=args.device,
+        )
+        print(json.dumps({
+            stage: {k: v for k, v in row.items() if isinstance(v, (int, float))}
+            for stage, row in results.items()
+        }))
+        return
+    if args.cmd == "step1":
+        cfg = C.step1(pretrained_encoder=args.pretrained_encoder, model=args.model, **kw)
+    elif args.cmd == "step2":
+        cfg = C.step2(order=args.order, model=args.model, **kw)
+    elif args.cmd == "step3":
+        if args.teacher_dropout and args.single_phase:
+            raise SystemExit("--teacher-dropout requires the faithful two-phase step "
+                             "(drop --single-phase)")
+        cfg = C.step3(order=args.order, two_phase=not args.single_phase,
+                      teacher_dropout=args.teacher_dropout, model=args.model, **kw)
+    elif args.cmd == "multitask":
+        cfg = C.multitask(pretrained_encoder=args.pretrained_encoder, **kw)
+    elif args.cmd == "single":
+        cfg = C.singletask(dataset=args.dataset, pretrained_encoder=args.pretrained_encoder,
+                           **kw)
+    elif args.cmd == "ft":
+        cfg = C.ft_step(n_heads=args.heads, order=args.order,
+                        finetune=not args.feature_extraction, **kw)
+    else:
+        raise SystemExit(f"unknown command {args.cmd}")
+    final = build_trainer(cfg, device=args.device).fit()
+    print(json.dumps({k: v for k, v in final.items() if isinstance(v, (int, float))}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,10 @@
 """Run configuration: one dataclass + per-protocol presets (the port's own copy
 of mdilss_tpu/config.py: the same fields, defaults, checks and presets).
 
-The port's Trainer (train/loop.py) runs the ERFNet-RAP protocols step1,
-step2 and step3; the other presets are here for the same config grammar, and
-their protocols raise NotImplementedError in the Trainer until their models
-are ported.
+The port's Trainer (train/loop.py) runs every protocol; the ablation models
+raise NotImplementedError there until they are ported. One check is stricter
+than the JAX package's: `teacher_dropout` outside step 3 raises (JAX checks
+only `two_phase`, mdilss_tpu/config.py:84).
 
 Replaces the reference's six duplicated argparse blocks
 (train_RAPFT_step1.py:511-550, train_new_task_step2.py:541-587,
@@ -18,6 +18,11 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
+
+
+# the reference step-1 factory's ablation entries (train_RAPFT_step1.py:451-460), which the
+# JAX package reconstructs (mdilss_tpu/models/erfnet_ablations.py); not ported (ROADMAP A8b)
+ABLATION_MODELS = ("erfnet_bn", "erfnet_onlyRAP", "erfnet_RA_series", "erfnet_RCM")
 
 
 @dataclass
@@ -87,6 +92,11 @@ class TrainConfig:
                 f"datasets {self.datasets} and num_classes {self.num_classes} "
                 f"must have the same length (one head per task)"
             )
+        if self.teacher_dropout and self.protocol != "step3":
+            raise ValueError(
+                f"teacher_dropout is a step-3 option (the reference's train-mode "
+                f"model_old, train_new_task_step3.py:534-549); protocol {self.protocol!r} "
+                f"has no train-mode teacher")
         if self.teacher_dropout and not self.two_phase:
             raise ValueError(
                 "teacher_dropout is a step-3 two-phase fidelity option "

@@ -1,8 +1,12 @@
 """Per-class loss weights: the port's own copy of the tables in
 mdilss_tpu/data/class_weights.py:19-52 (the numbers hard-coded in every
 reference trainer, train_new_task_step2.py:121-135; w_c = 1 / ln(p_c + 1.1),
-with the last, ignore, class 0)."""
+with the last, ignore, class 0), and of `compute_class_weights`
+(class_weights.py:58-75), the offline computation of such a table
+(cal_class_weights.py:58-69)."""
 from __future__ import annotations
+
+from typing import Iterable
 
 import numpy as np
 
@@ -40,3 +44,19 @@ CLASS_WEIGHTS: dict[str, np.ndarray] = {
         dtype=np.float32,
     ),
 }
+
+
+def compute_class_weights(label_maps: Iterable[np.ndarray], num_classes: int, *,
+                          q: float = 1.1) -> np.ndarray:
+    """w_c = 1 / ln(q + p_c) over the pixel frequencies p_c of the labels below
+    `num_classes`; the last (ignore) class 0. float32."""
+    counts = np.zeros(num_classes, dtype=np.float64)
+    total = 0
+    for lm in label_maps:
+        lm = np.asarray(lm)
+        valid = lm[lm < num_classes]
+        counts += np.bincount(valid.reshape(-1), minlength=num_classes)
+        total += valid.size
+    w = 1.0 / np.log(q + counts / max(total, 1))
+    w[num_classes - 1] = 0.0
+    return w.astype(np.float32)

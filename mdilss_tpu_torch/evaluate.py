@@ -4,8 +4,9 @@ mdilss_tpu/evaluate.py).
 Build the model for an incremental configuration, load a reference
 `.pth.tar` or one of the port's checkpoint directories, and compute each
 domain's val mIoU with the notebook's protocol: argmax predictions, the last
-class ignored (Evaluation_Notebook cells 4-5; iouEval.py:10-12). Only the RAP
-model (kind "rap") is ported; the other kinds wait for ROADMAP A8.
+class ignored (Evaluation_Notebook cells 4-5; iouEval.py:10-12). Kinds: "rap"
+(ERFNet-RAP), "erfnet" (single task), "multi_task", "ftp1" and "ftp2" (the
+multi-head baselines); the ablation kinds wait for ROADMAP A8b.
 """
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ from .data.loader import Loader, SyntheticSource, device_prefetch
 from .data.sources import make_source
 from .data.transforms import prepare_batch
 from .metrics import IoUEvaluator
-from .models import ERFNetRAP
+from .config import ABLATION_MODELS
+from .models import ERFNetMultiHead, ERFNetRAP
+from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
 from .utils.logging import getColorEntry
 
-KINDS = ("rap",)
+KINDS = ("rap", *MULTIHEAD_KINDS)
 
 
 def load_expected(setting: str) -> dict[str, float]:
@@ -63,31 +66,31 @@ def check_expected(results: dict[str, float], setting: str, *,
 
 
 def infer_num_classes(path: str) -> list[int]:
-    """Per-head class counts read from the checkpoint itself: a reference
-    `.pth.tar` by its `.{i}.output_conv.bias` shapes, a checkpoint directory
-    of the port's Trainer by its newest file's."""
+    """Per-head class counts read from the checkpoint itself, a reference
+    `.pth.tar` or a checkpoint directory of the port's Trainer (its newest
+    file), by the heads' `output_conv.bias` shapes in task order
+    (digit-indexed or named heads)."""
     if os.path.isdir(path):
         return torch_io.infer_num_classes(path)
     return torch_io.heads_num_classes(torch_io.load_pth_tar(path), path)
 
 
 def load_checkpoint(path: str, *, kind: str, num_classes: Sequence[int] | None = None,
-                    device=None) -> ERFNetRAP:
-    """The checkpoint's model in eval mode on `device` (None -> the CUDA
-    card). `num_classes=None` infers the heads from the checkpoint."""
+                    device=None) -> torch.nn.Module:
+    """The checkpoint's `kind` model in eval mode on `device` (None -> the
+    CUDA card), loaded strictly. `num_classes=None` infers the heads from
+    the checkpoint."""
+    if kind in ABLATION_MODELS:
+        raise NotImplementedError(f"kind {kind!r}: the ablation models wait for ROADMAP A8b")
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"kind {kind!r}: the port evaluates {KINDS}; the other model families wait "
-            "for ROADMAP A8")
+        raise ValueError(f"unknown kind {kind!r}: one of {KINDS}")
     if num_classes is None:
         num_classes = infer_num_classes(path)
-    if os.path.isdir(path):
-        latest = torch_io.latest_epoch(path)
-        if latest is None:
-            raise FileNotFoundError(f"no checkpoint under {path}")
-        path = os.path.join(path, f"{latest}.pt")
-    model = ERFNetRAP(list(num_classes), len(num_classes), device="cpu")
-    model.load_state_dict(torch_io.load_pth_tar(path), strict=True)
+    if kind == "rap":
+        model = ERFNetRAP(list(num_classes), len(num_classes), device="cpu")
+    else:
+        model = ERFNetMultiHead(list(num_classes), kind=kind, device="cpu")
+    model.load_state_dict(torch_io.load_state(path, kind), strict=True)
     return model.to(resolve_device(device))
 
 

@@ -1,4 +1,7 @@
-"""Model modules of the port (ERFNet-RAP in this slice)."""
+"""Model modules of the port: ERFNet-RAP, the multi-head baselines and the
+single-task ERFNet."""
+from .erfnet import ERFNet
+from .erfnet_multihead import ERFNetMultiHead
 from .erfnet_rap import ERFNetRAP
 
-__all__ = ["ERFNetRAP"]
+__all__ = ["ERFNet", "ERFNetMultiHead", "ERFNetRAP"]

@@ -1,11 +1,13 @@
-"""ERFNet-RAP encoder/decoder assembly (port of mdilss_tpu/models/topology.py).
+"""ERFNet and ERFNet-RAP encoder/decoder assembly (port of
+mdilss_tpu/models/topology.py).
 
   Encoder: initial_block Down(3->16); layers = Down(16->64); 5x nb1d(64, d=1);
            Down(64->128); 2x [nb1d(128, d) for d in 2, 4, 8, 16]
   Decoder: layers = Up(128->64); 2x nb1d(64, 1); Up(64->16); 2x nb1d(16, 1);
            output_conv = ConvTranspose2d(16 -> num_classes, k2 s2)
 
-The RAP encoder's blocks carry per-task adapters and BN. The layers are a
+The RAP encoder's blocks carry per-task adapters and BN; the plain encoder's
+share one BN each (the multi-head and single-task models). The layers are a
 flat ModuleList in reference order (the JAX package's scan groups are a
 compile-time device and are not ported), and the decoder returns spatial
 logits (the JAX package's packed head is a TPU layout trick).
@@ -74,20 +76,26 @@ def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
 
 
 class Encoder(nn.Module):
-    """RAP encoder: every BN is per-task (`bn_ini` / `bns_*`)."""
+    """`nb_tasks` an int: the RAP encoder, every BN per-task (`bn_ini` /
+    `bns_*`) beside per-task adapters. None: the plain ERFNet encoder
+    (reference models/erfnet.py), one shared `bn` per downsampler and
+    `bn1` / `bn2` per block, with the same dropout rates."""
 
-    def __init__(self, nb_tasks: int):
+    def __init__(self, nb_tasks: int | None):
         super().__init__()
         self.initial_block = DownsamplerBlock(3, 16, nb_tasks)
         self.layers = nn.ModuleList([
             DownsamplerBlock(spec[1], spec[2], nb_tasks) if spec[0] == "down"
+            else NonBottleneck1d(spec[1], spec[3], spec[2]) if nb_tasks is None
             else NonBottleneck1dRAP(spec[1], spec[3], nb_tasks, spec[2])
             for spec in ENCODER_PLAN
         ])
 
-    def forward(self, x: torch.Tensor, task: int, drop_masks: dict | None = None) -> torch.Tensor:
-        """`drop_masks` (training only): `make_dropout_masks` output, or None
-        for no dropout."""
+    def forward(self, x: torch.Tensor, task: int | None, drop_masks: dict | None = None
+                ) -> torch.Tensor:
+        """`task` selects the RAP encoder's slices (the plain encoder ignores
+        it). `drop_masks` (training only): `make_dropout_masks` output, or
+        None for no dropout."""
         masks = {} if drop_masks is None or not self.training else layer_drop_masks(
             drop_masks, x.device)
         x = self.initial_block(x, task)

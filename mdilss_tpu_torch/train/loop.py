@@ -1,18 +1,26 @@
-"""Epoch-loop trainer for the ERFNet-RAP protocols (port of
+"""Epoch-loop trainer for every protocol of the reference (port of
 mdilss_tpu/train/loop.py):
 
-  step1  train_RAPFT_step1.py     — RAP model, everything trainable, CE
-  step2  train_new_task_step2.py  — +1 task, old task slices frozen, CE + KLD
-                                    against the eval-mode teacher
-  step3  train_new_task_step3.py  — +1 task, two KLDs; two-phase (a CE Adam
-                                    step, then a KLD Adam step) with the
-                                    train-mode teacher, or the fused step-2 form
+  step1      train_RAPFT_step1.py     — RAP model, everything trainable, CE
+  step2      train_new_task_step2.py  — +1 task, old task slices frozen, CE + KLD
+                                        against the eval-mode teacher
+  step3      train_new_task_step3.py  — +1 task, two KLDs; two-phase (a CE Adam
+                                        step, then a KLD Adam step) with the
+                                        train-mode teacher, or the fused step-2 form
+  multitask  train_multi_task.py      — joint baseline: one CE step per domain in
+                                        turn over min(len) batches of each
+  ft / fe    main_ftp1_enc_newbn.py / main_FT2_flexible_new.py — the new head
+                                        (and, for ft, the encoder) on the last
+                                        domain, the old heads frozen
+  singletask the single-task ERFNet baseline (one head, CE)
 
 Per epoch, as the reference: poly LR by epoch; validation of the current task
 every `eval_every` epochs (and the final one), old tasks every
-`eval_old_every`; best-checkpoint selection on the current task's val IoU
-(fallback -val_loss, train_new_task_step2.py:358-363), only among evaluated
-epochs; `automated_log.txt` rows; a checkpoint every epoch, with true resume.
+`eval_old_every` (step 2, step 3, multitask, ft, fe); best-checkpoint
+selection on the current task's val IoU (multitask: the mean over the
+domains validated; fallback -val_loss, train_new_task_step2.py:358-363), only
+among evaluated epochs; `automated_log.txt` rows; a checkpoint every epoch,
+with true resume.
 
 The data: a dataset on disk or a synthetic source, batched by `Loader`
 (host threads) and either cached on the device (`DeviceCache`, or
@@ -24,9 +32,11 @@ on the CPU.
 Deliberate differences from the JAX package: the augment draws come from one
 CPU `torch.Generator` seeded from `cfg.seed` (the checkpoint carries its
 state) in place of JAX's split keys, and the port's steps take no key;
+initial weights are torch's initialisation seeded from `cfg.seed`;
 confusion matrices are int64 on the device and summed there; checkpoints
-are torch files (`ckpt/torch_io.py`). The other models and protocols, bf16
-training, spatial sharding and remat raise NotImplementedError.
+are torch files (`ckpt/torch_io.py`); a model that does not fit the protocol
+raises. The ablation models, bf16 training, spatial sharding and remat raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,7 +50,7 @@ import torch
 
 from .. import resolve_device
 from ..ckpt import torch_io
-from ..config import TrainConfig
+from ..config import ABLATION_MODELS, TrainConfig
 from ..data import transforms
 from ..data.class_weights import CLASS_WEIGHTS
 from ..data.device_cache import DeviceCache, HybridCache, cache_bytes, plan_cache
@@ -48,28 +58,39 @@ from ..data.loader import LearnableSource, Loader, SyntheticSource, device_prefe
 from ..data.sources import make_source
 from ..losses import kld_corrected, kld_faithful
 from ..metrics import IoUEvaluator
-from ..models import ERFNetRAP
+from ..models import ERFNetMultiHead, ERFNetRAP
 from ..models.topology import make_dropout_masks
 from ..utils.logging import MetricLogger, getColorEntry
 from ..utils.profiling import StepTracer
 from . import steps
-from .masks import rap_lr_tree
+from .masks import multihead_lr_tree, rap_lr_tree
 from .optim import poly_lr_factor
 
-PROTOCOLS = ("step1", "step2", "step3")
+RAP_PROTOCOLS = ("step1", "step2", "step3")
+MULTIHEAD_PROTOCOLS = ("multitask", "ft", "fe", "singletask")
+# the trainer's model names -> the multi-head models' kinds (state-dict grammar)
+MULTIHEAD_MODELS = {"erfnet_multi_task": "multi_task", "erfnet_ftp1": "ftp1",
+                    "erfnet_ftp2": "ftp2"}
+# the protocols that validate the other domains every `eval_old_every` epochs
+OLD_EVAL_PROTOCOLS = ("step2", "step3", "multitask", "ft", "fe")
 
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item it waits for, for
-    what the port's Trainer does not run yet."""
-    if cfg.model != "erfnet_RA_parallel":
+    what the port's Trainer does not run yet, and ValueError for a model
+    that does not fit the protocol."""
+    if cfg.model in ABLATION_MODELS:
         raise NotImplementedError(
-            f"model {cfg.model!r}: the port trains only erfnet_RA_parallel; the other "
-            "models wait for ROADMAP A8")
-    if cfg.protocol not in PROTOCOLS:
-        raise NotImplementedError(
-            f"protocol {cfg.protocol!r}: the port trains {PROTOCOLS}; multitask, ft, fe "
-            "and singletask wait for ROADMAP A8")
+            f"model {cfg.model!r}: the ablation models wait for ROADMAP A8b")
+    if cfg.model != "erfnet_RA_parallel" and cfg.model not in MULTIHEAD_MODELS:
+        raise ValueError(f"unknown model {cfg.model!r}")
+    if cfg.protocol not in RAP_PROTOCOLS + MULTIHEAD_PROTOCOLS:
+        raise ValueError(f"unknown protocol {cfg.protocol!r}")
+    if (cfg.protocol in RAP_PROTOCOLS) != (cfg.model == "erfnet_RA_parallel"):
+        raise ValueError(
+            f"protocol {cfg.protocol!r} with model {cfg.model!r}: {RAP_PROTOCOLS} train "
+            f"erfnet_RA_parallel, {MULTIHEAD_PROTOCOLS} the multi-head models "
+            f"{tuple(MULTIHEAD_MODELS)}")
     if cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "compute_dtype='bfloat16': bf16 training waits for ROADMAP R7")
@@ -85,16 +106,30 @@ def check_supported(cfg: TrainConfig) -> None:
             "rematerialisation is not ported (ROADMAP 'remat')")
 
 
+def init_model(cfg: TrainConfig) -> torch.nn.Module:
+    """The configuration's model on the CPU, in torch's default initialisation
+    seeded from `cfg.seed` (the global RNG left as it was): ERFNetRAP with one
+    task per class count, or the multi-head model of `cfg.model`."""
+    check_supported(cfg)
+    nc = list(cfg.num_classes)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        if cfg.model == "erfnet_RA_parallel":
+            return ERFNetRAP(nc, len(nc), device="cpu")
+        return ERFNetMultiHead(nc, kind=MULTIHEAD_MODELS[cfg.model], device="cpu")
+
+
 class Trainer:
     """`Trainer(cfg, teacher=..., init_state=..., device=None).fit()`.
 
     `device` None -> the CUDA card (raises without one); "cpu" runs the
     plain versions. `init_state`: the student's initial weights as a
-    reference-grammar state dict (`ckpt.from_jax`, `ckpt.load_pth_tar`);
-    None -> torch's default initialisation seeded from `cfg.seed`.
+    reference-grammar state dict of the configuration's model
+    (`ckpt.from_jax`, `ckpt.torch_io.load_state`); None -> `init_model`.
     `teacher`: the previous step's model (an ERFNetRAP with the previous
     tasks' heads), required by step2 and step3; it is moved to the device
-    and never updated.
+    and never updated. `train/protocols.build_trainer` builds both from
+    the previous step's checkpoint.
     """
 
     def __init__(self, cfg: TrainConfig, *, teacher: torch.nn.Module | None = None,
@@ -108,10 +143,7 @@ class Trainer:
         with open(os.path.join(cfg.savedir, "opts.txt"), "w") as f:
             f.write(cfg.to_json())
 
-        nc = list(cfg.num_classes)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(cfg.seed)
-            model = ERFNetRAP(nc, len(nc), device="cpu")
+        model = init_model(cfg)
         if init_state is not None:
             model.load_state_dict(init_state, strict=True)
         self.ts = steps.init_train_state(model.to(self.device))
@@ -154,7 +186,8 @@ class Trainer:
                           num_threads=cfg.num_workers, seed=cfg.seed)
 
         cur = cfg.datasets[cfg.current_task]
-        self.train_loaders = {cur: mk(cur, "train", True)}
+        trained = cfg.datasets if cfg.protocol == "multitask" else (cur,)
+        self.train_loaders = {d: mk(d, "train", True) for d in trained}
         self.val_loaders = {d: mk(d, "val", False) for d in cfg.datasets}
         self._train_caches: dict = {}
         self._val_caches: dict = {}
@@ -218,27 +251,42 @@ class Trainer:
         w[-1] = 0.0
         return w
 
+    def _lr_tree(self) -> dict[str, float]:
+        cfg, model = self.cfg, self.ts.model
+        if cfg.protocol in RAP_PROTOCOLS:
+            return rap_lr_tree(model, current_task=cfg.current_task,
+                               shared_lr=cfg.shared_lr_value(), ds_lr=cfg.lr)
+        if cfg.protocol in ("multitask", "singletask"):
+            return multihead_lr_tree(model, encoder_lr=cfg.shared_lr_value(), decoder_lr=cfg.lr)
+        # ft / fe: the old heads frozen; the encoder trains only in ft
+        dec_lrs = [0.0] * len(cfg.datasets)
+        dec_lrs[cfg.current_task] = cfg.lr
+        return multihead_lr_tree(model, encoder_lr=cfg.lr if cfg.protocol == "ft" else 0.0,
+                                 decoder_lrs=dec_lrs)
+
     def _build_steps(self):
         cfg = self.cfg
         kld_fn = kld_faithful if cfg.kld == "faithful" else kld_corrected
         cur = cfg.current_task
         cur_ds = cfg.datasets[cur]
-        lr_tree = rap_lr_tree(self.ts.model, current_task=cur,
-                              shared_lr=cfg.shared_lr_value(), ds_lr=cfg.lr)
-        common = dict(class_weight=self._weight(cur_ds), lr_tree=lr_tree,
-                      num_epochs=cfg.num_epochs, weight_decay=cfg.weight_decay,
-                      iou_train=cfg.iou_train)
+        common = dict(lr_tree=self._lr_tree(), num_epochs=cfg.num_epochs,
+                      weight_decay=cfg.weight_decay, iou_train=cfg.iou_train)
         prev = tuple(range(cur - 1, -1, -1))  # newest to oldest, the reference's order
-        if cfg.protocol == "step1":
-            self.train_step = steps.make_ce_step(task=cur, **common)
+        distill = dict(current_task=cur, prev_tasks=prev, class_weight=self._weight(cur_ds),
+                       lambda_c=cfg.lambda_c, kld_fn=kld_fn, **common)
+        # one train step per trained domain: the current one, or every domain (multitask)
+        if cfg.protocol == "multitask":
+            self.train_steps = {
+                d: steps.make_ce_step(task=t, class_weight=self._weight(d), **common)
+                for t, d in enumerate(cfg.datasets)}
+        elif cfg.protocol in ("step1",) + MULTIHEAD_PROTOCOLS:
+            self.train_steps = {cur_ds: steps.make_ce_step(
+                task=cur, class_weight=self._weight(cur_ds), **common)}
         elif cfg.protocol == "step2" or not cfg.two_phase:
-            self.train_step = steps.make_distill_step(
-                current_task=cur, prev_tasks=prev, lambda_c=cfg.lambda_c, kld_fn=kld_fn,
-                **common)
+            self.train_steps = {cur_ds: steps.make_distill_step(**distill)}
         else:
-            self.train_step = steps.make_two_phase_distill_step(
-                current_task=cur, prev_tasks=prev, lambda_c=cfg.lambda_c, kld_fn=kld_fn,
-                teacher_dropout=cfg.teacher_dropout, **common)
+            self.train_steps = {cur_ds: steps.make_two_phase_distill_step(
+                teacher_dropout=cfg.teacher_dropout, **distill)}
         self.eval_steps = {
             d: steps.make_eval_step(task=t, class_weight=self._weight(d),
                                     num_classes=cfg.num_classes[t])
@@ -261,14 +309,13 @@ class Trainer:
                       best_acc=self.best_acc, aug_state=self.aug_gen.get_state())
 
     # ------------------------------------------------------------------
-    def _train_batches(self, epoch: int):
-        """The current task's training batches of `epoch` on the device:
+    def _train_batches(self, dataset: str, epoch: int):
+        """`dataset`'s training batches of `epoch` on the device:
         (images uint8, labels uint8, valid)."""
-        d = self.cfg.datasets[self.cfg.current_task]
-        cache = self._cache_for(d, "train")
+        cache = self._cache_for(dataset, "train")
         if cache is not None:
             return cache.epoch_batches(epoch)
-        ld = self.train_loaders[d]
+        ld = self.train_loaders[dataset]
         ld.set_epoch(epoch)
         return device_prefetch(ld, device=self.device)
 
@@ -279,41 +326,61 @@ class Trainer:
         # same mask stream an uninterrupted run draws for this epoch
         self._np_rng = np.random.default_rng((cfg.seed + 1, epoch))
         losses = {k: [] for k in ("loss", "ce", "kld")}
-        cms = []
-        cur = cfg.current_task
-        for imgs, lbls, _ in self._train_batches(epoch):
-            self._one_batch(cur, imgs, lbls, epoch, losses, cms)
+        cms = {d: [] for d in cfg.datasets}
+        if cfg.protocol == "multitask":
+            # the domains in turn, one batch each, over the shortest domain's batches
+            iters = {d: iter(self._train_batches(d, epoch)) for d in cfg.datasets}
+            try:
+                for _ in range(min(len(ld) for ld in self.train_loaders.values())):
+                    for t, d in enumerate(cfg.datasets):
+                        imgs, lbls, _ = next(iters[d])
+                        self._one_batch(d, t, imgs, lbls, epoch, losses, cms[d])
+            finally:
+                for it in iters.values():
+                    it.close()
+        else:
+            cur = cfg.current_task
+            d = cfg.datasets[cur]
+            for imgs, lbls, _ in self._train_batches(d, epoch):
+                self._one_batch(d, cur, imgs, lbls, epoch, losses, cms[d])
         # the epoch's device scalars are reduced on the device and fetched
         # once per key here, not once per batch
         out = {f"train_{k}": torch.stack(v).mean().item() for k, v in losses.items() if v}
-        if cms:
-            nc = cfg.num_classes[cur]
+        ious = []
+        for t, d in enumerate(cfg.datasets):
+            if not cms[d]:
+                continue
+            nc = cfg.num_classes[t]
             ev = IoUEvaluator(nc, nc - 1)
-            ev.add_confusion(torch.stack(cms).sum(0))
+            ev.add_confusion(torch.stack(cms[d]).sum(0))
             if ev._cm.sum():
                 iou, _ = ev.get_iou()
-                out[f"train_iou_{cfg.datasets[cur]}"] = iou
-                out["train_iou"] = iou
+                out[f"train_iou_{d}"] = iou
+                ious.append(iou)
+        if ious:
+            out["train_iou"] = float(np.mean(ious))
         out["epoch_seconds"] = time.time() - t0
         return out
 
-    def _one_batch(self, task: int, imgs, lbls, epoch: int, losses: dict, cms: list):
+    def _one_batch(self, dataset: str, task: int, imgs, lbls, epoch: int, losses: dict,
+                   cms: list):
         cfg = self.cfg
         self._tracer.tick()
         n = imgs.shape[0]
         flip, tx, ty = transforms.draw_augment(self.aug_gen, n)
         x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
                                         num_classes=cfg.num_classes[task])
+        step = self.train_steps[dataset]
         if cfg.protocol in ("step2", "step3"):
             n_fwd = 1 + cfg.current_task
             if cfg.protocol == "step3" and cfg.two_phase and cfg.teacher_dropout:
                 # the teacher's forwards draw their own masks, after the student's
                 n_fwd += cfg.current_task
             masks = [make_dropout_masks(self._np_rng, n) for _ in range(n_fwd)]
-            self.ts, m = self.train_step(self.ts, self.teacher, x, y, masks, epoch)
+            self.ts, m = step(self.ts, self.teacher, x, y, masks, epoch)
         else:
             masks = make_dropout_masks(self._np_rng, n)
-            self.ts, m = self.train_step(self.ts, x, y, masks, epoch)
+            self.ts, m = step(self.ts, x, y, masks, epoch)
         # device scalars until the epoch's end: reading one here would wait
         # for the step every batch
         for k in losses:
@@ -380,14 +447,22 @@ class Trainer:
             else:
                 val_loss, val_iou = 0.0, 0.0
 
-            if cfg.protocol in ("step2", "step3") and epoch % cfg.eval_old_every == 0:
+            if cfg.protocol in OLD_EVAL_PROTOCOLS and epoch % cfg.eval_old_every == 0:
                 for d in cfg.datasets:
                     if d != cur_ds:
                         row[f"val_loss_{d}"], row[f"val_acc_{d}"] = self.evaluate(d, epoch)
 
             # only evaluated epochs compete for best, as the reference compares
-            # val-IoU epochs only (train_RAPFT_step1.py:347-352)
-            current_acc = (val_iou if val_iou != 0 else -val_loss) if evaluated else None
+            # val-IoU epochs only (train_RAPFT_step1.py:347-352); multitask's
+            # is the mean val IoU over the domains validated this epoch
+            # (train_multi_task.py:304-308)
+            if not evaluated:
+                current_acc = None
+            elif cfg.protocol == "multitask":
+                accs = [v for k, v in row.items() if k.startswith("val_acc_")]
+                current_acc = float(np.mean(accs))
+            else:
+                current_acc = val_iou if val_iou != 0 else -val_loss
             is_best = current_acc is not None and current_acc > self.best_acc
             if is_best:
                 self.best_acc = current_acc

@@ -8,6 +8,12 @@ incremental step `current_task` (reference train_new_task_step2.py:95-106,
   * every other task's slices and decoders                 -> 0 (frozen)
 The port's per-task leaves are separate parameters (`.{t}.` in the name), so
 the JAX tree's [T, 1, ...] columns become one number per parameter.
+
+And of `multihead_lr_tree` (mdilss_tpu/train/masks.py:160-179) for the
+shared-encoder multi-head models: the encoder at one LR, each head at its own
+(the multitask baseline: encoder 5e-4 / nb_tasks, every head 5e-4,
+train_multi_task.py:107-110, 210-217; FT: the old heads 0; FE: the encoder
+too, main_ftp1_enc_newbn.py:228-242).
 """
 from __future__ import annotations
 
@@ -32,4 +38,23 @@ def rap_lr_tree(model: nn.Module, *, current_task: int, shared_lr: float,
                 continue
             task = int(m.group(1))
         out[name] = ds_lr if task == current_task else 0.0
+    return out
+
+
+def multihead_lr_tree(model: nn.Module, *, encoder_lr: float,
+                      decoder_lrs: list[float] | None = None,
+                      decoder_lr: float | None = None) -> dict[str, float]:
+    """{parameter name: base LR} for an ERFNetMultiHead: `encoder_lr` for the
+    encoder, `decoder_lrs[t]` for head t (0 freezes it), or `decoder_lr` for
+    every head."""
+    prefixes = model.head_prefixes
+    if decoder_lrs is None:
+        decoder_lrs = [float(decoder_lr)] * len(prefixes)
+    out = {}
+    for name, _ in model.named_parameters():
+        if name.startswith("encoder."):
+            out[name] = encoder_lr
+            continue
+        t = next(t for t, p in enumerate(prefixes) if name.startswith(p + "."))
+        out[name] = decoder_lrs[t]
     return out

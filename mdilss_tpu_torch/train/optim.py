@@ -75,6 +75,9 @@ def apply_updates(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor
 
 def poly_lr_factor(epoch: int, num_epochs: int, power: float = 0.9) -> float:
     """The reference's LambdaLR factor (1 - (epoch-1)/E)^0.9, epoch in [1, E],
-    in float32 as the JAX package computes it."""
+    in float32 as the JAX package computes it: the float32 base raised to the
+    float32 exponent, correctly rounded to float32 (XLA's float32 power on the
+    CPU); numpy's float32 power is an ulp off it at some epochs."""
     f32 = np.float32
-    return float(np.power(f32(1.0) - (f32(epoch) - f32(1.0)) / f32(num_epochs), f32(power)))
+    base = f32(1.0) - (f32(epoch) - f32(1.0)) / f32(num_epochs)
+    return float(f32(np.float64(base) ** np.float64(f32(power))))

@@ -1,0 +1,231 @@
+"""The port's command line (`python -m mdilss_tpu_torch`, mdilss_tpu_torch/cli.py),
+each case of tests/test_cli_surface.py that this slice holds, on the CPU at
+its TINY size (--device cpu): the chain through the CLI, eval and its
+--expect gate, the convert round trip, the baselines, the reversed ft chain,
+weights against the JAX package's, the pipeline; plus what the port adds:
+checked --data-root values, the subcommands that wait (A9, A2) and the
+ablation models (A8b), and every option of the JAX package's subcommands in
+this slice present in the port's (from both --help texts)."""
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from mdilss_tpu_torch.cli import main as cli_main
+from mdilss_tpu_torch.ckpt import torch_io
+from mdilss_tpu_torch.evaluate import infer_num_classes
+from mdilss_tpu_torch.models import ERFNetRAP
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--height", "32", "--width", "64", "--batch-size", "2", "--num-epochs", "1",
+        "--synthetic", "--synthetic-size", "4", "--num-workers", "0", "--no-device-cache",
+        "--device", "cpu"]
+EVAL = ["--synthetic", "--height", "32", "--width", "64", "--device", "cpu"]
+# the JAX package's options with no counterpart here (ROADMAP C): XLA's compilation
+# cache, and the JAX backend switch (the port's is --device)
+JAX_ONLY = {"--platform", "--compilation-cache"}
+
+
+def _run(capsys, argv):
+    cli_main(argv)
+    out = capsys.readouterr().out.strip().splitlines()
+    return json.loads(out[-1])  # the command's JSON summary
+
+
+@pytest.fixture(scope="module")
+def chain_dir(tmp_path_factory):
+    """step1 -> step2 -> step3 chained through the CLI, as trainer_OURS.sh."""
+    root = tmp_path_factory.mktemp("cli_chain")
+    cli_main(["step1", "--savedir", str(root / "step1")] + TINY)
+    cli_main(["step2", "--order", "CS_BDD", "--state", str(root / "step1" / "best"),
+              "--savedir", str(root / "step2")] + TINY)
+    cli_main(["step3", "--order", "CS_BDD_IDD", "--state", str(root / "step2" / "best"),
+              "--savedir", str(root / "step3")] + TINY)
+    return root
+
+
+def test_step_chain_artifacts(chain_dir):
+    for stage in ("step1", "step2", "step3"):
+        d = chain_dir / stage
+        assert (d / "opts.txt").exists() and (d / "model.txt").exists()
+        assert (d / "automated_log.txt").exists()
+        assert torch_io.latest_epoch(str(d / "best")) == 1
+    assert infer_num_classes(str(chain_dir / "step3" / "best")) == [20, 20, 27]
+
+
+def test_cli_eval_rap_synthetic(chain_dir, capsys):
+    res = _run(capsys, ["eval", str(chain_dir / "step3" / "best"), "--kind", "rap",
+                        "--datasets", "cityscapes", "BDD", "IDD"] + EVAL)
+    assert set(res) == {"cityscapes", "BDD", "IDD"}
+    assert all(0.0 <= v <= 1.0 for v in res.values())
+
+
+def test_cli_eval_expect_gate_fails_on_synthetic(chain_dir):
+    with pytest.raises(SystemExit) as e:
+        cli_main(["eval", str(chain_dir / "step3" / "best"), "--kind", "rap",
+                  "--datasets", "cityscapes", "BDD", "IDD", "--expect",
+                  "step3_CS_BDD_IDD"] + EVAL)
+    assert e.value.code == 1
+
+
+def test_cli_convert_round_trip(chain_dir, tmp_path, capsys):
+    """A checkpoint directory -> --export .pth.tar (the reference's dict,
+    `module.` keys, loads strict into ERFNetRAP) -> a checkpoint directory:
+    the same weights, the same mIoU; --nb-tasks keeps the first tasks."""
+    best = str(chain_dir / "step2" / "best")
+    pth = str(tmp_path / "exported.pth.tar")
+    cli_main(["convert", best, pth, "--export", "--kind", "rap"])
+    blob = torch.load(pth, weights_only=False)
+    assert set(blob) == {"epoch", "arch", "state_dict", "best_acc", "optimizer"}
+    assert all(k.startswith("module.") for k in blob["state_dict"])
+    ERFNetRAP([20, 20], 2, device="cpu").load_state_dict(torch_io.load_pth_tar(pth))
+    cli_main(["convert", pth, str(tmp_path / "back"), "--kind", "rap", "--nb-tasks", "2"])
+    a = torch_io.load_state(best, "rap")
+    b = torch_io.load_state(str(tmp_path / "back"), "rap")
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    capsys.readouterr()
+    runs = [_run(capsys, ["eval", p, "--datasets", "cityscapes", "BDD"] + EVAL)
+            for p in (best, pth, str(tmp_path / "back"))]
+    assert runs[0] == runs[1] == runs[2]
+    cli_main(["convert", pth, str(tmp_path / "one"), "--kind", "rap"])  # --nb-tasks 1
+    assert infer_num_classes(str(tmp_path / "one")) == [20]
+
+
+def test_cli_single_multitask_ft(tmp_path, capsys):
+    res = _run(capsys, ["single", "--dataset", "IDD", "--savedir", str(tmp_path / "single")]
+               + TINY)
+    assert res["epoch"] == 1 and "val_acc_IDD" in res
+    res = _run(capsys, ["multitask", "--savedir", str(tmp_path / "mt")] + TINY)
+    assert res["lr_shared"] == pytest.approx(5e-4 / 3) and "val_acc_cityscapes" in res
+    res = _run(capsys, ["ft", "--heads", "2", "--feature-extraction",
+                        "--savedir", str(tmp_path / "fe")] + TINY)
+    assert "val_acc_BDD" in res and "val_acc_cityscapes" in res
+    opts = json.loads((tmp_path / "fe" / "opts.txt").read_text())
+    assert opts["protocol"] == "fe" and opts["model"] == "erfnet_ftp1"
+
+
+def test_cli_ft_order_reversed_chain(tmp_path, capsys):
+    """The reversed fine-tune chain (notebook cell 22): `ft --order CS_IDD`,
+    then the 3-head stage from it, evaluable as kind ftp2 against the
+    recorded setting (a fresh tiny model fails the gate)."""
+    _run(capsys, ["ft", "--order", "CS_IDD", "--savedir", str(tmp_path / "ft2")] + TINY)
+    opts = json.loads((tmp_path / "ft2" / "opts.txt").read_text())
+    assert opts["datasets"] == ["cityscapes", "IDD"] and opts["current_task"] == 1
+    assert infer_num_classes(str(tmp_path / "ft2" / "best")) == [20, 27]
+    _run(capsys, ["ft", "--order", "CS_IDD_BDD", "--state", str(tmp_path / "ft2" / "best"),
+                  "--savedir", str(tmp_path / "ft3")] + TINY)
+    assert infer_num_classes(str(tmp_path / "ft3" / "best")) == [20, 27, 20]
+    with pytest.raises(SystemExit):
+        cli_main(["eval", str(tmp_path / "ft3" / "best"), "--kind", "ftp2", "--datasets",
+                  "cityscapes", "IDD", "BDD", "--expect", "ft_step3_CS_IDD_BDD"] + EVAL)
+
+
+def test_cli_weights_equals_jax(tmp_path, capsys):
+    """`weights` on a tiny Cityscapes tree: the JAX package's command's output."""
+    from mdilss_tpu.cli import main as jax_cli_main
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "leftImg8bit" / "train" / "c").mkdir(parents=True)
+    (tmp_path / "gtFine" / "train" / "c").mkdir(parents=True)
+    for i in range(2):
+        Image.fromarray(rng.integers(0, 255, (32, 64, 3), np.uint8)).save(
+            tmp_path / "leftImg8bit" / "train" / "c" / f"c_{i:06d}_leftImg8bit.png")
+        lbl = rng.integers(0, 20, (32, 64), np.uint8)
+        lbl[:4] = 255
+        Image.fromarray(lbl, mode="L").save(
+            tmp_path / "gtFine" / "train" / "c" / f"c_{i:06d}_gtFine_labelTrainIds.png")
+    argv = ["weights", "--dataset", "cityscapes", "--subset", "train", "--data-root",
+            f"cityscapes={tmp_path}", "--height", "32", "--width", "64", "--q", "1.2"]
+    got = _run(capsys, argv)
+    jax_cli_main(argv)
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == want and len(got["weights"]) == 20 and got["weights"][-1] == 0.0
+    with pytest.raises(SystemExit) as e:
+        cli_main(["weights", "--dataset", "BDD"])
+    assert e.value.code == 2 and "--data-root BDD=PATH" in capsys.readouterr().err
+
+
+def test_cli_pipeline_two_stages(tmp_path, capsys):
+    res = _run(capsys, ["pipeline", "--order", "CS_BDD_IDD", "--stages", "step1", "step2",
+                        "--savedir", str(tmp_path / "pipe")] + TINY)
+    assert set(res) == {"step1", "step2"}
+    assert torch_io.latest_epoch(str(tmp_path / "pipe" / "step2" / "best")) == 1
+
+
+def test_cli_rejects_unknown_command():
+    with pytest.raises(SystemExit):
+        cli_main(["frobnicate"])
+
+
+@pytest.mark.parametrize("value", ["cityscapes", "=/data/cs", "cityscapes=", ""])
+def test_cli_rejects_bad_data_root(value, capsys):
+    """A --data-root without NAME=PATH exits 2 with a usage message naming it
+    (the JAX package's bare split raises an opaque ValueError)."""
+    for argv in (["step1", "--data-root", value], ["eval", "x", "--data-root", value],
+                 ["weights", "--data-root", value]):
+        with pytest.raises(SystemExit) as e:
+            cli_main(argv)
+        err = capsys.readouterr().err
+        assert e.value.code == 2 and "usage:" in err and f"{value!r}" in err, err
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["tsne", "ck"], "A9"), (["predict", "ck"], "A9"), (["export", "ck", "out"], "A9"),
+    (["parity-check", "root"], "A9"), (["bench", "--steps", "2"], "A2"),
+])
+def test_cli_waiting_subcommands_exit(argv, item):
+    with pytest.raises(SystemExit) as e:
+        cli_main(argv)
+    assert isinstance(e.value.code, str) and f"ROADMAP {item}" in e.value.code
+
+
+def test_cli_ablation_models_and_device(tmp_path):
+    with pytest.raises(NotImplementedError, match="A8b"):
+        cli_main(["step1", "--model", "erfnet_bn", "--savedir", str(tmp_path / "a")] + TINY)
+    with pytest.raises(SystemExit) as e:
+        cli_main(["eval", "ck", "--f64"])
+    assert e.value.code == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli_main(["step1", "--savedir", str(tmp_path / "b")] + TINY[:-2])
+
+
+def _options(main, cmd: str, capsys) -> set[str]:
+    with pytest.raises(SystemExit) as e:
+        main([cmd, "--help"])
+    assert e.value.code == 0
+    # the options' own lines (indented two spaces), not mentions in help texts
+    return set(re.findall(r"^  (?:-\w, )?(--[a-z0-9][a-z0-9-]*)", capsys.readouterr().out,
+                          re.M))
+
+
+@pytest.mark.parametrize("cmd", ["step1", "step2", "step3", "multitask", "single", "ft",
+                                 "pipeline", "eval", "convert", "weights"])
+def test_cli_has_every_jax_option(cmd, capsys):
+    from mdilss_tpu.cli import main as jax_cli_main
+
+    want = _options(jax_cli_main, cmd, capsys) - JAX_ONLY
+    got = _options(cli_main, cmd, capsys)
+    assert want and not want - got, want - got
+
+
+def test_help_loads_no_jax():
+    code = ("import runpy, sys\n"
+            "sys.argv = ['mdilss_tpu_torch', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('mdilss_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mdilss_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0 and "step1" in r.stdout, r.stdout + r.stderr

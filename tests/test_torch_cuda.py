@@ -661,3 +661,88 @@ def test_evaluate_checkpoint_raises_on_float64_on_the_card(cuda, tmp_path):
     out = evaluate_checkpoint(str(tmp_path / "ck"), kind="rap", datasets=["cityscapes"],
                               height=64, width=128, synthetic=True)
     assert 0.0 <= out["cityscapes"] <= 1.0
+
+
+@pytest.mark.parametrize("c,d,drop", [(64, 1, 0.03), (128, 8, 0.3)])
+def test_plain_encoder_block_with_dropout_matches_float64(cuda, c, d, drop):
+    """The plain encoder's training block (NonBottleneck1d with its Dropout2d
+    rate, in the multi-head and single-task models) through K2/K3 against the
+    same block from the plain pairs in float64, at chip_smoke.py phase 6's
+    tolerances: output and running statistics 1e-5, gradients 2e-3 (relu
+    kinks within float32 rounding flip between the two)."""
+    gen = torch.Generator().manual_seed(c + d)
+    torch.manual_seed(c * 3 + d)
+    blk = NonBottleneck1d(c, d, drop)
+    _randomize_bn(blk, gen)
+    twin = NonBottleneck1d(c, d, drop).double()
+    twin.load_state_dict(blk.state_dict())
+    x = torch.randn(2, c, 32, 64, generator=gen).to(cuda)
+    cot = torch.randn(2, c, 32, 64, generator=gen).to(cuda)
+    mask = (torch.rand(2, c, generator=gen) < 1 - drop).to(cuda)
+    assert not mask.all()
+    res = []
+    for b, pairs, dt in ((blk, T.KERNEL_PAIRS, torch.float32),
+                         (twin, T.PLAIN_PAIRS, torch.float64)):
+        b.to(cuda).train()
+        xi = x.to(dt).contiguous(memory_format=torch.channels_last).requires_grad_()
+        before = T.LAUNCHES_FWD, T.LAUNCHES_BWD
+        out = T.nb1d_train_apply(b, xi, None, drop, mask, pairs)
+        grads = torch.autograd.grad((out * cot.to(dt)).sum(), [xi] + list(b.parameters()),
+                                    allow_unused=True)
+        launched = (T.LAUNCHES_FWD - before[0], T.LAUNCHES_BWD - before[1])
+        res.append((out, grads, [t.clone() for n, t in b.named_buffers() if "running" in n],
+                    launched))
+    (out_k, g_k, r_k, n_k), (out_p, g_p, r_p, n_p) = res
+    assert n_k == (2, 2) and n_p == (0, 0)
+    assert _rel(out_k, out_p) <= 1e-5
+    for a, b in zip(g_k, g_p):
+        assert (a is None) == (b is None)
+        if a is not None and b.norm() > 0:
+            assert _rel(a, b) <= 2e-3
+    for a, b in zip(r_k, r_p):
+        assert _rel(a, b) <= 1e-5
+
+
+def test_step2_build_trainer_fit_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """build_trainer + fit of step 2 from a step-1 checkpoint directory at
+    2x128x256 (one batch, one epoch) on the card and on the CPU: the batch's
+    loss, ce and kld within 1e-5 relative and the student's running
+    statistics within 1e-5 rel L2 (chip_smoke.py phase 11's card-vs-CPU
+    tolerances; both come from the forward before the Adam step), every
+    parameter within 2 lr (Adam's first step is lr * sign(g)), the frozen ones
+    and the teacher bitwise as loaded; K1/K2/K3 launched on the card only."""
+    from mdilss_tpu_torch import config as C
+    from mdilss_tpu_torch.ckpt import torch_io
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.protocols import build_trainer
+
+    torch.manual_seed(7)
+    prev = ERFNetRAP([20], 1, device="cpu")
+    _randomize_bn(prev, torch.Generator().manual_seed(8))
+    torch_io.save(str(tmp_path / "step1" / "best"), 1, steps.init_train_state(prev),
+                  best_acc=0.0, aug_state=torch.Generator().get_state())
+    kw = dict(num_epochs=1, synthetic=True, synthetic_size=2, batch_size=2, height=128,
+              width=256, num_workers=1, state=str(tmp_path / "step1" / "best"))
+    runs = {}
+    for dev in ("cpu", cuda):
+        name = torch.device(dev).type
+        tr = build_trainer(C.step2(savedir=str(tmp_path / name), **kw), device=dev)
+        before = _launches()
+        row = tr.fit()
+        runs[name] = (row, {k: v.cpu() for k, v in tr.ts.model.state_dict().items()},
+                      {k: v.cpu() for k, v in tr.teacher.state_dict().items()},
+                      tuple(a - b for a, b in zip(_launches(), before)), tr._lr_tree())
+    (rc, sc, tc, nc, lr), (rg, sg, tg, ng, _) = runs["cpu"], runs["cuda"]
+    assert nc == (0, 0, 0) and all(n > 0 for n in ng)
+    for k in ("train_loss", "train_ce", "train_kld"):
+        assert abs(rg[k] - rc[k]) <= 1e-5 * abs(rc[k]), (k, rg[k], rc[k])
+    running = [k for k in sc if "running" in k]
+    assert _rel(torch.cat([sg[k].reshape(-1) for k in running]),
+                torch.cat([sc[k].reshape(-1) for k in running])) <= 1e-5
+    loaded = torch_io.load_state(str(tmp_path / "step1" / "best"), "rap")
+    for k, v in lr.items():
+        assert (sg[k] - sc[k]).abs().max() <= 2 * v + 1e-6, k
+        if v == 0.0:
+            assert torch.equal(sg[k], loaded[k]) and torch.equal(sc[k], loaded[k]), k
+    for k, v in loaded.items():
+        assert torch.equal(tg[k], v) and torch.equal(tc[k], v), k

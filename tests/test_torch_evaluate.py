@@ -134,8 +134,8 @@ def test_expected_miou_json_is_byte_equal_and_checked():
 
 
 def test_unported_kinds_and_f64_off_the_cpu_raise(setup):
-    with pytest.raises(NotImplementedError, match="A8"):
-        evaluate.load_checkpoint(setup["ckpt"], kind="ftp1", device="cpu")
+    with pytest.raises(NotImplementedError, match="A8b"):
+        evaluate.load_checkpoint(setup["ckpt"], kind="erfnet_bn", device="cpu")
     with pytest.raises(ValueError, match="float64"):
         evaluate.evaluate_checkpoint(setup["ckpt"], kind="rap", datasets=["cityscapes", "IDD"],
                                      compute_dtype="float64", device="cuda")

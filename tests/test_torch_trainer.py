@@ -2,7 +2,8 @@
 images, batch 2, 32x64): run artifacts, the checkpoint files, bit-exact
 resume, cached = hybrid = streaming trajectories, the best-epoch rule, the
 train-IoU column, the profiler trace, the cache budget, and the options that
-wait for later slices."""
+wait for later slices (the multi-head protocols are tested in
+test_torch_multihead.py and test_torch_protocols.py)."""
 import json
 import os
 
@@ -193,10 +194,10 @@ def test_device_cache_budget(tmp_path):
 
 
 @pytest.mark.parametrize("make,kw,match", [
-    ("step1", dict(model="erfnet"), "A8"),
-    ("multitask", {}, "A8"),
-    ("ft_step", {}, "A8"),
-    ("singletask", {}, "A8"),
+    ("step1", dict(model="erfnet_bn"), "A8b"),
+    ("step1", dict(model="erfnet_onlyRAP"), "A8b"),
+    ("step2", dict(model="erfnet_RA_series"), "A8b"),
+    ("step3", dict(model="erfnet_RCM"), "A8b"),
     ("step1", dict(compute_dtype="bfloat16"), "R7"),
     ("step1", dict(spatial_shards=2), "A10"),
     ("step1", dict(remat=True), "remat"),
