@@ -13,7 +13,7 @@ Phases, each fatal on failure (non-zero exit):
   3. drive the serving path of the 3-task ERFNet-RAP [20, 20, 27] at 512x1024
      from random weights made with --seed: every head, batch 1 and 6, bf16
      and fp32, logits and labels, and 8 uint8 images per head through
-     serve_batches; the K1 launch count is zeroed before this phase and must
+     serve_fn_batches; the K1 launch count is zeroed before this phase and must
      grow by 17 blocks x 2 launches per forward; the fp32 logits are compared
      with the same weights run on the CPU (plain versions) and the bf16
      labels with the fp32 labels;
@@ -92,7 +92,9 @@ Phases, each fatal on failure (non-zero exit):
      best checkpoint (kind "rap", float32, batch 6, both heads): 34 K1 per
      batch at full width, and at 2x128x256 its per-class IoU beside the CPU's
      float64 run of the file and the two confusion matrices equal off the
-     near-tie pixels;
+     near-tie pixels; and, a reading and not a gate (C5), a resume under
+     cuDNN's default algorithms against a straight run under them (the
+     largest parameter difference);
  13. the command line (cuDNN on its deterministic algorithms), in-process
      through `mdilss_tpu_torch.cli.main`: `pipeline --with-baselines` at
      6x512x1024 (12 synthetic images per domain and subset, one epoch per
@@ -110,10 +112,28 @@ Phases, each fatal on failure (non-zero exit):
      savedir raises ValueError; `eval` of step3/best and of multitask/best
      (--kind multi_task), 34 K1 per batch per head; `convert --export` of
      step3/best and `eval` of the file, the same mIoU; each stage's wall
-     seconds, train img/s and peak memory.
+     seconds, train img/s and peak memory. Its tree stays for phase 14;
+ 14. slice 10 on phase 13's checkpoints (cuDNN deterministic): C4, one
+     step-2 step and one eval step at 2x128x256 with the global TF32 flags
+     at PyTorch's defaults, card vs CPU within 1e-5; `export` (cli.main) of
+     step3/best's head 2 at 512x1024 in four artifacts (bf16 labels and fp32
+     logits, batch 1 and a symbolic batch) served by `serve_batches` over
+     six uint8 images (as 6 batches of 1, and as one of 6 for the symbolic
+     ones) with exactly 34 K1 launches per forward, fp32 logits within 1e-6
+     rel L2 of the in-process forward, bf16 labels equal to the in-process
+     ones off near-ties, the symbolic artifacts equal at batch 1 and 6, and
+     per-forward ms (CUDA events) exported and in-process at batch 1 and 6;
+     `parity-check --synthetic` (cli.main, batch 1) on a manifest of the
+     chain's step1, step2, step3, ft_step2 and single_cs checkpoints: the
+     four complete settings fail, the other five miss a checkpoint, none
+     errs, 34 K1 per image per head, each per-domain mIoU equal to
+     evaluate_checkpoint's; extract_features of head 2 (encoder and
+     penultimate) on the card against the CPU's plain path within 1e-5 rel
+     L2.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
-entry its launches on every path driven) and, as the last line,
+entry its launches on every path driven, K1's through the exported heads
+and parity-check too) and, as the last line,
 {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
 """
@@ -138,6 +158,7 @@ import torch
 from mdilss_tpu_torch import cli
 from mdilss_tpu_torch import config as PC
 from mdilss_tpu_torch import serving
+from mdilss_tpu_torch.parity import SETTINGS as PARITY_SETTINGS
 from mdilss_tpu_torch.ckpt import torch_io
 from mdilss_tpu_torch.ckpt.surgery import extend_for_new_task
 from mdilss_tpu_torch.data.class_weights import CLASS_WEIGHTS
@@ -404,13 +425,13 @@ def phase_main_path(seed: int, dev: torch.device, height: int, width: int, batch
                 f32_logits_b1[task] = out["f32", "logits"].cpu()
         fn = serving.build_infer_fn(model, task, output="labels")
         before = K.LAUNCHES
-        got = list(serving.serve_batches(fn, served[task], height, width))
+        got = list(serving.serve_fn_batches(fn, served[task], height, width))
         forwards += len(served[task])
         check(K.LAUNCHES - before == len(served[task]) * LAUNCHES_PER_FORWARD,
-              "serve_batches did not launch the kernels of every block")
+              "serve_fn_batches did not launch the kernels of every block")
         check(len(got) == 2 and all(g.shape == (4, height, width) and g.dtype == np.int32
                                     and g.min() >= 0 and g.max() < nc for g in got),
-              "serve_batches gave bad labels")
+              "serve_fn_batches gave bad labels")
         print(f"[main] head {task}: served 8 uint8 images")
     launches = K.LAUNCHES
     check(launches == forwards * LAUNCHES_PER_FORWARD and launches > 0,
@@ -1587,6 +1608,7 @@ def phase_trainer_step2(seed: int, dev: torch.device, root: str, bare_img_per_s:
     check(not diff and rec["resume"]["files_equal"] and rec["resume"]["gen_equal"],
           f"resume is not bitwise the uninterrupted run: {rec['resume']}")
     del tr_b2
+    rec["resume_default_cudnn"] = resume_default_cudnn(seed, root, teacher, dev, tr_a)
 
     # the hybrid arm: 12 of 24 training rows on the card
     tr_h = Trainer(trainer_cfg(root, "h", "step2", seed=seed,
@@ -1653,6 +1675,41 @@ def phase_trainer_step2(seed: int, dev: torch.device, root: str, bare_img_per_s:
     print(f"[trainer-time] cache take + augment_batch at {TRAIN_BATCH}x{HEIGHT}x{WIDTH}: "
           f"{rec['take_augment_ms']:.4f} ms per call (CUDA events), device busy "
           f"{prof['device_ms']:.4f} ms")
+    return rec
+
+
+def resume_default_cudnn(seed: int, root: str, teacher, dev, tr_a) -> dict:
+    """C5, a reading and not a gate: with cuDNN's default algorithms (the
+    package sets none), run C stops after epoch 1 and a new Trainer resumes
+    it; run D trains both epochs straight. The largest parameter difference
+    of C against D, and of D against run A (deterministic algorithms)."""
+    torch.backends.cudnn.deterministic = False
+    try:
+        Trainer(trainer_cfg(root, "c", "step2", seed=seed), teacher=teacher,
+                device=dev).fit(stop_after=1)
+        tr_c = Trainer(trainer_cfg(root, "c", "step2", seed=seed, resume=True), teacher=teacher,
+                       device=dev)
+        tr_c.fit()
+        tr_d = Trainer(trainer_cfg(root, "d", "step2", seed=seed), teacher=teacher, device=dev)
+        tr_d.fit()
+    finally:
+        torch.backends.cudnn.deterministic = True
+
+    def params(tr):
+        return {k: p.detach() for k, p in tr.ts.model.named_parameters()}
+
+    def diff(a: dict, b: dict) -> tuple[float, int]:
+        return (max(float((a[k] - b[k]).abs().max()) for k in a),
+                sum(not torch.equal(a[k], b[k]) for k in a))
+
+    (c_d, n_cd), (d_a, n_da) = diff(params(tr_c), params(tr_d)), diff(params(tr_d), params(tr_a))
+    rec = {"resumed_vs_straight_max_abs": c_d, "resumed_vs_straight_unequal": n_cd,
+           "straight_vs_deterministic_max_abs": d_a, "straight_vs_deterministic_unequal": n_da,
+           "params": len(params(tr_d))}
+    print(f"[trainer] C5 reading, cuDNN's default algorithms: run C (stop after epoch 1, "
+          f"resume) vs run D (2 epochs straight): largest parameter difference {c_d:.3e}, "
+          f"{n_cd} of {rec['params']} parameters unequal; run D vs run A (deterministic "
+          f"algorithms): {d_a:.3e}, {n_da} unequal")
     return rec
 
 
@@ -1810,7 +1867,7 @@ def phase_cli_chain(seed: int, dev: torch.device) -> dict:
     in all, the pretrained encoder in step 1's initial weights, the step-2
     teacher and student rebuilt from step1/best, the frozen parameters across
     the chain, a rerun that trains nothing, the predecessor rule, and the
-    export round trip."""
+    export round trip. Its tree under build/cli_chain stays for phase 14."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_chain")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1822,7 +1879,6 @@ def phase_cli_chain(seed: int, dev: torch.device) -> dict:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
         PL.build_trainer = protocols.build_trainer
-    shutil.rmtree(root, ignore_errors=True)
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"[cli-chain] phase 13 in {rec['seconds']:.1f} s")
     return rec
@@ -1980,7 +2036,261 @@ def _cli_chain(seed: int, dev: torch.device, root: str) -> dict:
           f"the exported file's mIoU {evals['exported']['miou']} differs from the "
           f"directory's {evals['step3']['miou']}")
     out["eval"] = evals
+    out["root"] = root
     return out
+
+
+# ---- phase 14: the parity runbook, the analysis tools and serving export ------------------------
+EXPORT_TASK = 2  # the newest head (IDD, 27 classes) of step3/best
+EXPORTS = {  # name: (export options, batch sizes served)
+    "bf16_labels_b1": (["--output", "labels"], (1,)),
+    "bf16_labels_sym": (["--output", "labels", "--batch-size", "0"], (1, TRAIN_BATCH)),
+    "f32_logits_b1": (["--output", "logits", "--dtype", "float32"], (1,)),
+    "f32_logits_sym": (["--output", "logits", "--dtype", "float32", "--batch-size", "0"],
+                       (1, TRAIN_BATCH)),
+}
+TOL_EXPORT_REL_L2 = 1e-6  # an exported float32 program vs the in-process forward: the same ops
+TIE_BF16 = 1e-2  # bf16 labels compared off pixels whose top-2 gap is within 1% of the scale
+# the chain's checkpoints for parity-check; singletask names its Cityscapes job only, so that
+# setting stays missing_checkpoint with the six settings the chain has no run of
+PARITY_MANIFEST = {"step1": "runs/step1/best", "step2_CS_BDD": "runs/step2/best",
+                   "step3_CS_BDD_IDD": "runs/step3/best", "ft_step2_CS_BDD": "runs/ft_step2/best",
+                   "singletask": ["runs/single_cs/best"]}
+PARITY_EVAL_IMAGES = 8  # evaluate_checkpoint's synthetic source per domain, batch 1
+
+
+def tf32_defaults_vs_cpu(seed: int, dev: torch.device) -> dict:
+    """C4: the global flags at PyTorch's defaults (TF32 on for cuDNN's fp32
+    convs); one step-2 step (make_distill_step) and one eval step at 2x128x256
+    on the card and on the CPU from the same weights, masks and batch: loss
+    and running statistics within 1e-5, as phase 11 holds them."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        n, h, w = SMALL
+        student, teacher, images, labels, masks = train_setup(seed + 40, dev, n, h, w)
+        s_cpu = ERFNetRAP(STUDENT_CLASSES, len(STUDENT_CLASSES), device="cpu")
+        s_cpu.load_state_dict(student.state_dict())
+        t_cpu = ERFNetRAP(TEACHER_CLASSES, len(TEACHER_CLASSES), device="cpu")
+        t_cpu.load_state_dict(teacher.state_dict())
+        out = {}
+        for name, (s, t, x, y) in {"card": (student, teacher, images.to(dev), labels.to(dev)),
+                                   "cpu": (s_cpu, t_cpu, images, labels)}.items():
+            _, step = make_step(s)
+            _, m = step(steps.init_train_state(s), t, x, y, masks, 1)
+            ev = steps.make_eval_step(task=0, class_weight=CLASS_WEIGHTS["cityscapes"],
+                                      num_classes=TEACHER_CLASSES[0])
+            eval_loss, _ = ev(t, x, y)
+            running = torch.cat([b.reshape(-1).cpu() for k, b in s.named_buffers()
+                                 if "running" in k])
+            out[name] = (float(m["loss"]), running, float(eval_loss))
+        flags = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    (l_g, r_g, e_g), (l_c, r_c, e_c) = out["card"], out["cpu"]
+    rec = {"cudnn_allow_tf32_after": flags, "loss": abs(l_g - l_c) / abs(l_c),
+           "running": rel_l2(r_g, r_c), "eval_loss": abs(e_g - e_c) / abs(e_c)}
+    print(f"[c4] TF32 at PyTorch's defaults (cudnn.allow_tf32 True): {n}x{h}x{w} step-2 step, "
+          f"card vs CPU: loss {rec['loss']:.2e}, running stats {rec['running']:.2e}; eval "
+          f"step loss {rec['eval_loss']:.2e}; the flag after the steps: {flags}")
+    check(flags and max(rec["loss"], rec["running"], rec["eval_loss"]) <= TOL_STEP["loss"],
+          f"with TF32 at its defaults the card's steps differ from the CPU: {rec}")
+    return rec
+
+
+def near_tie_free(labels_a, labels_b, logits) -> tuple[bool, int, int]:
+    """(labels equal off the pixels whose top-2 logit gap is within TIE_BF16 of
+    the logit scale, pixels that differ, near-tie pixels)."""
+    logits = torch.as_tensor(logits).float()
+    top2 = logits.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= TIE_BF16 * float(logits.abs().max())
+    differ = torch.as_tensor(labels_a) != torch.as_tensor(labels_b)
+    return not bool((differ & ~tie.cpu()).any()), int(differ.sum()), int(tie.sum())
+
+
+def phase_slice10(seed: int, dev: torch.device, chain_root: str) -> dict:
+    """Phase 14 on phase 13's checkpoints (build/cli_chain, removed at the
+    end): the C4 reading, `export` of step3/best and its artifacts served,
+    `parity-check --synthetic` on a manifest of the chain's checkpoints, and
+    extract_features on the card against the CPU."""
+    t_phase = time.perf_counter()
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rec = {"c4": tf32_defaults_vs_cpu(seed, dev),
+               "export": _export_phase(seed, dev, chain_root),
+               "parity_check": _parity_phase(dev, chain_root),
+               "features": _features_phase(dev, chain_root)}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    shutil.rmtree(chain_root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[slice10] phase 14 in {rec['seconds']:.1f} s")
+    return rec
+
+
+def _export_phase(seed: int, dev: torch.device, root: str) -> dict:
+    best = os.path.join(root, "runs", "step3", "best")
+    model = load_checkpoint(best, kind="rap", device=dev)
+    rng = np.random.default_rng(seed + 50)
+    images = rng.integers(0, 256, (TRAIN_BATCH, HEIGHT, WIDTH, 3), np.uint8)
+    x = {n: torch.from_numpy(images[:n].astype(np.float32) / 255.0).to(dev)
+         for n in (1, TRAIN_BATCH)}
+    inproc = {dt: {out: serving.build_infer_fn(model, EXPORT_TASK, output=out,
+                                               compute_dtype=DTYPES[dt])
+                   for out in ("logits", "labels")} for dt in ("bf16", "f32")}
+    rec: dict = {"artifacts": {}, "forward_ms": {}}
+    served: dict = {}
+    launches = 0
+    for name, (opts, batches) in EXPORTS.items():
+        out_dir = os.path.join(root, "serving", name)
+        text, secs = run_cli(["export", best, out_dir, "--tasks", str(EXPORT_TASK), "--height",
+                              str(HEIGHT), "--width", str(WIDTH), *opts])
+        meta = json.loads(text.strip().splitlines()[-1])
+        art = {"export_seconds": secs,
+               "bytes": sum(meta["artifact_bytes"][str(EXPORT_TASK)].values())}
+        # the 6 images as 6 batches of 1 (and, symbolic batch, then as one batch of 6) through
+        # one serve_batches call, which loads the artifact; K1 launches counted per forward
+        groups = [(n, images[i:i + n]) for n in batches for i in range(0, TRAIN_BATCH, n)]
+        outs: dict = {n: [] for n in batches}
+        t0 = time.perf_counter()
+        before = K.LAUNCHES
+        for (n, _), got in zip(groups, serving.serve_batches(out_dir, EXPORT_TASK,
+                                                             [g for _, g in groups])):
+            outs[n].append(got)  # .cpu() in serve_batches waits for the forward
+            art.setdefault(f"launches_per_forward_batch{n}", set()).add(K.LAUNCHES - before)
+            before = K.LAUNCHES
+        art["serve_seconds"] = time.perf_counter() - t0
+        for n in batches:
+            served[name, n] = np.concatenate(outs[n])
+            per_forward = sorted(art[f"launches_per_forward_batch{n}"])
+            art[f"launches_per_forward_batch{n}"] = per_forward
+            launches += per_forward[0] * len(outs[n])
+            check(per_forward == [LAUNCHES_PER_FORWARD],
+                  f"{name} at batch {n}: {per_forward} K1 launches per forward, expected "
+                  f"{LAUNCHES_PER_FORWARD}")
+        rec["artifacts"][name] = art
+        print(f"[export] {name}: export {secs:.2f} s, {art['bytes'] / 2**20:.1f} MiB; "
+              f"serve_batches (load and {len(groups)} forwards) {art['serve_seconds']:.2f} s; "
+              f"K1 launches per forward "
+              + ", ".join(f"batch {n}: {art[f'launches_per_forward_batch{n}']}" for n in batches))
+    # gates: fp32 logits vs the in-process forward; bf16 labels vs in-process off near-ties;
+    # the symbolic batch at 1 and 6
+    want32 = inproc["f32"]["logits"](x[TRAIN_BATCH]).cpu()
+    logits16 = inproc["bf16"]["logits"](x[TRAIN_BATCH]).cpu()
+    want16 = inproc["bf16"]["labels"](x[TRAIN_BATCH]).cpu()
+    errs = {k: rel_l2(torch.from_numpy(served[k]), want32)
+            for k in (("f32_logits_b1", 1), ("f32_logits_sym", 1), ("f32_logits_sym", TRAIN_BATCH))}
+    sym32 = rel_l2(torch.from_numpy(served["f32_logits_sym", TRAIN_BATCH]),
+                   torch.from_numpy(served["f32_logits_sym", 1]))
+    labels = {k: near_tie_free(served[k], want16, logits16)
+              for k in (("bf16_labels_b1", 1), ("bf16_labels_sym", 1),
+                        ("bf16_labels_sym", TRAIN_BATCH))}
+    sym16 = near_tie_free(served["bf16_labels_sym", TRAIN_BATCH], served["bf16_labels_sym", 1],
+                          logits16)
+    rec.update(f32_rel_l2={f"{a}@{b}": v for (a, b), v in errs.items()}, f32_sym_1_vs_6=sym32,
+               bf16_labels={f"{a}@{b}": v for (a, b), v in labels.items()},
+               bf16_sym_1_vs_6=sym16, launches=launches)
+    print(f"[export] fp32 logits vs the in-process forward, rel L2: "
+          + ", ".join(f"{a} batch {b} {v:.2e}" for (a, b), v in errs.items())
+          + f"; the symbolic artifact at batch 6 vs 1: {sym32:.2e}")
+    print(f"[export] bf16 labels vs the in-process bf16 labels (equal off near-ties, pixels "
+          f"that differ, near-tie pixels): "
+          + ", ".join(f"{a} batch {b} {v}" for (a, b), v in labels.items())
+          + f"; the symbolic artifact at batch 6 vs 1: {sym16}")
+    check(max(errs.values()) <= TOL_EXPORT_REL_L2 and sym32 <= TOL_EXPORT_REL_L2,
+          f"exported fp32 logits differ: {errs}, batch 6 vs 1 {sym32}")
+    check(all(v[0] for v in labels.values()) and sym16[0],
+          f"exported bf16 labels differ off near-ties: {labels}, batch 6 vs 1 {sym16}")
+    # per-forward ms, CUDA events after warm-up: the exported and the in-process bf16 forward
+    t0 = time.perf_counter()
+    fns = {name: serving.load_head(os.path.join(root, "serving", name), EXPORT_TASK)
+           for name in ("bf16_labels_b1", "bf16_labels_sym")}
+    rec["load_seconds"] = (time.perf_counter() - t0) / len(fns)
+    for n in (1, TRAIN_BATCH):
+        r = rec["forward_ms"][f"batch{n}"] = {
+            "in_process": time_ms(lambda: inproc["bf16"]["labels"](x[n]), iters=10, warmup=2),
+            "exported_symbolic": time_ms(lambda: fns["bf16_labels_sym"](x[n]), iters=10,
+                                         warmup=2)}
+        if n == 1:
+            r["exported"] = time_ms(lambda: fns["bf16_labels_b1"](x[n]), iters=10, warmup=2)
+        print(f"[export-time] bf16 labels forward {n}x{HEIGHT}x{WIDTH} (head {EXPORT_TASK}), "
+              f"CUDA events: in-process {r['in_process']:.3f} ms, exported "
+              + (f"{r['exported']:.3f} ms (batch-1 artifact), " if n == 1 else "")
+              + f"{r['exported_symbolic']:.3f} ms (symbolic-batch artifact)")
+    print(f"[export-time] load_head {rec['load_seconds']:.2f} s per artifact")
+    return rec
+
+
+def _parity_phase(dev: torch.device, root: str) -> dict:
+    with open(os.path.join(root, "parity_manifest.json"), "w") as f:
+        json.dump(PARITY_MANIFEST, f)
+    report_path = os.path.join(root, "parity_report.json")
+    zero_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["parity-check", root, "--synthetic", "--batch-size", "1", "--height",
+                      str(HEIGHT), "--width", str(WIDTH), "--out", report_path])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(report_path) as f:
+        report = json.load(f)
+    status = {k: v["status"] for k, v in report["settings"].items()}
+    mapped = [k for k, v in PARITY_MANIFEST.items() if not isinstance(v, list)]
+    heads = sum(len(report["settings"][k]["results"]) for k in mapped)
+    want_launches = {"K1": heads * PARITY_EVAL_IMAGES * LAUNCHES_PER_FORWARD, "K2": 0, "K3": 0}
+    print(f"[parity-check] exit {code} in {secs:.2f} s; statuses {status}; summary "
+          f"{report['summary']}; launches {launches} (expected {want_launches})")
+    check(code == 1 and all(status[k] == "fail" for k in mapped)
+          and all(v == "missing_checkpoint" for k, v in status.items() if k not in mapped),
+          f"parity-check: exit {code}, statuses {status}")
+    check(launches == want_launches, f"parity-check launched {launches}, expected {want_launches}")
+    # each per-domain mIoU equal to evaluate_checkpoint run directly
+    direct = {}
+    for setting in mapped:
+        (job,) = PARITY_SETTINGS[setting]
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = evaluate_checkpoint(os.path.join(root, PARITY_MANIFEST[setting]),
+                                      kind=job["kind"], datasets=job["datasets"],
+                                      synthetic=True, height=HEIGHT, width=WIDTH, device=dev)
+        direct[setting] = {d: round(float(v), 4) for d, v in got.items()}
+    reported = {k: report["settings"][k]["results"] for k in mapped}
+    print(f"[parity-check] per-domain mIoU, the report {reported}; evaluate_checkpoint run "
+          f"directly {direct}")
+    check(direct == reported, "parity-check's mIoU differ from evaluate_checkpoint's")
+    return {"exit": code, "statuses": status, "summary": report["summary"], "seconds": secs,
+            "launches": launches, "results": reported}
+
+
+def _features_phase(dev: torch.device, root: str) -> dict:
+    """extract_features (tsne's device half) of step3/best's head 2 on the card
+    and on the CPU's plain path, fp32 at 512x1024, relative L2."""
+    from mdilss_tpu_torch.analysis.tsne import extract_features
+
+    best = os.path.join(root, "runs", "step3", "best")
+    source = SyntheticSource(NUM_CLASSES[EXPORT_TASK], n=1, height=HEIGHT, width=WIDTH)
+    kw = dict(task=EXPORT_TASK, num_classes=NUM_CLASSES[EXPORT_TASK], height=HEIGHT,
+              width=WIDTH, select=lambda labels, n: True)
+    rec = {}
+    for which in ("encoder", "penultimate"):
+        before = K.LAUNCHES
+        got, lbl_g, _ = extract_features(load_checkpoint(best, kind="rap", device=dev), source,
+                                         which=which, device=dev, **kw)
+        launched = K.LAUNCHES - before
+        want, lbl_c, _ = extract_features(load_checkpoint(best, kind="rap", device="cpu"),
+                                          source, which=which, device="cpu", **kw)
+        err = rel_l2(torch.from_numpy(got), torch.from_numpy(want))
+        rec[which] = {"shape": list(got.shape), "rel_l2": err, "launches": launched}
+        print(f"[features] {which} {list(got.shape)}: card vs CPU rel L2 {err:.2e}; "
+              f"K1 launches {launched}")
+        check(err <= TOL_STEP3 and np.array_equal(lbl_g, lbl_c)
+              and launched == LAUNCHES_PER_FORWARD, f"extract_features {which}: {rec[which]}")
+    return rec
 
 
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
@@ -2057,6 +2367,7 @@ def main(argv=None) -> int:
     other_steps["step3_vs_cpu"] = phase_step3_vs_cpu(args.seed, dev)
     trainer = phase_trainer(args.seed, dev, train_times["img_per_s"])
     cli_chain = phase_cli_chain(args.seed, dev)
+    slice10 = phase_slice10(args.seed, dev, cli_chain.pop("root"))
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -2077,6 +2388,8 @@ def main(argv=None) -> int:
         "launches_evaluate_checkpoint": trainer["evaluate_checkpoint"]["launches"]["K1"],
         "launches_cli_chain": cli_chain["launches"]["K1"],
         "launches_cli_eval": sum(e["launches"]["K1"] for e in cli_chain["eval"].values()),
+        "launches_export": slice10["export"]["launches"],
+        "launches_parity_check": slice10["parity_check"]["launches"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -2109,6 +2422,7 @@ def main(argv=None) -> int:
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
               "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
+              "slice10": slice10,
               "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -11,13 +11,21 @@ mdilss_tpu/cli.py, with its command names, options and defaults).
   convert                .pth.tar -> a checkpoint directory of the port, and back
                          with --export
   weights                class weights over train labels (cal_class_weights.py)
+  parity-check           every recorded setting of expected_miou.json from a
+                         checkpoint directory, one pass/fail JSON report
+  tsne / predict         latent-space t-SNE plot, colorized prediction maps
+                         (the reference's notebooks)
+  export                 per-head serving artifacts (torch.export, .pt2 per
+                         platform: cuda, cpu)
 
 Deviations from the JAX package's CLI: `--device {cuda,cpu}` (default cuda;
 without a card it raises) in place of `--platform`; no
 `--compilation-cache` (XLA's); each `--data-root NAME=PATH` is checked and a
-bad one exits with a usage message naming it. `tsne`, `predict`, `export` and
-`parity-check` wait for ROADMAP A9 and `bench` for A2: they parse and exit
-non-zero. The ablation `--model` choices raise NotImplementedError (A8b).
+bad one exits with a usage message naming it; `export --platforms` takes cuda
+and cpu (a torch.export program is traced on one device) and defaults to
+cuda. `bench` waits for ROADMAP A2: it parses and exits non-zero, and so does
+an ablation `--kind` (A8b); the ablation `--model` choices raise
+NotImplementedError (A8b).
 """
 from __future__ import annotations
 
@@ -33,10 +41,7 @@ _CKPT_KINDS = ("rap", *MULTIHEAD_KINDS)  # the kinds with a state-dict grammar
 _KINDS = _CKPT_KINDS + C.ABLATION_MODELS
 # the reference step-1 trainer's model factory (train_RAPFT_step1.py:451-460)
 _MODELS = ("erfnet_RA_parallel", *C.ABLATION_MODELS)
-_WAITS = {
-    "tsne": "A9 (analysis)", "predict": "A9 (analysis)", "export": "A9 (serving export)",
-    "parity-check": "A9 (the parity runbook)", "bench": "A2 (the port's benchmark)",
-}
+_WAITS = {"bench": "A2 (the port's benchmark)"}
 
 
 def _name_path(kv: str) -> tuple[str, str]:
@@ -116,6 +121,7 @@ def _add_analysis_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--synthetic", action="store_true")
     _add_data_root(p)
+    _add_device(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -195,14 +201,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="float64 forward on the CPU's plain path (needs --device cpu)")
     _add_device(pe)
 
-    pt = sub.add_parser("tsne", help="latent-space t-SNE plot (ROADMAP A9: not ported)")
+    pt = sub.add_parser("tsne", help="latent-space t-SNE plot (Plot_Tsne_Notebook)")
     _add_analysis_common(pt)
     pt.add_argument("--which", choices=("encoder", "penultimate", "logits"), default="encoder")
     pt.add_argument("--out", default="tsne_plots/tsne.png")
     pt.add_argument("--n-samples", type=int, default=20000)
-    pt.add_argument("--first-image", action="store_true")
+    pt.add_argument("--first-image", action="store_true",
+                    help="use the first val image instead of the notebook's 17-unique-labels "
+                         "diversity pick")
 
-    pp = sub.add_parser("predict", help="colorized prediction maps (ROADMAP A9: not ported)")
+    pp = sub.add_parser("predict", help="write colorized prediction maps")
     _add_analysis_common(pp)
     pp.add_argument("--out-dir", default="predictions")
     pp.add_argument("--max-images", type=int, default=None)
@@ -219,31 +227,45 @@ def build_parser() -> argparse.ArgumentParser:
     pw.add_argument("--max-images", type=int, default=None)
     _add_data_root(pw)
 
-    px = sub.add_parser("export", help="per-head serving artifacts (ROADMAP A9: not ported)")
-    px.add_argument("ckpt")
+    px = sub.add_parser("export", help="per-head self-contained serving artifacts "
+                        "(torch.export; weights in the file, no model code needed to serve)")
+    px.add_argument("ckpt", help=".pth.tar or a checkpoint directory")
     px.add_argument("out_dir")
     px.add_argument("--kind", choices=_KINDS, default="rap")
-    px.add_argument("--num-classes", type=int, nargs="+", default=None)
-    px.add_argument("--tasks", type=int, nargs="+", default=None)
-    px.add_argument("--batch-size", type=int, default=1)
+    px.add_argument("--num-classes", type=int, nargs="+", default=None,
+                    help="per-head class counts (default: read from the checkpoint's heads)")
+    px.add_argument("--tasks", type=int, nargs="+", default=None,
+                    help="head indices to export (default: all)")
+    px.add_argument("--batch-size", type=int, default=1,
+                    help="0 exports a symbolic batch dimension")
     px.add_argument("--height", type=int, default=512)
     px.add_argument("--width", type=int, default=1024)
-    px.add_argument("--output", choices=("logits", "labels"), default="logits")
+    px.add_argument("--output", choices=("logits", "labels"), default="logits",
+                    help="'labels' bakes the argmax in (int32 maps)")
     px.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
-    px.add_argument("--platforms", nargs="+", default=["cpu", "tpu"])
+    px.add_argument("--platforms", nargs="+", choices=DEVICES, default=["cuda"],
+                    help="one artifact per head per platform, traced on that device")
 
-    py = sub.add_parser("parity-check", help="every recorded reference setting from a "
-                        "checkpoint directory (ROADMAP A9: not ported)")
-    py.add_argument("ckpt_root")
+    py = sub.add_parser("parity-check", help="evaluate ALL recorded reference settings "
+                        "(expected_miou.json) from a checkpoint directory and emit one "
+                        "pass/fail JSON report")
+    py.add_argument("ckpt_root", help="directory holding the checkpoints (optionally with a "
+                    "parity_manifest.json)")
     _add_data_root(py)
-    py.add_argument("--settings", nargs="+", default=None)
-    py.add_argument("--tol", type=float, default=0.5)
-    py.add_argument("--out", default=None)
-    py.add_argument("--synthetic", action="store_true")
+    py.add_argument("--settings", nargs="+", default=None,
+                    help="subset of settings (default: all nine)")
+    py.add_argument("--tol", type=float, default=0.5,
+                    help="per-domain tolerance in mIoU points (default 0.5)")
+    py.add_argument("--out", default=None, help="also write the report JSON here")
+    py.add_argument("--synthetic", action="store_true",
+                    help="dry-run the full command path on synthetic sources (every gate "
+                         "then fails; for testing the runbook)")
     py.add_argument("--batch-size", type=int, default=1)
     py.add_argument("--height", type=int, default=512)
     py.add_argument("--width", type=int, default=1024)
-    py.add_argument("--f64", action="store_true")
+    py.add_argument("--f64", action="store_true",
+                    help="float64 forward on the CPU's plain path (needs --device cpu)")
+    _add_device(py)
 
     pc = sub.add_parser("convert", help="a .pth.tar -> a checkpoint directory of this "
                                         "package, or back with --export")
@@ -288,6 +310,75 @@ def _eval(parser, args) -> None:
         print(report)
         if not ok:
             raise SystemExit(1)
+
+
+def _parity_check(parser, args) -> None:
+    from .parity import run_parity_check
+
+    if args.f64 and args.device != "cpu":
+        parser.error("parity-check --f64 runs on the CPU's plain path: add --device cpu")
+    report = run_parity_check(
+        args.ckpt_root, data_roots=dict(args.data_root), settings=args.settings,
+        tolerance_points=args.tol, synthetic=args.synthetic, batch_size=args.batch_size,
+        height=args.height, width=args.width,
+        compute_dtype="float64" if args.f64 else "float32", device=args.device,
+    )
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+    print(json.dumps(report))
+    if not report["ok"]:
+        raise SystemExit(1)
+
+
+def _analysis(args) -> None:
+    """tsne / predict: head --task of a checkpoint over --dataset (or synthetic data)."""
+    from .analysis.names import NAMES_BY_DATASET
+    from .data.loader import SyntheticSource
+    from .data.sources import make_source
+    from .evaluate import infer_num_classes, load_checkpoint
+
+    roots = dict(args.data_root)
+    if args.num_classes is None:
+        args.num_classes = infer_num_classes(args.ckpt)
+        print(f"inferred num_classes {args.num_classes} from {args.ckpt}")
+    nc = args.num_classes[args.task]
+    model = load_checkpoint(args.ckpt, kind=args.kind, num_classes=args.num_classes,
+                            device=args.device)
+    if args.synthetic or args.dataset not in roots:
+        source = SyntheticSource(nc, n=8, height=args.height, width=args.width)
+    else:
+        source = make_source(args.dataset, roots[args.dataset], args.subset)
+    kw = dict(task=args.task, num_classes=nc, height=args.height, width=args.width,
+              device=args.device)
+    if args.cmd == "tsne":
+        from .analysis.tsne import run_tsne
+
+        out = run_tsne(
+            model, source, out_path=args.out, which=args.which, n_samples=args.n_samples,
+            class_names=NAMES_BY_DATASET.get(args.dataset, NAMES_BY_DATASET["cityscapes"]),
+            select=(lambda labels, n: True) if args.first_image else None, **kw,
+        )
+        print(json.dumps({"image": out["image"], "plot": out["plot"],
+                          "n_points": int(len(out["labels"]))}))
+    else:
+        from .analysis.predict import save_predictions
+
+        written = save_predictions(model, source, out_dir=args.out_dir,
+                                   max_images=args.max_images, save_gt=args.save_gt, **kw)
+        print(json.dumps({"written": len(written), "out_dir": args.out_dir}))
+
+
+def _export(args) -> None:
+    from .serving import export_checkpoint
+
+    meta = export_checkpoint(
+        args.ckpt, kind=args.kind, num_classes=args.num_classes, out_dir=args.out_dir,
+        tasks=args.tasks, height=args.height, width=args.width,
+        batch_size=args.batch_size or None, output=args.output, compute_dtype=args.dtype,
+        platforms=tuple(args.platforms),
+    )
+    print(json.dumps(meta))
 
 
 def _weights(parser, args) -> None:
@@ -350,8 +441,18 @@ def main(argv=None):
         raise SystemExit(f"{args.cmd}: not ported to this package yet (ROADMAP "
                          f"{_WAITS[args.cmd]}); the JAX package's `python -m mdilss_tpu "
                          f"{args.cmd}` runs it")
+    if getattr(args, "kind", None) in C.ABLATION_MODELS:
+        raise SystemExit(f"{args.cmd} --kind {args.kind}: the ablation models are not ported "
+                         f"to this package yet (ROADMAP A8b); the JAX package's `python -m "
+                         f"mdilss_tpu {args.cmd}` runs them")
     if args.cmd == "eval":
         return _eval(parser, args)
+    if args.cmd == "parity-check":
+        return _parity_check(parser, args)
+    if args.cmd in ("tsne", "predict"):
+        return _analysis(args)
+    if args.cmd == "export":
+        return _export(args)
     if args.cmd == "weights":
         return _weights(parser, args)
     if args.cmd == "convert":

@@ -20,6 +20,7 @@ import torch
 from . import resolve_device
 from .analysis.names import NAMES_BY_DATASET
 from .ckpt import torch_io
+from .ckpt.surgery import keep_tasks
 from .data.loader import Loader, SyntheticSource, device_prefetch
 from .data.sources import make_source
 from .data.transforms import prepare_batch
@@ -27,6 +28,7 @@ from .metrics import IoUEvaluator
 from .config import ABLATION_MODELS
 from .models import ERFNetMultiHead, ERFNetRAP
 from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
+from .ops.precision import no_tf32
 from .utils.logging import getColorEntry
 
 KINDS = ("rap", *MULTIHEAD_KINDS)
@@ -90,15 +92,20 @@ def load_checkpoint(path: str, *, kind: str, num_classes: Sequence[int] | None =
         model = ERFNetRAP(list(num_classes), len(num_classes), device="cpu")
     else:
         model = ERFNetMultiHead(list(num_classes), kind=kind, device="cpu")
-    model.load_state_dict(torch_io.load_state(path, kind), strict=True)
+    sd = torch_io.load_state(path, kind)
+    if kind in ("rap", "multi_task"):
+        sd = keep_tasks(sd, len(num_classes))
+    model.load_state_dict(sd, strict=True)
     return model.to(resolve_device(device))
 
 
+@no_tf32()
 def evaluate_domain(model, task: int, num_classes: int, batches):
     """(mIoU, per-class IoU) of head `task` over `batches`, any iterable of
     (images uint8 [N,H,W,3], labels uint8 [N,H,W], valid bool [N]) arrays or
     tensors, as a Loader or `device_prefetch` yields them; invalid (padding)
-    images count nowhere. Runs in the model's floating type on its device."""
+    images count nowhere. Runs in the model's floating type on its device
+    (float32 with TF32 off)."""
     p = next(model.parameters())
     ev = IoUEvaluator(num_classes, num_classes - 1)
     for imgs, lbls, valid in batches:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from .erfnet_rap import grad_off, head_output
 from .topology import Decoder, Encoder
 
 KINDS = ("multi_task", "erfnet", "ftp1", "ftp2")
@@ -70,17 +71,19 @@ class ERFNetMultiHead(nn.Module):
         return list(self.decoder) if self.kind == "multi_task" else [
             getattr(self, name) for name in self.head_prefixes]
 
-    def forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None = None) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None = None,
+                return_features: bool = False):
         """x [N, H, W, 3] -> logits [N, H, W, num_classes[task]] in x's type;
-        `drop_masks` as ERFNetRAP.forward's (training mode only)."""
+        `drop_masks` and `return_features` as ERFNetRAP.forward's."""
         heads = self.heads
         if not 0 <= task < len(heads):
             raise IndexError(f"task {task} out of range for {len(heads)} heads")
         if self.training:
-            return self._forward(x_nhwc, heads[task], drop_masks)
-        with torch.no_grad():
-            return self._forward(x_nhwc, heads[task], None)
+            return self._forward(x_nhwc, heads[task], drop_masks, return_features)
+        with grad_off():
+            return self._forward(x_nhwc, heads[task], None, return_features)
 
-    def _forward(self, x_nhwc: torch.Tensor, head: nn.Module, drop_masks: dict | None):
+    def _forward(self, x_nhwc: torch.Tensor, head: nn.Module, drop_masks: dict | None,
+                 return_features: bool):
         x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return head(self.encoder(x, None, drop_masks)).permute(0, 2, 3, 1)
+        return head_output(head, self.encoder(x, None, drop_masks), return_features)

@@ -10,6 +10,7 @@ place, and dropout from host keep-masks.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -35,19 +36,40 @@ class ERFNetRAP(nn.Module):
         self.to(dev)
         self.eval()
 
-    def forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None = None) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None = None,
+                return_features: bool = False):
         """x [N, H, W, 3] -> logits [N, H, W, num_classes[task]] in x's type
         (H and W multiples of 8). `drop_masks` (training mode only):
         `topology.make_dropout_masks` output, or None for no dropout, as
-        `erfnet_rap.apply(training=True, rng=None)`."""
+        `erfnet_rap.apply(training=True, rng=None)`. `return_features=True`
+        returns (logits, {"encoder": [N, H/8, W/8, 128], "penultimate":
+        [N, H/2, W/2, 16]}), NHWC, as `erfnet_rap.apply(return_features=True)`
+        (in eval mode the encoder features are the last nb1d kernel's output)."""
         if not 0 <= task < len(self.decoder):
             raise IndexError(f"task {task} out of range for {len(self.decoder)} heads")
         if self.training:
-            return self._forward(x_nhwc, task, drop_masks)
-        with torch.no_grad():
-            return self._forward(x_nhwc, task, None)
+            return self._forward(x_nhwc, task, drop_masks, return_features)
+        with grad_off():
+            return self._forward(x_nhwc, task, None, return_features)
 
-    def _forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None) -> torch.Tensor:
+    def _forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None,
+                 return_features: bool):
         x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         feats = self.encoder(x, task, drop_masks)
-        return self.decoder[task](feats).permute(0, 2, 3, 1)
+        return head_output(self.decoder[task], feats, return_features)
+
+
+def grad_off():
+    """no_grad, or nothing when grad is already off (torch.export records every
+    grad-mode switch, and a head is exported with grad off)."""
+    return torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext()
+
+
+def head_output(head: nn.Module, feats: torch.Tensor, return_features: bool):
+    """A decoder head on the encoder's features -> NHWC logits, or (logits,
+    {"encoder", "penultimate"} NHWC) with `return_features`."""
+    if not return_features:
+        return head(feats).permute(0, 2, 3, 1)
+    logits, penultimate = head(feats, return_penultimate=True)
+    nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+    return nhwc(logits), {"encoder": nhwc(feats), "penultimate": nhwc(penultimate)}

@@ -119,10 +119,14 @@ class Decoder(nn.Module):
         ])
         self.output_conv = nn.ConvTranspose2d(16, num_classes, 2, stride=2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_penultimate: bool = False):
+        """Logits [N, num_classes, 2H', 2W']; with `return_penultimate`, also the
+        16-channel features entering `output_conv` (mdilss_tpu/models/topology.py
+        `decoder_apply(return_penultimate=True)`)."""
         for layer in self.layers:
             x = layer(x)
         dt = x.dtype
-        return nn.functional.conv_transpose2d(
+        out = nn.functional.conv_transpose2d(
             x, self.output_conv.weight.to(dt), self.output_conv.bias.to(dt), stride=2
         )
+        return (out, x) if return_penultimate else out

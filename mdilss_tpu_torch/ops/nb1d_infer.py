@@ -10,9 +10,10 @@ runs on CUDA tensors as two launches of a hand-written conv-pair kernel in
 as 3xTF32 `mma.sync` on the training pair's mainloop (`csrc/tf32_pair.cuh`),
 bfloat16 with bf16 `mma.sync`. On CPU tensors it
 runs as `nb1d_infer_plain`, an F.conv2d chain computing the same function.
-The dispatcher picks by the tensor's device only; a CUDA tensor the kernel
-does not take raises, it never falls back to the plain version or to the
-other kernel.
+The block is the torch.library custom op `mdilss::nb1d_infer` (below), whose
+dispatcher picks by the tensors' device only; a CUDA tensor the kernel does
+not take raises, it never falls back to the plain version or to the other
+kernel.
 
 `LAUNCHES` counts kernel launches (two per block).
 """
@@ -70,12 +71,13 @@ def unstack_taps(ws: torch.Tensor, row: bool) -> torch.Tensor:
     return w.unsqueeze(-1) if row else w.unsqueeze(2)
 
 
-@torch.no_grad()
 def prepare_operands(block, task: int | None, dtype) -> Nb1dOperands:
     """Operands of a block module in the reference grammar: conv3x1_1,
     conv1x3_1, conv3x1_2, conv1x3_2 plus either bn1/bn2 (plain) or
     parallel_conv_{1,2}[task] and bns_{1,2}[task] (RAP), as
-    mdilss_tpu/ops/pallas/nb1d.py:155-184 selects them."""
+    mdilss_tpu/ops/pallas/nb1d.py:155-184 selects them; detached. (No grad-mode
+    switch of its own: the eval forward runs with grad off, and torch.export
+    records every switch.)"""
     rap = hasattr(block, "parallel_conv_1")
     if rap:
         if task is None:
@@ -134,14 +136,45 @@ def nb1d_infer_plain(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.
 def nb1d_infer(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.Tensor:
     """The block on x [N,C,H,W]: CPU tensor -> plain version; CUDA tensor ->
     the kernel of its type (channels_last, float32 or bfloat16, C in
-    16/64/128) or raise."""
-    if x.device.type == "cpu":
-        return nb1d_infer_plain(x, ops, dilated)
-    if x.device.type != "cuda":
+    16/64/128) or raise. Goes through the custom op `mdilss::nb1d_infer`, so
+    eager forwards and programs exported with torch.export take one route.
+    Another device raises (the op's fake implementation would serve a meta
+    tensor)."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nb1d_infer: unsupported device {x.device}")
+    return torch.ops.mdilss.nb1d_infer(x, *ops, dilated)
+
+
+# The block as a torch.library custom op: its CPU implementation is the plain
+# version, its CUDA one the kernel (two launches), and its fake one the output's
+# shape and strides, which are the kernel's (`_launch_pair` allocates
+# channels_last), so torch.export traces a forward without running either.
+# The operands come one by one; a plain block's RAP matrices are None.
+_SCHEMA = ("(Tensor x, Tensor w31a, Tensor b31a, Tensor w13a, Tensor? rap1, Tensor a1, "
+           "Tensor b1, Tensor w31b, Tensor b31b, Tensor w13b, Tensor? rap2, Tensor a2, "
+           "Tensor b2, int dilated) -> Tensor")
+
+
+@torch.library.custom_op("mdilss::nb1d_infer", mutates_args=(), device_types="cpu",
+                         schema=_SCHEMA)
+def _nb1d_infer_cpu(x, w31a, b31a, w13a, rap1, a1, b1, w31b, b31b, w13b, rap2, a2, b2,
+                    dilated):
+    ops = Nb1dOperands(w31a, b31a, w13a, rap1, a1, b1, w31b, b31b, w13b, rap2, a2, b2)
+    return nb1d_infer_plain(x, ops, dilated).contiguous(memory_format=torch.channels_last)
+
+
+@_nb1d_infer_cpu.register_kernel("cuda")
+def _nb1d_infer_cuda(x, w31a, b31a, w13a, rap1, a1, b1, w31b, b31b, w13b, rap2, a2, b2,
+                     dilated):
+    ops = Nb1dOperands(w31a, b31a, w13a, rap1, a1, b1, w31b, b31b, w13b, rap2, a2, b2)
     _check(x, ops, dilated)
-    m = _launch_pair(x, ops.w31a, ops.b31a, ops.w13a, ops.rap1, ops.a1, ops.b1, None, 1)
-    return _launch_pair(m, ops.w31b, ops.b31b, ops.w13b, ops.rap2, ops.a2, ops.b2, x, dilated)
+    m = _launch_pair(x, w31a, b31a, w13a, rap1, a1, b1, None, 1)
+    return _launch_pair(m, w31b, b31b, w13b, rap2, a2, b2, x, dilated)
+
+
+@_nb1d_infer_cpu.register_fake
+def _nb1d_infer_fake(x, *operands_and_dilation):
+    return torch.empty_like(x, memory_format=torch.channels_last)
 
 
 def _check(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> None:

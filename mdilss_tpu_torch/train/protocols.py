@@ -4,7 +4,8 @@ previous step's checkpoint (port of mdilss_tpu/train/protocols.py).
   step1       torch's initialisation and the ImageNet-pretrained encoder,
               `module.features` -> `module`, strict=False
               (train_RAPFT_step1.py:482-502)
-  step2/3     the previous step's checkpoint: the teacher loads it verbatim;
+  step2/3     the previous step's checkpoint (its first t tasks): the teacher
+              loads them verbatim;
               the student is `extend_for_new_task` of it (the new task's slots
               seeded from task t-1, the new decoder a copy without
               output_conv; train_new_task_step2.py:480-532)
@@ -25,7 +26,7 @@ import os
 import torch
 
 from ..ckpt import torch_io
-from ..ckpt.surgery import extend_for_new_task, load_imagenet_encoder
+from ..ckpt.surgery import extend_for_new_task, keep_tasks, load_imagenet_encoder
 from ..config import TrainConfig
 from ..models import ERFNetRAP
 from .loop import MULTIHEAD_MODELS, Trainer, init_model
@@ -66,8 +67,8 @@ def _build_step1(cfg: TrainConfig, device) -> Trainer:
 def _build_incremental(cfg: TrainConfig, device) -> Trainer:
     nb_prev = len(cfg.num_classes) - 1
     prev_nc = list(cfg.num_classes[:nb_prev])
-    if cfg.state:
-        prev_sd = torch_io.load_state(cfg.state, "rap")
+    if cfg.state:  # its first nb_prev tasks, as the JAX package converts nb_tasks of a file
+        prev_sd = keep_tasks(torch_io.load_state(cfg.state, "rap"), nb_prev)
     else:  # smoke runs without a previous checkpoint: torch's init, seed + 1
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed + 1)

@@ -27,7 +27,9 @@ running statistics, which the JAX package discards) and its mode is
 restored. The previous-task forwards are not recomputed in the backward (the
 JAX package's `remat_prev` saves memory on the TPU; a recompute here would
 update the BN running statistics twice). `iou_train` adds the batch's
-confusion matrix ("cm") from the current-task logits of the step.
+confusion matrix ("cm") from the current-task logits of the step. Every
+step runs its float32 convs and matmuls with TF32 off (`ops.precision.no_tf32`),
+whatever the process's flags are.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from torch import nn
 
 from ..losses import kld_faithful, weighted_cross_entropy
 from ..metrics import confusion_matrix
+from ..ops.precision import no_tf32
 from . import optim
 from .optim import AdamState
 
@@ -172,6 +175,7 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
     tensors on the device."""
     weight = _class_weight(class_weight)
 
+    @no_tf32()
     def step(ts: TrainState, images, labels, masks, epoch: int):
         ce, logits, grads = ce_loss_and_grads(ts.model, images, labels, masks, task=task,
                                               class_weight=weight)
@@ -196,6 +200,7 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
     device (reading them waits for the step)."""
     weight = _class_weight(class_weight)
 
+    @no_tf32()
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
         total, ce, kld, grads, logits = distill_loss_and_grads(
             ts.model, teacher, images, labels, masks, current_task=current_task,
@@ -240,6 +245,7 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     n_prev = len(prev_tasks)
     n_masks = 1 + n_prev * (2 if teacher_dropout else 1)
 
+    @no_tf32()
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
         mask_list = _mask_list(masks, n_masks, need_list=teacher_dropout)
         lr_scale = optim.poly_lr_factor(epoch, num_epochs)
@@ -273,6 +279,7 @@ def make_eval_step(*, task: int, class_weight, num_classes: int):
     prepare_batch`: the void label as the last class, whose weight is 0)."""
     weight = _class_weight(class_weight)
 
+    @no_tf32()
     def step(model: nn.Module, images, labels):
         model.eval()
         logits = model(images, task)

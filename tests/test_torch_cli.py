@@ -3,9 +3,10 @@ each case of tests/test_cli_surface.py that this slice holds, on the CPU at
 its TINY size (--device cpu): the chain through the CLI, eval and its
 --expect gate, the convert round trip, the baselines, the reversed ft chain,
 weights against the JAX package's, the pipeline; plus what the port adds:
-checked --data-root values, the subcommands that wait (A9, A2) and the
-ablation models (A8b), and every option of the JAX package's subcommands in
-this slice present in the port's (from both --help texts)."""
+predict, tsne, export and parity-check on the chain's checkpoints; checked
+--data-root values, what waits (bench: A2; the ablation models: A8b), and
+every option of the JAX package's subcommands present in the port's (from
+both --help texts)."""
 import json
 import os
 import re
@@ -159,6 +160,76 @@ def test_cli_pipeline_two_stages(tmp_path, capsys):
     assert torch_io.latest_epoch(str(tmp_path / "pipe" / "step2" / "best")) == 1
 
 
+def test_cli_predict_and_tsne(chain_dir, tmp_path, capsys):
+    """`predict` and `tsne` of step3/best's head 2 (IDD) on synthetic images."""
+    best = str(chain_dir / "step3" / "best")
+    res = _run(capsys, ["predict", best, "--task", "2", "--dataset", "IDD", "--out-dir",
+                        str(tmp_path / "pred"), "--max-images", "3", "--save-gt"] + EVAL)
+    assert res == {"written": 6, "out_dir": str(tmp_path / "pred")}
+    names = sorted(os.listdir(tmp_path / "pred"))
+    assert names[:2] == ["synthetic27_00000_gt.png", "synthetic27_00000_pred.png"]
+    assert np.asarray(Image.open(tmp_path / "pred" / names[1])).shape == (32, 64, 3)
+    pytest.importorskip("sklearn")
+    pytest.importorskip("matplotlib")
+    res = _run(capsys, ["tsne", best, "--task", "2", "--which", "penultimate", "--first-image",
+                        "--n-samples", "50", "--out", str(tmp_path / "t" / "tsne.png")] + EVAL)
+    assert res == {"image": "index0", "plot": str(tmp_path / "t" / "tsne.png"), "n_points": 50}
+    assert os.path.getsize(tmp_path / "t" / "tsne.png") > 0
+
+
+def test_cli_export_and_serve(chain_dir, tmp_path, capsys):
+    """`export` of step3/best's head 2 for the CPU with labels baked in: the
+    artifact serves the in-process forward's labels."""
+    from mdilss_tpu_torch import serving
+    from mdilss_tpu_torch.evaluate import load_checkpoint
+
+    best, out = str(chain_dir / "step3" / "best"), str(tmp_path / "serving")
+    meta = _run(capsys, ["export", best, out, "--tasks", "2", "--output", "labels", "--dtype",
+                         "float32", "--height", "32", "--width", "64", "--platforms", "cpu"])
+    assert meta["tasks"] == [2] and meta["num_classes"] == [20, 20, 27]
+    assert meta["platforms"] == ["cpu"] and meta["batch_size"] == 1
+    assert sorted(os.listdir(out)) == ["head2.cpu.pt2", "meta.json"]
+    x = [np.random.default_rng(0).integers(0, 256, (1, 32, 64, 3), np.uint8)]
+    got, = serving.serve_batches(out, 2, x, device="cpu")
+    fn = serving.build_infer_fn(load_checkpoint(best, kind="rap", device="cpu"), 2,
+                                output="labels", compute_dtype=torch.float32)
+    want, = serving.serve_fn_batches(fn, x, 32, 64)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(SystemExit) as e:
+        cli_main(["export", best, out, "--platforms", "tpu"])
+    assert e.value.code == 2
+
+
+def test_cli_parity_check(chain_dir, tmp_path, capsys):
+    """`parity-check --synthetic` over the chain's checkpoint directories, named
+    by a manifest: the three mapped settings fail their gates (random data),
+    the other six miss their checkpoints, the report is written and the exit
+    code is 1; --f64 needs --device cpu."""
+    manifest = {"step1": "step1/best", "step2_CS_BDD": "step2/best",
+                "step3_CS_BDD_IDD": "step3/best"}
+    with open(chain_dir / "parity_manifest.json", "w") as f:
+        json.dump(manifest, f)
+    try:
+        with pytest.raises(SystemExit) as e:
+            cli_main(["parity-check", str(chain_dir), "--out", str(tmp_path / "report.json")]
+                     + EVAL)
+    finally:
+        os.unlink(chain_dir / "parity_manifest.json")
+    assert e.value.code == 1
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    report = json.loads((tmp_path / "report.json").read_text())
+    assert printed == report and report["ok"] is False
+    assert report["summary"] == {"pass": 0, "fail": 3, "missing_checkpoint": 6, "error": 0,
+                                 "total": 9}
+    for setting, rel in manifest.items():
+        entry = report["settings"][setting]
+        assert entry["status"] == "fail" and entry["checkpoints"] == [str(chain_dir / rel)]
+        assert set(entry["results"]) == set(entry["expected"])
+    with pytest.raises(SystemExit) as e:
+        cli_main(["parity-check", str(chain_dir), "--f64"])
+    assert e.value.code == 2
+
+
 def test_cli_rejects_unknown_command():
     with pytest.raises(SystemExit):
         cli_main(["frobnicate"])
@@ -177,8 +248,10 @@ def test_cli_rejects_bad_data_root(value, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["tsne", "ck"], "A9"), (["predict", "ck"], "A9"), (["export", "ck", "out"], "A9"),
-    (["parity-check", "root"], "A9"), (["bench", "--steps", "2"], "A2"),
+    (["tsne", "ck", "--kind", "erfnet_bn"], "A8b"),
+    (["predict", "ck", "--kind", "erfnet_onlyRAP"], "A8b"),
+    (["export", "ck", "out", "--kind", "erfnet_RA_series"], "A8b"),
+    (["eval", "ck", "--kind", "erfnet_RCM"], "A8b"), (["bench", "--steps", "2"], "A2"),
 ])
 def test_cli_waiting_subcommands_exit(argv, item):
     with pytest.raises(SystemExit) as e:
@@ -207,7 +280,8 @@ def _options(main, cmd: str, capsys) -> set[str]:
 
 
 @pytest.mark.parametrize("cmd", ["step1", "step2", "step3", "multitask", "single", "ft",
-                                 "pipeline", "eval", "convert", "weights"])
+                                 "pipeline", "eval", "convert", "weights", "tsne", "predict",
+                                 "export", "parity-check"])
 def test_cli_has_every_jax_option(cmd, capsys):
     from mdilss_tpu.cli import main as jax_cli_main
 

@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card (marker `cuda`; skips without one): the nb1d inference kernel (K1), the
 training conv pairs (K2 fwd_pair, K3 bwd_pair) and the training block built on
-them, and the launches of one train step. Run on a machine with an H100:
+them, and the launches of one train step; the steps, the data path and the
+trainer on the card; and (slice 10) the fp32 steps with TF32 at PyTorch's
+defaults, an exported head running K1, and extract_features. Run on a
+machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -746,3 +749,104 @@ def test_step2_build_trainer_fit_on_the_card_equals_the_cpu(cuda, tmp_path):
             assert torch.equal(sg[k], loaded[k]) and torch.equal(sc[k], loaded[k]), k
     for k, v in loaded.items():
         assert torch.equal(tg[k], v) and torch.equal(tc[k], v), k
+
+
+# ---- slice 10: TF32 at PyTorch's defaults, exported heads, extract_features ------------------
+
+def test_fp32_steps_ignore_the_global_tf32_flags(cuda):
+    """C4: with the global flags at PyTorch's defaults (cuDNN's fp32 convs in
+    TF32), one step-2 step and one eval step at 2x128x256 on the card equal
+    the CPU's to 1e-5 (loss, the student's running statistics, the eval
+    loss), as chip_smoke.py phase 11 holds them: the package's steps turn
+    TF32 off themselves, and put the flag back after."""
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    torch.backends.cudnn.allow_tf32 = True  # the fixture restores its own setting after
+    torch.manual_seed(3)
+    student, teacher = ERFNetRAP([20, 20], 2, device="cpu"), ERFNetRAP([20], 1, device="cpu")
+    _randomize_bn(student, torch.Generator().manual_seed(4))
+    _randomize_bn(teacher, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((2, 128, 256, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 20, (2, 128, 256)))
+    masks = [make_dropout_masks(rng, 2) for _ in range(2)]
+    out = {}
+    for dev in ("cpu", cuda):
+        s, t = ERFNetRAP([20, 20], 2, device=dev), ERFNetRAP([20], 1, device=dev)
+        s.load_state_dict(student.state_dict())
+        t.load_state_dict(teacher.state_dict())
+        lr = rap_lr_tree(s, current_task=1, shared_lr=5e-6, ds_lr=5e-4)
+        step = steps.make_distill_step(current_task=1, prev_tasks=(0,),
+                                       class_weight=np.ones(20, np.float32), lr_tree=lr,
+                                       num_epochs=150)
+        _, m = step(steps.init_train_state(s), t, x.to(dev), y.to(dev), masks, 1)
+        ev = steps.make_eval_step(task=0, class_weight=np.ones(20, np.float32), num_classes=20)
+        loss, _ = ev(t, x.to(dev), y.to(dev))
+        running = torch.cat([b.reshape(-1).cpu() for k, b in s.named_buffers() if "running" in k])
+        out[torch.device(dev).type] = (float(m["loss"]), running, float(loss))
+    assert torch.backends.cudnn.allow_tf32
+    (lg, rg, eg), (lc, rc, ec) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(eg - ec) <= 1e-5 * abs(ec), (lg, lc, eg, ec)
+    assert _rel(rg, rc) <= 1e-5
+
+
+def test_exported_head_runs_the_kernel(cuda, tmp_path):
+    """export_checkpoint for the card and the CPU: the card's artifact runs
+    exactly 34 K1 launches per forward (the custom op, not a decomposition)
+    and equals the in-process forward (1e-6 rel L2 in fp32, labels equal);
+    the CPU's artifact serves on the CPU; a symbolic batch serves 1 and 3."""
+    from mdilss_tpu_torch import serving
+    from mdilss_tpu_torch.ckpt import torch_io
+    from mdilss_tpu_torch.train import steps
+
+    torch.manual_seed(9)
+    model = ERFNetRAP([5, 7], 2, device="cpu")
+    _randomize_bn(model, torch.Generator().manual_seed(10))
+    ckpt = str(tmp_path / "best")
+    torch_io.save(ckpt, 1, steps.init_train_state(model), best_acc=0.0,
+                  aug_state=torch.Generator().get_state())
+    x = torch.rand(3, 64, 128, 3)
+    for output, batch in (("logits", None), ("labels", 1)):
+        out = str(tmp_path / output)
+        serving.export_checkpoint(ckpt, kind="rap", out_dir=out, tasks=[1], height=64, width=128,
+                                  batch_size=batch, output=output, compute_dtype="float32",
+                                  platforms=("cuda", "cpu"))
+        fn = serving.load_head(out, 1)
+        want = serving.build_infer_fn(model.to(cuda), 1, output=output,
+                                      compute_dtype=torch.float32)
+        for n in ((1, 3) if batch is None else (1,)):
+            before = K.LAUNCHES
+            got = fn(x[:n].to(cuda))
+            torch.cuda.synchronize()
+            assert K.LAUNCHES - before == 17 * K.LAUNCHES_PER_BLOCK
+            ref = want(x[:n])
+            if output == "logits":
+                assert _rel(got, ref) <= 1e-6
+            else:
+                assert torch.equal(got, ref)
+        cpu = serving.load_head(out, 1, device="cpu")(x[:1])
+        assert cpu.device.type == "cpu" and cpu.shape == got[:1].shape
+
+
+def test_extract_features_card_equals_cpu(cuda):
+    """tsne's device half: the encoder and penultimate features of the first
+    image on the card against the CPU's plain path, fp32, 1e-5 rel L2."""
+    from mdilss_tpu_torch.analysis.tsne import extract_features
+    from mdilss_tpu_torch.data.loader import SyntheticSource
+
+    torch.manual_seed(11)
+    model = ERFNetRAP([5, 7], 2, device="cpu")
+    _randomize_bn(model, torch.Generator().manual_seed(12))
+    source = SyntheticSource(7, n=2, height=128, width=256)
+    for which in ("encoder", "penultimate"):
+        kw = dict(task=1, num_classes=7, which=which, height=128, width=256,
+                  select=lambda labels, n: True)
+        want, _, _ = extract_features(model, source, device="cpu", **kw)
+        before = K.LAUNCHES
+        got, _, name = extract_features(model, source, device=cuda, **kw)
+        assert K.LAUNCHES - before == 17 * K.LAUNCHES_PER_BLOCK and name == "index0"
+        model.to("cpu")
+        assert got.shape == want.shape
+        assert _rel(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-5

@@ -104,6 +104,43 @@ def test_infer_num_classes_on_both_checkpoint_kinds(setup, tmp_path):
         setup["ckpt"], **kw)
 
 
+@pytest.mark.parametrize("kind", ["rap", "multi_task"])
+def test_more_tasks_than_asked_for_load_as_jax(setup, kind):
+    """A 3-task file evaluated with 2 heads: the port loads its first 2 tasks
+    (the encoder slots and heads of task 2 dropped), bit for bit JAX's
+    `load_checkpoint(num_classes=[20, 20])`, and the float64 per-class IoU
+    equals JAX's (Cityscapes from the PNG tree, BDD synthetic)."""
+    from mdilss_tpu.models import erfnet_multihead as jmh
+
+    rng = np.random.default_rng(9)
+    if kind == "rap":
+        params, bn = randomize_bn(*erfnet_rap.init(jax.random.key(9), [20, 20, 27], 3), rng)
+    else:
+        params, bn = randomize_bn(*jmh.init(jax.random.key(9), [20, 20, 27]), rng)
+    sd = export_state_dict(params, bn, kind=kind, prefix="module.")
+    ckpt = str(setup["tmp"] / f"three_{kind}.pth.tar")
+    torch.save({"epoch": 1, "arch": kind, "best_acc": 0.5,
+                "state_dict": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}}, ckpt)
+    _, jp, jb = jevaluate.load_checkpoint(ckpt, kind=kind, num_classes=[20, 20])
+    want = export_state_dict(jp, jb, kind=kind)
+    got = evaluate.load_checkpoint(ckpt, kind=kind, num_classes=[20, 20], device="cpu")
+    got = got.state_dict()
+    assert set(got) == set(want) and not any(k.startswith("decoder.2.") for k in got)
+    for k, v in want.items():
+        assert torch.equal(got[k], torch.from_numpy(np.array(v)).to(got[k].dtype)), k
+    kw = dict(kind=kind, datasets=["cityscapes", "BDD"], num_classes=[20, 20],
+              data_roots=setup["roots"], height=H, width=W, compute_dtype="float64",
+              return_per_class=True)
+    try:
+        want_m, want_pc = jevaluate.evaluate_checkpoint(ckpt, **kw)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    got_m, got_pc = evaluate.evaluate_checkpoint(ckpt, device="cpu", **kw)
+    for d in ("cityscapes", "BDD"):
+        np.testing.assert_array_equal(got_pc[d], want_pc[d], err_msg=d)
+        assert got_m[d] == want_m[d]
+
+
 def test_load_pth_tar_strips_module_prefix(setup):
     sd = torch_io.load_pth_tar(setup["ckpt"])
     assert sd and not any(k.startswith("module.") for k in sd)

@@ -22,7 +22,7 @@ from mdilss_tpu.models import erfnet_rap
 from mdilss_tpu.train.protocols import build_trainer as jax_build_trainer
 from mdilss_tpu_torch import config as C
 from mdilss_tpu_torch.ckpt import torch_io
-from mdilss_tpu_torch.ckpt.surgery import extend_for_new_task
+from mdilss_tpu_torch.ckpt.surgery import extend_for_new_task, keep_tasks
 from mdilss_tpu_torch.models import ERFNetMultiHead, ERFNetRAP
 from mdilss_tpu_torch.train import steps
 from mdilss_tpu_torch.train.loop import init_model
@@ -107,6 +107,32 @@ def test_incremental_teacher_and_student_equal_jax(tmp_path, protocol, classes):
     # the teacher shares no tensor with the student
     ptrs = {t.data_ptr() for t in tr.ts.model.state_dict().values()}
     assert not ptrs & {t.data_ptr() for t in tr.teacher.state_dict().values()}
+
+
+@pytest.mark.parametrize("protocol,nb_prev", [("step2", 1), ("step3", 2)])
+def test_incremental_from_a_file_with_more_tasks_equals_jax(tmp_path, protocol, nb_prev):
+    """A 3-task file into step 2 (teacher 1 task) and step 3 (teacher 2 tasks):
+    the port keeps the file's first tasks, as JAX's `_load_params(kind="rap",
+    nb_tasks=...)` converts them; the teacher and the student equal JAX's
+    `build_trainer` on every key but the new head's drawn output_conv."""
+    from mdilss_tpu.train.protocols import _load_params
+
+    sd, path = _rap_file(tmp_path, [20, 20, 27], 4)
+    kw = dict(state=path, **TINY)
+    jtr = jax_build_trainer(getattr(JC, protocol)(savedir=str(tmp_path / "j"), **kw))
+    tr = build_trainer(getattr(C, protocol)(savedir=str(tmp_path / "p"), **kw), device="cpu")
+    prev_nc = tr.cfg.num_classes[:nb_prev]
+    jp, jb = _load_params(path, kind="rap", nb_tasks=nb_prev, num_classes=prev_nc)
+    want = {k: torch.from_numpy(np.array(v))
+            for k, v in export_state_dict(jp, jb, kind="rap").items()}
+    teacher = tr.teacher.state_dict()
+    assert set(teacher) == set(want) == {k for k in keep_tasks(sd, nb_prev)}
+    assert _equal_on(teacher, want, teacher) == _equal_on(teacher, _export(jtr.teacher, "rap"),
+                                                          teacher)
+    got, jwant = tr.ts.model.state_dict(), _export(jtr.ts, "rap")
+    head = f"decoder.{nb_prev}.output_conv."
+    assert set(got) == set(jwant)
+    assert _equal_on(got, jwant, [k for k in got if not k.startswith(head)]) == len(got) - 2
 
 
 @pytest.mark.parametrize("heads", [2, 3])

@@ -73,13 +73,13 @@ def test_serve_batches_uint8_matches_jax(models):
     jfn = jax.jit(jax_serving.build_infer_fn(erfnet_rap.apply, params, state, 0,
                                              output="labels", compute_dtype=jnp.float32))
     fn = serving.build_infer_fn(model, 0, output="labels", compute_dtype=torch.float32)
-    got = list(serving.serve_batches(fn, batches, H, W))
+    got = list(serving.serve_fn_batches(fn, batches, H, W))
     assert len(got) == 2
     for g, b in zip(got, batches):
         assert g.shape == (2, H, W) and g.dtype == np.int32
         np.testing.assert_array_equal(g, np.asarray(jfn(jnp.asarray(b, jnp.float32) / 255.0)))
     with pytest.raises(ValueError, match="serves"):
-        list(serving.serve_batches(fn, [np.zeros((1, 16, W, 3), np.uint8)], H, W))
+        list(serving.serve_fn_batches(fn, [np.zeros((1, 16, W, 3), np.uint8)], H, W))
 
 
 def test_iou_evaluator_matches_jax():
