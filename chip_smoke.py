@@ -129,11 +129,32 @@ Phases, each fatal on failure (non-zero exit):
      errs, 34 K1 per image per head, each per-domain mIoU equal to
      evaluate_checkpoint's; extract_features of head 2 (encoder and
      penultimate) on the card against the CPU's plain path within 1e-5 rel
-     L2.
+     L2;
+ 15. the four ablation models (erfnet_bn, erfnet_onlyRAP, erfnet_RA_series,
+     erfnet_RCM; their encoder blocks plain PyTorch on cuDNN, the kernels in
+     the decoders' 4 nb1d blocks), on phase 13's pretrained-encoder file: per
+     model, one step-2 step and one eval forward at 2x128x256 on the card and
+     on the CPU (random BN, random non-symmetric Wt for RCM; TF32 flags at
+     their defaults): loss, ce, kld, logits and running statistics within
+     1e-5; `step1 --pretrained-encoder` -> `step2` -> `step3 --model X`
+     through cli.main at 6x512x1024 (6 synthetic images per domain and
+     subset, one epoch), with the counts zeroed before each stage and exactly
+     its launches (CE 0/8/8, step 2 8/16/16, step 3 0/40/24 per step, 8 K1
+     per validation batch); after step 2 and step 3 every LR-0 parameter
+     bitwise as in the previous step's best, every current-task parameter
+     moved from its initial value, and onlyrap's shared BN moved; `eval
+     --kind erfnet_RCM` of its step3/best (8 K1 per batch) and `export` of
+     its head 2 (fp32 logits) served over two images, 8 K1 per forward,
+     within 1e-6 of the in-process forward; per model, a step-2 step and a
+     step-3 batch at 6x512x1024 timed (CUDA events), their exact launches,
+     peak memory, one profiled call (busy, idle share, K1/K2/K3 ms), and
+     `ms_by_family` of each step-2 step and of erfnet_RCM's step-3 batch.
+     Phase 13's tree is removed at its end.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven, K1's through the exported heads
-and parity-check too) and, as the last line,
+and parity-check too, and `launches_ablation_*` on phase 15's) and, as the
+last line,
 {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
 """
@@ -160,23 +181,25 @@ from mdilss_tpu_torch import config as PC
 from mdilss_tpu_torch import serving
 from mdilss_tpu_torch.parity import SETTINGS as PARITY_SETTINGS
 from mdilss_tpu_torch.ckpt import torch_io
-from mdilss_tpu_torch.ckpt.surgery import extend_for_new_task
+from mdilss_tpu_torch.ckpt.surgery import extend_for_new_task, keep_tasks
 from mdilss_tpu_torch.data.class_weights import CLASS_WEIGHTS
 from mdilss_tpu_torch.data.device_cache import DeviceCache, HybridCache
 from mdilss_tpu_torch.data.loader import Loader, SyntheticSource, device_prefetch
 from mdilss_tpu_torch.data.transforms import augment_batch, draw_augment, prepare_batch
 from mdilss_tpu_torch.evaluate import evaluate_checkpoint, load_checkpoint
 from mdilss_tpu_torch.metrics import confusion_matrix
-from mdilss_tpu_torch.models import ERFNet, ERFNetRAP
+from mdilss_tpu_torch.models import ERFNet, ERFNetAblation, ERFNetRAP
 from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
-from mdilss_tpu_torch.models.topology import make_dropout_masks
+from mdilss_tpu_torch.models.erfnet_ablations import REFERENCE_NAMES
+from mdilss_tpu_torch.models.topology import DECODER_PLAN, make_dropout_masks
 from mdilss_tpu_torch.ops import _build
 from mdilss_tpu_torch.ops import nb1d_infer as K
 from mdilss_tpu_torch.ops import nb1d_train as T
+from mdilss_tpu_torch.ops.precision import no_tf32
 from mdilss_tpu_torch.train import pipeline as PL
 from mdilss_tpu_torch.train import protocols, steps
 from mdilss_tpu_torch.train.loop import Trainer, init_model
-from mdilss_tpu_torch.train.masks import rap_lr_tree
+from mdilss_tpu_torch.train.masks import ablation_lr_tree, rap_lr_tree
 
 NUM_CLASSES = [20, 20, 27]
 HEIGHT, WIDTH = 512, 1024
@@ -2109,8 +2132,8 @@ def near_tie_free(labels_a, labels_b, logits) -> tuple[bool, int, int]:
 
 
 def phase_slice10(seed: int, dev: torch.device, chain_root: str) -> dict:
-    """Phase 14 on phase 13's checkpoints (build/cli_chain, removed at the
-    end): the C4 reading, `export` of step3/best and its artifacts served,
+    """Phase 14 on phase 13's checkpoints (build/cli_chain, removed after
+    phase 15): the C4 reading, `export` of step3/best and its artifacts served,
     `parity-check --synthetic` on a manifest of the chain's checkpoints, and
     extract_features on the card against the CPU."""
     t_phase = time.perf_counter()
@@ -2123,7 +2146,6 @@ def phase_slice10(seed: int, dev: torch.device, chain_root: str) -> dict:
                "features": _features_phase(dev, chain_root)}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
-    shutil.rmtree(chain_root, ignore_errors=True)
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"[slice10] phase 14 in {rec['seconds']:.1f} s")
     return rec
@@ -2293,6 +2315,282 @@ def _features_phase(dev: torch.device, root: str) -> dict:
     return rec
 
 
+# ---- phase 15: the ablation models ------------------------------------------------------------
+# the four ablation models (models/erfnet_ablations.py) at the step protocols' settings: their
+# encoder blocks are plain PyTorch (cuDNN), so the kernels run in the 4 nb1d blocks of each decoder
+ABLATION_MODELS = tuple(REFERENCE_NAMES)
+DECODER_NB = sum(1 for spec in DECODER_PLAN if spec[0] == "nb")  # 4
+ABL_FWD = DECODER_NB * K.LAUNCHES_PER_BLOCK  # K1 per eval forward, K2 per training forward: 8
+ABL_EVAL_LAUNCHES = {"K1": ABL_FWD, "K2": 0, "K3": 0}
+ABL_CE_LAUNCHES = {"K1": 0, "K2": ABL_FWD, "K3": ABL_FWD}  # one student forward and backward
+# step 2: 2 student forwards and backwards, the eval-mode teacher's forward
+ABL_STEP_LAUNCHES = {"K1": ABL_FWD, "K2": 2 * ABL_FWD, "K3": 2 * ABL_FWD}
+# step 3 (two-phase, train-mode teacher): 3 student forwards and backwards, 2 teacher forwards
+ABL_STEP3_LAUNCHES = {"K1": 0, "K2": 5 * ABL_FWD, "K3": 3 * ABL_FWD}
+ABL_IMAGES = TRAIN_BATCH  # per domain and subset: one train and one validation batch per stage
+# per stage: launches per train step, and the domains validated at epoch 1 (step 2 every old
+# one too, eval_old_every 1; step 3 the current one only, eval_old_every 10)
+ABL_CHAIN = {"step1": (ABL_CE_LAUNCHES, 1), "step2": (ABL_STEP_LAUNCHES, 2),
+             "step3": (ABL_STEP3_LAUNCHES, 1)}
+ABL_EXPORT_MODEL = "erfnet_RCM"
+
+
+def ablation_model(name: str, classes, seed: int, dev) -> ERFNetAblation:
+    """An ablation model with torch's initialisation from `seed`, random BN and,
+    for RCM, random non-symmetric matrices Wt = I + N(0, 0.3^2 / C) (its
+    identity init would hide a transposed Wt)."""
+    torch.manual_seed(seed)
+    model = ERFNetAblation(classes, len(classes), REFERENCE_NAMES[name], device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    randomize_bn(model, gen)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if ".Wt_" in k:
+                c = p.shape[0]
+                p.copy_(torch.eye(c) + 0.3 / c ** 0.5 * torch.randn(c, c, generator=gen))
+    return model.to(dev)
+
+
+def ablation_setup(name: str, seed: int, dev, n: int, h: int, w: int, step3: bool = False):
+    """Student and teacher of step 2 ([20, 20] / [20]) or step 3 ([20, 20, 27] /
+    [20, 20]), a batch of random images and labels, the student forwards' masks,
+    and the step (eval-mode teacher for step 2, the two-phase step with the
+    train-mode teacher for step 3)."""
+    s_nc, t_nc = (STEP3_STUDENT, STEP3_TEACHER) if step3 else (STUDENT_CLASSES, TEACHER_CLASSES)
+    cur, prev = (STEP3_CURRENT, STEP3_PREV) if step3 else (CURRENT_TASK, PREV_TASKS)
+    student = ablation_model(name, s_nc, seed, dev)
+    teacher = ablation_model(name, t_nc, seed + 2, dev)
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.random((n, h, w, 3), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, s_nc[cur], (n, h, w)))
+    masks = [make_dropout_masks(rng, n) for _ in range(1 + len(prev))]
+    lr = ablation_lr_tree(student, variant=REFERENCE_NAMES[name], current_task=cur,
+                          shared_lr=SHARED_LR, ds_lr=DS_LR)
+    kw = dict(current_task=cur, prev_tasks=prev, lr_tree=lr, num_epochs=NUM_EPOCHS,
+              lambda_c=LAMBDA_C)
+    step = (steps.make_two_phase_distill_step(class_weight=CLASS_WEIGHTS["IDD"], **kw) if step3
+            else steps.make_distill_step(class_weight=CLASS_WEIGHTS["BDD"], **kw))
+    return student, teacher, images, labels, masks, step
+
+
+def ablation_vs_cpu(name: str, seed: int, dev: torch.device) -> dict:
+    """One step-2 step and one eval forward of head 1 at 2x128x256 on the card
+    and on the CPU from the same weights, masks and batch, the global TF32 flags
+    at PyTorch's defaults (the steps and forwards turn TF32 off themselves, C4):
+    loss, ce, kld, the eval logits and the student's running statistics."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        n, h, w = SMALL
+        student, teacher, images, labels, masks, step = ablation_setup(name, seed, "cpu", n, h, w)
+        s_state, t_state = state_copy(student), state_copy(teacher)
+        out = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            s, t = copy.deepcopy(student).to(d), copy.deepcopy(teacher).to(d)
+            s.load_state_dict(s_state)
+            t.load_state_dict(t_state)
+            x, y = images.to(d), labels.to(d)
+            with no_tf32():
+                logits = s(x, CURRENT_TASK).cpu()
+            _, m = step(steps.init_train_state(s), t, x, y, masks, 1)
+            running = torch.cat([b.reshape(-1).cpu() for k, b in s.named_buffers()
+                                 if "running" in k])
+            out[where] = ({k: float(v) for k, v in m.items()}, logits, running)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    (m_g, l_g, r_g), (m_c, l_c, r_c) = out["card"], out["cpu"]
+    rec = {**{k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in ("loss", "ce", "kld")},
+           "logits": rel_l2(l_g, l_c), "running": rel_l2(r_g, r_c), "card": m_g, "cpu": m_c}
+    print(f"[ablation-cpu] {name} {n}x{h}x{w} step-2 step, card vs CPU (TF32 flags at their "
+          f"defaults): loss {rec['loss']:.2e}, ce {rec['ce']:.2e}, kld {rec['kld']:.2e}, running "
+          f"stats {rec['running']:.2e}; eval logits {rec['logits']:.2e}")
+    check(max(rec[k] for k in ("loss", "ce", "kld", "logits", "running")) <= TOL_STEP3,
+          f"{name}: card vs CPU above {TOL_STEP3}: {rec}")
+    return rec
+
+
+def ablation_frozen(name: str, prev_best: str, best: str, cfg_seed: int, classes) -> dict:
+    """Step t's best against step t-1's: every LR-0 parameter (the old tasks'
+    slices and heads) bitwise unchanged; every parameter of the current task
+    (its slices and head) moved from its initial value (`extend_for_new_task` of
+    step t-1's checkpoint, the protocol's init); onlyrap's shared BN moved."""
+    task = len(classes) - 1
+    a = keep_tasks(torch_io.load_state(prev_best, name), task)
+    b = torch_io.load_state(best, name)
+    init = extend_for_new_task(a, classes[-1], generator=torch.Generator().manual_seed(cfg_seed))
+    model = ERFNetAblation(classes, len(classes), REFERENCE_NAMES[name], device="cpu")
+    lr = ablation_lr_tree(model, variant=REFERENCE_NAMES[name], current_task=task,
+                          shared_lr=SHARED_LR, ds_lr=DS_LR)
+    frozen = [k for k, v in lr.items() if v == 0.0]
+    current = [k for k, v in lr.items() if v == DS_LR]
+    shared_bn = [k for k in lr if re.search(r"\.(bn|bn1|bn2)\.(weight|bias)$", k)
+                 and k.startswith("encoder.")]
+    rec = {"frozen": len(frozen), "current": len(current), "shared_bn": len(shared_bn),
+           "frozen_moved": [k for k in frozen if not torch.equal(a[k], b[k])],
+           "current_unmoved": [k for k in current if torch.equal(init[k], b[k])],
+           "shared_bn_unmoved": [k for k in shared_bn if torch.equal(a[k], b[k])]}
+    print(f"[ablation-chain] {name} step {task + 1}/best vs step {task}/best: {len(frozen)} "
+          f"parameters at LR 0, {len(rec['frozen_moved'])} moved; {len(current)} of the current "
+          f"task, {len(rec['current_unmoved'])} unmoved; {len(shared_bn)} of the shared BN, "
+          f"{len(rec['shared_bn_unmoved'])} unmoved")
+    check(frozen and current and not rec["frozen_moved"] and not rec["current_unmoved"]
+          and not rec["shared_bn_unmoved"]
+          and bool(shared_bn) == (REFERENCE_NAMES[name] == "onlyrap"),
+          f"{name} step {task + 1}: frozen / current / shared BN gates: {rec}")
+    return rec
+
+
+def ablation_chain(name: str, seed: int, root: str, enc_path: str) -> dict:
+    """step1 (the pretrained encoder) -> step2 -> step3 of `name` through
+    cli.main, one epoch of one batch per stage; exact launches per stage."""
+    common = ["--model", name, "--synthetic", "--synthetic-size", str(ABL_IMAGES),
+              "--num-epochs", "1", "--batch-size", str(TRAIN_BATCH), "--height", str(HEIGHT),
+              "--width", str(WIDTH), "--seed", str(seed)]
+    best = {s: os.path.join(root, name, s, "best") for s in ABL_CHAIN}
+    stages = {}
+    for stage, prev in (("step1", None), ("step2", "step1"), ("step3", "step2")):
+        argv = [stage, "--savedir", os.path.dirname(best[stage]), *common]
+        argv += ["--pretrained-encoder", enc_path] if prev is None else ["--state", best[prev]]
+        per_step, n_val = ABL_CHAIN[stage]
+        want = {k: v + n_val * ABL_EVAL_LAUNCHES[k] for k, v in per_step.items()}
+        zero_launch_counts()
+        text, secs = run_cli(argv)
+        got = launch_counts()
+        row = json.loads(text.strip().splitlines()[-1])
+        stages[stage] = {"launches": got, "expected": want, "seconds": secs,
+                         "train_loss": row["train_loss"], "epoch_seconds": row["epoch_seconds"]}
+        print(f"[ablation-chain] {name} {stage}: {secs:.3f} s; launches {got} (expected {want}); "
+              f"loss {row['train_loss']:.6f}")
+        check(got == want, f"{name} {stage} launched {got}, expected {want}")
+        check(np.isfinite(row["train_loss"]), f"{name} {stage}: {row}")
+    stages["frozen"] = {
+        "step2": ablation_frozen(name, best["step1"], best["step2"], seed, STUDENT_CLASSES),
+        "step3": ablation_frozen(name, best["step2"], best["step3"], seed, STEP3_STUDENT)}
+    return stages
+
+
+def ablation_eval_export(dev: torch.device, best: str, root: str) -> dict:
+    """`eval --kind erfnet_RCM` of step3/best (3 heads, 8 synthetic images
+    each in batches of 6) and `export` of its head 2 (fp32 logits, batch 1)
+    served over 2 images: exactly ABL_FWD K1 launches per forward, the logits
+    within TOL_EXPORT_REL_L2 of the in-process forward."""
+    name = ABL_EXPORT_MODEL
+    zero_launch_counts()
+    text, secs = run_cli(["eval", best, "--kind", name, "--synthetic", "--batch-size",
+                          str(TRAIN_BATCH), "--height", str(HEIGHT), "--width", str(WIDTH),
+                          "--datasets", "cityscapes", "BDD", "IDD"])
+    got = launch_counts()
+    miou = json.loads(text.strip().splitlines()[-1])
+    want = {"K1": 3 * CHAIN_EVAL_BATCHES * ABL_FWD, "K2": 0, "K3": 0}
+    print(f"[ablation-eval] eval --kind {name}: {miou}; launches {got} (expected {want}); "
+          f"{secs:.3f} s")
+    check(got == want and all(0.0 <= v <= 1.0 for v in miou.values()),
+          f"eval --kind {name}: {miou}, launched {got}, expected {want}")
+    out_dir = os.path.join(root, "serving")
+    text, export_s = run_cli(["export", best, out_dir, "--kind", name, "--tasks",
+                              str(EXPORT_TASK), "--output", "logits", "--dtype", "float32",
+                              "--height", str(HEIGHT), "--width", str(WIDTH)])
+    images = np.random.default_rng(7).integers(0, 256, (2, 1, HEIGHT, WIDTH, 3), np.uint8)
+    served, per_forward = [], []
+    before = K.LAUNCHES
+    for out in serving.serve_batches(out_dir, EXPORT_TASK, list(images)):
+        served.append(out)
+        per_forward.append(K.LAUNCHES - before)
+        before = K.LAUNCHES
+    fn = serving.build_infer_fn(load_checkpoint(best, kind=name, device=dev), EXPORT_TASK,
+                                compute_dtype=torch.float32)
+    want_logits = np.concatenate(list(serving.serve_fn_batches(fn, list(images), HEIGHT, WIDTH)))
+    err = rel_l2(torch.from_numpy(np.concatenate(served)), torch.from_numpy(want_logits))
+    print(f"[ablation-export] export --kind {name} head {EXPORT_TASK}: {export_s:.2f} s; K1 "
+          f"launches per served forward {per_forward}; fp32 logits vs the in-process forward "
+          f"rel L2 {err:.2e}")
+    check(per_forward == [ABL_FWD] * len(images) and err <= TOL_EXPORT_REL_L2,
+          f"export --kind {name}: launches per forward {per_forward}, rel L2 {err}")
+    return {"eval": {"miou": miou, "launches": got, "seconds": secs},
+            "export": {"seconds": export_s, "launches_per_forward": per_forward,
+                       "rel_l2": err, "launches": sum(per_forward)}}
+
+
+def ablation_times(name: str, seed: int, dev: torch.device) -> dict:
+    """A step-2 step and a step-3 batch at 6x512x1024: ms (CUDA events over 3
+    after one warm-up, launches exact for each), peak memory, one profiled
+    call (device busy, idle share, K1/K2/K3 ms) and ms_by_family: of the
+    step-2 step of every model, of the step-3 batch of ABL_EXPORT_MODEL only
+    (a profile with Python stacks costs ~8 s of host time per step-3 batch,
+    and the variants' step-3 families differ as their step-2 ones do)."""
+    rec = {}
+    for kind, step3, want in (("step2", False, ABL_STEP_LAUNCHES),
+                              ("step3", True, ABL_STEP3_LAUNCHES)):
+        student, teacher, images, labels, masks, step = ablation_setup(
+            name, seed, dev, TRAIN_BATCH, HEIGHT, WIDTH, step3=step3)
+        images, labels = images.to(dev), labels.to(dev)
+        state = {"ts": steps.init_train_state(student)}
+
+        def one():
+            state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        ms = time_ms(one, iters=3, warmup=1)
+        got = launch_counts()
+        r = rec[kind] = {"ms": ms, "img_per_s": TRAIN_BATCH * 1e3 / ms, "launches": got,
+                         "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+        print(f"[ablation-time] {name} {kind} {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32: {ms:.3f} ms, "
+              f"{r['img_per_s']:.2f} img/s, peak {r['peak_memory_bytes'] / 2**30:.2f} GiB; "
+              f"launches over 4 calls {got}")
+        check(got == {k: 4 * v for k, v in want.items()},
+              f"{name} {kind}: 4 calls launched {got}, expected 4 x {want}")
+        r["profile"] = profile_once(one, "ablation-profile", f"{name} {kind}")
+        if kind == "step2" or name == ABL_EXPORT_MODEL:
+            r["profile"].update(family_split(one, "ablation-profile", f"{name} {kind}"))
+        del student, teacher, state
+    return rec
+
+
+def phase_ablations(seed: int, dev: torch.device, chain_root: str) -> dict:
+    """Phase 15: the four ablation models, card vs CPU, their step chain
+    through the CLI on phase 13's pretrained-encoder file, eval and export of
+    erfnet_RCM, and their step timings; phase 13's tree is removed at the end."""
+    t_phase = time.perf_counter()
+    root = os.path.join(chain_root, "ablations")
+    enc_path = os.path.join(chain_root, "encoder.pth.tar")
+    rec: dict = {"vs_cpu": {}, "chain": {}, "times": {}, "part_seconds": {}}
+    t_part = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        rec["part_seconds"][name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    try:
+        for i, name in enumerate(ABLATION_MODELS):
+            rec["vs_cpu"][name] = ablation_vs_cpu(name, seed + 60 + i, dev)
+        part("vs_cpu")
+        launches = {"K1": 0, "K2": 0, "K3": 0}
+        for name in ABLATION_MODELS:
+            rec["chain"][name] = ablation_chain(name, seed, root, enc_path)
+            for stage in ABL_CHAIN:
+                for k, v in rec["chain"][name][stage]["launches"].items():
+                    launches[k] += v
+        rec["chain_launches"] = launches
+        part("chain")
+        rec.update(ablation_eval_export(
+            dev, os.path.join(root, ABL_EXPORT_MODEL, "step3", "best"), root))
+        part("eval_export")
+        for i, name in enumerate(ABLATION_MODELS):
+            rec["times"][name] = ablation_times(name, seed + 70 + i, dev)
+        part("times")
+    finally:
+        shutil.rmtree(chain_root, ignore_errors=True)
+    rec["step_launches"] = {k: sum(t[kind]["launches"][k] for t in rec["times"].values()
+                                   for kind in ("step2", "step3")) for k in ("K1", "K2", "K3")}
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[ablations] phase 15 in {rec['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in rec["part_seconds"].items()) + ")")
+    return rec
+
+
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
                  kind: str, **more_launches) -> dict:
     """The kernels-line entry of K2 or K3: `launches` on the step-2 path (and
@@ -2367,7 +2665,9 @@ def main(argv=None) -> int:
     other_steps["step3_vs_cpu"] = phase_step3_vs_cpu(args.seed, dev)
     trainer = phase_trainer(args.seed, dev, train_times["img_per_s"])
     cli_chain = phase_cli_chain(args.seed, dev)
-    slice10 = phase_slice10(args.seed, dev, cli_chain.pop("root"))
+    chain_root = cli_chain.pop("root")
+    slice10 = phase_slice10(args.seed, dev, chain_root)
+    ablations = phase_ablations(args.seed, dev, chain_root)
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -2390,6 +2690,10 @@ def main(argv=None) -> int:
         "launches_cli_eval": sum(e["launches"]["K1"] for e in cli_chain["eval"].values()),
         "launches_export": slice10["export"]["launches"],
         "launches_parity_check": slice10["parity_check"]["launches"]["K1"],
+        "launches_ablation_chain": ablations["chain_launches"]["K1"],
+        "launches_ablation_eval": ablations["eval"]["launches"]["K1"],
+        "launches_ablation_export": ablations["export"]["launches"],
+        "launches_ablation_steps": ablations["step_launches"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -2407,7 +2711,9 @@ def main(argv=None) -> int:
                     launches_ce_step=other_steps["ce"]["launches"]["K2"],
                     launches_trainer_path=trainer["launches"]["K2"],
                     launches_step3_trainer=trainer["step3"]["launches"]["K2"],
-                    launches_cli_chain=cli_chain["launches"]["K2"]),
+                    launches_cli_chain=cli_chain["launches"]["K2"],
+                    launches_ablation_chain=ablations["chain_launches"]["K2"],
+                    launches_ablation_steps=ablations["step_launches"]["K2"]),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
                      ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd",
@@ -2415,14 +2721,16 @@ def main(argv=None) -> int:
                      launches_ce_step=other_steps["ce"]["launches"]["K3"],
                      launches_trainer_path=trainer["launches"]["K3"],
                      launches_step3_trainer=trainer["step3"]["launches"]["K3"],
-                     launches_cli_chain=cli_chain["launches"]["K3"])]}
+                     launches_cli_chain=cli_chain["launches"]["K3"],
+                     launches_ablation_chain=ablations["chain_launches"]["K3"],
+                     launches_ablation_steps=ablations["step_launches"]["K3"])]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
               "kernel_cases": cases, "main_path": main_path, "times": times,
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
               "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
-              "slice10": slice10,
+              "slice10": slice10, "ablations": ablations,
               "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

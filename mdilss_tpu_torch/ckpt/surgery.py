@@ -8,11 +8,15 @@ state dict:
 
   * `extend_for_new_task` (step t > 1): every key of the previous model is
     kept; the new task's encoder slots (`bn_ini.{t}`, `bns_{1,2}.{t}`,
-    `parallel_conv_{1,2}.{t}`) take their weight and bias from slot t-1, their
-    BN running statistics start fresh (mean 0, var 1, `num_batches_tracked` 0;
-    the reference copies only weight and bias keys); `decoder.{t}` is a copy
-    of `decoder.{t-1}` with its running statistics, except `output_conv`,
-    which is freshly initialised (the class count differs).
+    `parallel_conv_{1,2}.{t}`, and the ablation models' `series_conv_{1,2}.{t}`
+    and `Wt_{1,2}.{t}`) take their weight and bias (RCM's matrix) from slot
+    t-1, their BN running statistics start fresh (mean 0, var 1,
+    `num_batches_tracked` 0; the reference copies only weight and bias keys);
+    shared BN (onlyrap's `bn`, `bn1`, `bn2`) is left as it is;
+    `decoder.{t}` is a copy of `decoder.{t-1}` with its running statistics,
+    except `output_conv`, which is freshly initialised (the class count
+    differs). It covers ERFNet-RAP and the ablation models, as
+    mdilss_tpu/ckpt/surgery.py:47-127 does.
   * `merge_state_dict`: torch's `load_state_dict(strict=False)`, `module.`
     stripped: only keys that exist with the same shape are taken.
   * `load_imagenet_encoder` (step 1): `module.features.*` renamed to
@@ -29,8 +33,11 @@ import re
 import numpy as np
 import torch
 
-_SLOT = re.compile(r"^(encoder\..*\.(?:bn_ini|bns_[12]|parallel_conv_[12]))\.(\d+)\."
-                   r"(weight|bias|running_mean|running_var|num_batches_tracked)$")
+# a task's slot of an encoder entry: group 3 is the entry's kind, None for RCM's
+# matrix `Wt_k.{t}` (a parameter of its own, with no suffix)
+_SLOT = re.compile(r"^(encoder\..*\.(?:bn_ini|bns_[12]|parallel_conv_[12]|series_conv_[12]"
+                   r"|Wt_[12]))\.(\d+)"
+                   r"(?:\.(weight|bias|running_mean|running_var|num_batches_tracked))?$")
 _HEAD = re.compile(r"^decoder\.(\d+)\.")
 _SHARED_CONV = re.compile(r"^encoder\.(?:initial_block|layers\.\d+)\."
                           r"(?:conv|conv3x1_1|conv1x3_1|conv3x1_2|conv1x3_2)\.(?:weight|bias)$")
@@ -39,7 +46,7 @@ _SHARED_CONV = re.compile(r"^encoder\.(?:initial_block|layers\.\d+)\."
 def _fresh_slot_entry(kind: str, prev: torch.Tensor) -> torch.Tensor:
     """The new slot's entry from slot t-1's: the affine copied, the running
     statistics a fresh BN's (mean 0, var 1, num_batches_tracked 0)."""
-    if kind in ("weight", "bias"):
+    if kind in ("weight", "bias", None):
         return prev.clone()
     return torch.ones_like(prev) if kind == "running_var" else torch.zeros_like(prev)
 
@@ -58,19 +65,22 @@ def _fresh_output_conv(num_classes: int, generator: torch.Generator):
 
 def extend_for_new_task(sd: dict, new_num_classes: int, *,
                         generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """ERFNet-RAP state dict of t tasks -> the state dict of t + 1 tasks
+    """ERFNet-RAP (or ablation model) state dict of t tasks -> the state
+    dict of t + 1 tasks
     (rule above); the new head's `output_conv` is drawn from `generator`.
     Every tensor of the result is its own (no tensor of `sd` is shared)."""
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
     heads = [int(m.group(1)) for k in sd if (m := _HEAD.match(k))]
     if not heads:
-        raise ValueError("no decoder.{t} heads in the state dict: not an ERFNet-RAP model")
+        raise ValueError("no decoder.{t} heads in the state dict: not an ERFNet-RAP or "
+                         "ablation model")
     t = max(heads) + 1
     out = {k: v.clone() for k, v in sd.items()}
     for k, v in sd.items():
         m = _SLOT.match(k)
         if m and int(m.group(2)) == t - 1:
-            out[f"{m.group(1)}.{t}.{m.group(3)}"] = _fresh_slot_entry(m.group(3), v)
+            suffix = "" if m.group(3) is None else f".{m.group(3)}"
+            out[f"{m.group(1)}.{t}{suffix}"] = _fresh_slot_entry(m.group(3), v)
         elif k.startswith(f"decoder.{t - 1}.") and ".output_conv." not in k:
             out[f"decoder.{t}." + k[len(f"decoder.{t - 1}."):]] = v.clone()
     w, b = _fresh_output_conv(new_num_classes, generator)
@@ -117,9 +127,9 @@ def graft_shared_encoder(dst_sd: dict, src_sd: dict) -> dict[str, torch.Tensor]:
 
 
 def keep_tasks(sd: dict, nb_tasks: int) -> dict[str, torch.Tensor]:
-    """The first `nb_tasks` tasks of a digit-indexed state dict (ERFNet-RAP or
-    multi_task): the encoder slots and `decoder.{t}` heads of later tasks
-    dropped, as the JAX package's converter reads `nb_tasks` tasks
+    """The first `nb_tasks` tasks of a digit-indexed state dict (ERFNet-RAP, an
+    ablation model or multi_task): the encoder slots and `decoder.{t}` heads of
+    later tasks dropped, as the JAX package's converter reads `nb_tasks` tasks
     (mdilss_tpu/ckpt/pth_converter.py `convert_state_dict`)."""
     found = {int(m.group(1)) for k in sd if (m := _HEAD.match(k))}
     if len(found) < nb_tasks:

@@ -22,6 +22,7 @@ import re
 
 import torch
 
+from ..config import ABLATION_MODELS
 from ..models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
 from ..models.erfnet_multihead import head_prefixes
 from ..train.optim import AdamState
@@ -123,7 +124,16 @@ def load_state(path: str, kind: str) -> dict[str, torch.Tensor]:
     erfnet, ftp1, ftp2) the heads are renamed, in task order, to the kind's
     grammar, so a one-head `decoder.0.*` run (the single-task baseline) loads
     as kind "erfnet" (`decoder.*`), as the JAX package's Orbax runs load as
-    any of those kinds (mdilss_tpu/train/protocols.py:65-70)."""
+    any of those kinds (mdilss_tpu/train/protocols.py:65-70). An ablation
+    kind loads from a checkpoint directory only: no reference checkpoint or
+    torch grammar exists for those models, so a file raises, as the JAX
+    package's `load_checkpoint` does (mdilss_tpu/evaluate.py:142-146)."""
+    if kind in ABLATION_MODELS and not os.path.isdir(path):
+        raise ValueError(
+            f"{path} is not a checkpoint directory of this package, and kind {kind!r} has "
+            f"no torch checkpoint grammar (a reconstructed ablation model: no reference "
+            f".pth.tar exists); it loads from the port's checkpoint directories "
+            f"(<savedir>/best) only")
     if os.path.isdir(path):
         if latest_epoch(path) is None:
             raise ValueError(

@@ -2,7 +2,8 @@
 mdilss_tpu/cli.py, with its command names, options and defaults).
 
   step1 / step2 / step3  the RAP protocol's steps (train_RAPFT_step1.py,
-                         train_new_task_step2.py, train_new_task_step3.py)
+                         train_new_task_step2.py, train_new_task_step3.py), of
+                         ERFNet-RAP or (--model) one of the four ablation models
   multitask / single / ft  the baselines (train_multi_task.py; the single-task
                          ERFNet; main_ftp1_enc_newbn.py / main_FT2_flexible_new.py)
   pipeline               step1 -> step2 -> step3 [+ the baselines] through
@@ -23,21 +24,22 @@ without a card it raises) in place of `--platform`; no
 `--compilation-cache` (XLA's); each `--data-root NAME=PATH` is checked and a
 bad one exits with a usage message naming it; `export --platforms` takes cuda
 and cpu (a torch.export program is traced on one device) and defaults to
-cuda. `bench` waits for ROADMAP A2: it parses and exits non-zero, and so does
-an ablation `--kind` (A8b); the ablation `--model` choices raise
-NotImplementedError (A8b).
+cuda. `bench` waits for ROADMAP A2: it parses and exits non-zero. An ablation
+`--kind` reads the port's checkpoint directories only (those models have no
+torch grammar), and exits naming that for anything else.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from . import config as C
 from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
 
 DEVICES = ("cuda", "cpu")
-_CKPT_KINDS = ("rap", *MULTIHEAD_KINDS)  # the kinds with a state-dict grammar
+_CKPT_KINDS = ("rap", *MULTIHEAD_KINDS)  # the kinds with a reference state-dict grammar
 _KINDS = _CKPT_KINDS + C.ABLATION_MODELS
 # the reference step-1 trainer's model factory (train_RAPFT_step1.py:451-460)
 _MODELS = ("erfnet_RA_parallel", *C.ABLATION_MODELS)
@@ -441,10 +443,11 @@ def main(argv=None):
         raise SystemExit(f"{args.cmd}: not ported to this package yet (ROADMAP "
                          f"{_WAITS[args.cmd]}); the JAX package's `python -m mdilss_tpu "
                          f"{args.cmd}` runs it")
-    if getattr(args, "kind", None) in C.ABLATION_MODELS:
-        raise SystemExit(f"{args.cmd} --kind {args.kind}: the ablation models are not ported "
-                         f"to this package yet (ROADMAP A8b); the JAX package's `python -m "
-                         f"mdilss_tpu {args.cmd}` runs them")
+    if getattr(args, "kind", None) in C.ABLATION_MODELS and not os.path.isdir(args.ckpt):
+        raise SystemExit(f"{args.cmd} --kind {args.kind}: {args.ckpt} is not a checkpoint "
+                         f"directory of this package; the ablation models have no torch "
+                         f"checkpoint grammar (no reference .pth.tar exists), so they load "
+                         f"from the port's checkpoint directories (<savedir>/best) only")
     if args.cmd == "eval":
         return _eval(parser, args)
     if args.cmd == "parity-check":

@@ -1,10 +1,9 @@
 """Run configuration: one dataclass + per-protocol presets (the port's own copy
 of mdilss_tpu/config.py: the same fields, defaults, checks and presets).
 
-The port's Trainer (train/loop.py) runs every protocol; the ablation models
-raise NotImplementedError there until they are ported. One check is stricter
-than the JAX package's: `teacher_dropout` outside step 3 raises (JAX checks
-only `two_phase`, mdilss_tpu/config.py:84).
+The port's Trainer (train/loop.py) runs every protocol and model. One check
+is stricter than the JAX package's: `teacher_dropout` outside step 3 raises
+(JAX checks only `two_phase`, mdilss_tpu/config.py:84).
 
 Replaces the reference's six duplicated argparse blocks
 (train_RAPFT_step1.py:511-550, train_new_task_step2.py:541-587,
@@ -21,7 +20,8 @@ from dataclasses import dataclass, field
 
 
 # the reference step-1 factory's ablation entries (train_RAPFT_step1.py:451-460), which the
-# JAX package reconstructs (mdilss_tpu/models/erfnet_ablations.py); not ported (ROADMAP A8b)
+# JAX package reconstructs (mdilss_tpu/models/erfnet_ablations.py); the port's are
+# models/erfnet_ablations.py
 ABLATION_MODELS = ("erfnet_bn", "erfnet_onlyRAP", "erfnet_RA_series", "erfnet_RCM")
 
 

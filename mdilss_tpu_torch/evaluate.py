@@ -6,7 +6,9 @@ Build the model for an incremental configuration, load a reference
 domain's val mIoU with the notebook's protocol: argmax predictions, the last
 class ignored (Evaluation_Notebook cells 4-5; iouEval.py:10-12). Kinds: "rap"
 (ERFNet-RAP), "erfnet" (single task), "multi_task", "ftp1" and "ftp2" (the
-multi-head baselines); the ablation kinds wait for ROADMAP A8b.
+multi-head baselines), and the four ablation models by their reference names
+(erfnet_bn, erfnet_onlyRAP, erfnet_RA_series, erfnet_RCM; from the port's
+checkpoint directories only: they have no torch grammar).
 """
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ from .data.sources import make_source
 from .data.transforms import prepare_batch
 from .metrics import IoUEvaluator
 from .config import ABLATION_MODELS
-from .models import ERFNetMultiHead, ERFNetRAP
+from .models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP
+from .models.erfnet_ablations import REFERENCE_NAMES
 from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
 from .ops.precision import no_tf32
 from .utils.logging import getColorEntry
 
-KINDS = ("rap", *MULTIHEAD_KINDS)
+KINDS = ("rap", *MULTIHEAD_KINDS, *ABLATION_MODELS)
 
 
 def load_expected(setting: str) -> dict[str, float]:
@@ -82,18 +85,19 @@ def load_checkpoint(path: str, *, kind: str, num_classes: Sequence[int] | None =
     """The checkpoint's `kind` model in eval mode on `device` (None -> the
     CUDA card), loaded strictly. `num_classes=None` infers the heads from
     the checkpoint."""
-    if kind in ABLATION_MODELS:
-        raise NotImplementedError(f"kind {kind!r}: the ablation models wait for ROADMAP A8b")
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}: one of {KINDS}")
+    sd = torch_io.load_state(path, kind)  # first: an ablation kind's file raises here
     if num_classes is None:
         num_classes = infer_num_classes(path)
     if kind == "rap":
         model = ERFNetRAP(list(num_classes), len(num_classes), device="cpu")
+    elif kind in ABLATION_MODELS:
+        model = ERFNetAblation(list(num_classes), len(num_classes), REFERENCE_NAMES[kind],
+                               device="cpu")
     else:
         model = ERFNetMultiHead(list(num_classes), kind=kind, device="cpu")
-    sd = torch_io.load_state(path, kind)
-    if kind in ("rap", "multi_task"):
+    if kind not in ("erfnet", "ftp1", "ftp2"):  # digit-indexed tasks
         sd = keep_tasks(sd, len(num_classes))
     model.load_state_dict(sd, strict=True)
     return model.to(resolve_device(device))

@@ -12,6 +12,9 @@ so a released state dict loads with strict=True:
     ops.nb1d_infer (the inference kernel), the training forward
     ops.nb1d_train_apply (the training conv-pair kernels on CUDA tensors,
     batch-statistics BN, dropout from a host keep-mask).
+  * NonBottleneck1dAblation: the four ablation variants' encoder block
+    (mdilss_tpu/models/blocks.py:283-346), plain F.conv2d and BN in eval and
+    in training: the JAX package runs them on XLA only, with no kernel.
   * UpsamplerBlock: ConvTranspose2d(3, s2, p1, op1) -> BN -> relu.
 
 In training mode (`module.train()`) every BN normalises with the batch
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout2d
 from ..ops.nb1d_infer import nb1d_infer, prepare_operands
 from ..ops.nb1d_train import nb1d_train_apply
 from ..ops.norm import BN_EPS, batch_norm_eval, batch_norm_train
@@ -118,6 +122,84 @@ class NonBottleneck1dRAP(_Nb1d):
         self.conv1x3_2 = nn.Conv2d(ch, ch, (1, 3), padding=(0, dilated), dilation=(1, dilated))
         self.parallel_conv_2 = nn.ModuleList([nn.Conv2d(ch, ch, 1) for _ in range(nb_tasks)])
         self.bns_2 = _task_bns(ch, nb_tasks)
+
+
+ABLATION_VARIANTS = ("bn", "onlyrap", "ras", "rcm")
+# the variants whose BN (the downsamplers' `bn_ini` too) is per task; onlyrap's is shared
+PER_TASK_BN_VARIANTS = ("bn", "ras", "rcm")
+
+
+class NonBottleneck1dAblation(nn.Module):
+    """An ablation variant's nb1d block (mdilss_tpu/models/blocks.py:240-346):
+    the shared conv pairs of non_bottleneck_1d, and per variant
+
+      bn       per-task BN `bns_{1,2}.{t}`, no adapter
+      onlyrap  shared BN `bn1` / `bn2`; out + parallel_conv_k.{t}(segment input)
+      ras      per-task BN; out + series_conv_k.{t}(out)
+      rcm      per-task BN; out @ Wt_k.{t} over channels, Wt [C_in, C_out]
+               (JAX's orientation), identity at init, no bias
+
+    where each adapter acts on conv pair k's output before its BN, and the
+    segment input is x for pair 1 and mid = relu(BN1(...)) for pair 2. Its
+    forward is plain PyTorch (F.conv2d, ops.norm BN, dropout from the host
+    keep-mask) in eval and in training: the JAX package has no kernel for
+    these blocks (mdilss_tpu/models/topology.py:197-200)."""
+
+    def __init__(self, ch: int, dilated: int, nb_tasks: int, variant: str,
+                 dropprob: float = 0.0):
+        super().__init__()
+        if variant not in ABLATION_VARIANTS:
+            raise ValueError(f"unknown ablation variant {variant!r}: one of {ABLATION_VARIANTS}")
+        self.variant = variant
+        self.dilated = dilated
+        self.dropprob = dropprob
+        self.conv3x1_1 = nn.Conv2d(ch, ch, (3, 1), padding=(1, 0))
+        self.conv1x3_1 = nn.Conv2d(ch, ch, (1, 3), padding=(0, 1))
+        self.conv3x1_2 = nn.Conv2d(ch, ch, (3, 1), padding=(dilated, 0), dilation=(dilated, 1))
+        self.conv1x3_2 = nn.Conv2d(ch, ch, (1, 3), padding=(0, dilated), dilation=(1, dilated))
+        if variant in PER_TASK_BN_VARIANTS:
+            self.bns_1, self.bns_2 = _task_bns(ch, nb_tasks), _task_bns(ch, nb_tasks)
+        else:
+            self.bn1, self.bn2 = _bn(ch), _bn(ch)
+        if variant in ("onlyrap", "ras"):
+            name = "parallel_conv" if variant == "onlyrap" else "series_conv"
+            for k in (1, 2):
+                setattr(self, f"{name}_{k}",
+                        nn.ModuleList([nn.Conv2d(ch, ch, 1) for _ in range(nb_tasks)]))
+        elif variant == "rcm":
+            for k in (1, 2):
+                setattr(self, f"Wt_{k}", nn.ParameterList(
+                    [nn.Parameter(torch.eye(ch)) for _ in range(nb_tasks)]))
+
+    def _bn_of(self, k: int, task: int) -> nn.BatchNorm2d:
+        if self.variant in PER_TASK_BN_VARIANTS:
+            return getattr(self, f"bns_{k}")[task]
+        return getattr(self, f"bn{k}")
+
+    def _adapt(self, out: torch.Tensor, seg_in: torch.Tensor, k: int, task: int):
+        if self.variant == "onlyrap":
+            return out + _conv(seg_in, getattr(self, f"parallel_conv_{k}")[task])
+        if self.variant == "ras":
+            return out + _conv(out, getattr(self, f"series_conv_{k}")[task])
+        if self.variant == "rcm":
+            wt = getattr(self, f"Wt_{k}")[task]
+            # out[n, c, h, w] @ wt[c, d]: a 1x1 conv whose weight [d, c] is wt's transpose
+            return F.conv2d(out, wt.t().to(out.dtype)[:, :, None, None])
+        return out
+
+    def forward(self, x: torch.Tensor, task: int | None = None,
+                drop_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """`drop_mask` [N, C] keep-mask (training only): Dropout2d at
+        `dropprob`; no mask, no dropout."""
+        if task is None:
+            raise ValueError("an ablation block needs a task")
+        out = _conv(F.relu(_conv(x, self.conv3x1_1)), self.conv1x3_1)
+        mid = F.relu(_batch_norm(self, self._adapt(out, x, 1, task), self._bn_of(1, task)))
+        out = _conv(F.relu(_conv(mid, self.conv3x1_2)), self.conv1x3_2)
+        out = _batch_norm(self, self._adapt(out, mid, 2, task), self._bn_of(2, task))
+        if self.training:
+            out = dropout2d(out, self.dropprob, drop_mask)
+        return F.relu(out + x)
 
 
 class UpsamplerBlock(nn.Module):

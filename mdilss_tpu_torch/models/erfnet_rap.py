@@ -28,10 +28,13 @@ class ERFNetRAP(nn.Module):
 
     def __init__(self, num_classes: Sequence[int], nb_tasks: int, device=None):
         super().__init__()
+        self._assemble(num_classes, nb_tasks, None, device)
+
+    def _assemble(self, num_classes, nb_tasks: int, variant: str | None, device) -> None:
         if len(num_classes) != nb_tasks:
             raise ValueError(f"{len(num_classes)} class counts for {nb_tasks} tasks")
         dev = resolve_device(device)
-        self.encoder = Encoder(nb_tasks)
+        self.encoder = Encoder(nb_tasks, variant)
         self.decoder = nn.ModuleList([Decoder(nc) for nc in num_classes])
         self.to(dev)
         self.eval()

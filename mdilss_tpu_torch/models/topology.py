@@ -7,10 +7,12 @@ mdilss_tpu/models/topology.py).
            output_conv = ConvTranspose2d(16 -> num_classes, k2 s2)
 
 The RAP encoder's blocks carry per-task adapters and BN; the plain encoder's
-share one BN each (the multi-head and single-task models). The layers are a
-flat ModuleList in reference order (the JAX package's scan groups are a
-compile-time device and are not ported), and the decoder returns spatial
-logits (the JAX package's packed head is a TPU layout trick).
+share one BN each (the multi-head and single-task models); an ablation
+encoder (`variant`) has that variant's blocks and, except onlyrap, per-task
+downsampler BN. The layers are a flat ModuleList in reference order (the JAX
+package's scan groups are a compile-time device and are not ported), and the
+decoder returns spatial logits (the JAX package's packed head is a TPU
+layout trick).
 
 Training-mode dropout takes host keep-masks drawn by `make_dropout_masks`,
 with the JAX package's shapes and numpy draws, so one np.random.Generator
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .blocks import DownsamplerBlock, NonBottleneck1d, NonBottleneck1dRAP, UpsamplerBlock
+from .blocks import (PER_TASK_BN_VARIANTS, DownsamplerBlock, NonBottleneck1d,
+                     NonBottleneck1dAblation, NonBottleneck1dRAP, UpsamplerBlock)
 
 # (kind, *args): ("down", nin, nout) | ("nb", ch, dropprob, dilated)
 ENCODER_PLAN: tuple = (
@@ -79,15 +82,28 @@ class Encoder(nn.Module):
     """`nb_tasks` an int: the RAP encoder, every BN per-task (`bn_ini` /
     `bns_*`) beside per-task adapters. None: the plain ERFNet encoder
     (reference models/erfnet.py), one shared `bn` per downsampler and
-    `bn1` / `bn2` per block, with the same dropout rates."""
+    `bn1` / `bn2` per block, with the same dropout rates. `variant` (with
+    `nb_tasks`): an ablation encoder (mdilss_tpu/models/topology.py
+    `encoder_init(variant=...)`), its blocks `NonBottleneck1dAblation`, its
+    downsampler BN per task except onlyrap's."""
 
-    def __init__(self, nb_tasks: int | None):
+    def __init__(self, nb_tasks: int | None, variant: str | None = None):
         super().__init__()
-        self.initial_block = DownsamplerBlock(3, 16, nb_tasks)
+        if variant is not None and nb_tasks is None:
+            raise ValueError(f"the {variant!r} ablation encoder needs nb_tasks")
+        # the downsamplers' BN is per task unless the variant's BN is shared (onlyrap)
+        ds_tasks = nb_tasks if variant is None or variant in PER_TASK_BN_VARIANTS else None
+
+        def nb(ch: int, dropprob: float, dilated: int) -> nn.Module:
+            if variant is not None:
+                return NonBottleneck1dAblation(ch, dilated, nb_tasks, variant, dropprob)
+            if nb_tasks is None:
+                return NonBottleneck1d(ch, dilated, dropprob)
+            return NonBottleneck1dRAP(ch, dilated, nb_tasks, dropprob)
+
+        self.initial_block = DownsamplerBlock(3, 16, ds_tasks)
         self.layers = nn.ModuleList([
-            DownsamplerBlock(spec[1], spec[2], nb_tasks) if spec[0] == "down"
-            else NonBottleneck1d(spec[1], spec[3], spec[2]) if nb_tasks is None
-            else NonBottleneck1dRAP(spec[1], spec[3], nb_tasks, spec[2])
+            DownsamplerBlock(spec[1], spec[2], ds_tasks) if spec[0] == "down" else nb(*spec[1:])
             for spec in ENCODER_PLAN
         ])
 

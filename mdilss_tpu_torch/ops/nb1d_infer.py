@@ -71,6 +71,15 @@ def unstack_taps(ws: torch.Tensor, row: bool) -> torch.Tensor:
     return w.unsqueeze(-1) if row else w.unsqueeze(2)
 
 
+def check_not_ablation(block) -> None:
+    """An ablation block (models/blocks.py `NonBottleneck1dAblation`) runs its
+    own forward: onlyrap's carries `parallel_conv_k` beside a shared BN and
+    must not pass for a RAP block here."""
+    if getattr(block, "variant", None) is not None:
+        raise ValueError(f"a {block.variant!r} ablation block has no nb1d kernel operands: "
+                         f"it runs its own forward")
+
+
 def prepare_operands(block, task: int | None, dtype) -> Nb1dOperands:
     """Operands of a block module in the reference grammar: conv3x1_1,
     conv1x3_1, conv3x1_2, conv1x3_2 plus either bn1/bn2 (plain) or
@@ -78,6 +87,7 @@ def prepare_operands(block, task: int | None, dtype) -> Nb1dOperands:
     mdilss_tpu/ops/pallas/nb1d.py:155-184 selects them; detached. (No grad-mode
     switch of its own: the eval forward runs with grad off, and torch.export
     records every switch.)"""
+    check_not_ablation(block)
     rap = hasattr(block, "parallel_conv_1")
     if rap:
         if task is None:

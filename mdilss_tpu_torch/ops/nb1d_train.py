@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .dropout import drop_scale
-from .nb1d_infer import stack_taps, unstack_taps
+from .nb1d_infer import check_not_ablation, stack_taps, unstack_taps
 from .norm import BN_EPS, update_running_stats
 
 LAUNCHES_FWD = 0
@@ -325,6 +325,7 @@ def nb1d_train_apply(block, x: torch.Tensor, task: int | None, dropprob: float =
     mask (required when dropprob > 0), the RAP/BN slices of `task`, and the
     running-stat update with the absorbed pre-BN biases added back to the mean
     and the unbiased variance."""
+    check_not_ablation(block)
     if dropprob > 0.0 and drop_mask is None:
         raise ValueError("nb1d_train_apply needs a host drop_mask when dropprob > 0 "
                          "(models/topology.py make_dropout_masks)")

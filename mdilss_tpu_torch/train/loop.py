@@ -1,7 +1,8 @@
 """Epoch-loop trainer for every protocol of the reference (port of
 mdilss_tpu/train/loop.py):
 
-  step1      train_RAPFT_step1.py     — RAP model, everything trainable, CE
+  step1      train_RAPFT_step1.py     — RAP model (or one of the four ablation
+                                        models), everything trainable, CE
   step2      train_new_task_step2.py  — +1 task, old task slices frozen, CE + KLD
                                         against the eval-mode teacher
   step3      train_new_task_step3.py  — +1 task, two KLDs; two-phase (a CE Adam
@@ -35,8 +36,10 @@ state) in place of JAX's split keys, and the port's steps take no key;
 initial weights are torch's initialisation seeded from `cfg.seed`;
 confusion matrices are int64 on the device and summed there; checkpoints
 are torch files (`ckpt/torch_io.py`); a model that does not fit the protocol
-raises. The ablation models, bf16 training, spatial sharding and remat raise
-NotImplementedError.
+raises, and so does `fused_train` with an ablation model (the JAX package's
+fused paths cover the RAP and plain encoders only,
+mdilss_tpu/models/topology.py:197-200). bf16 training, spatial sharding and
+remat raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -58,15 +61,19 @@ from ..data.loader import LearnableSource, Loader, SyntheticSource, device_prefe
 from ..data.sources import make_source
 from ..losses import kld_corrected, kld_faithful
 from ..metrics import IoUEvaluator
-from ..models import ERFNetMultiHead, ERFNetRAP
+from ..models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP
+from ..models.erfnet_ablations import REFERENCE_NAMES
 from ..models.topology import make_dropout_masks
 from ..utils.logging import MetricLogger, getColorEntry
 from ..utils.profiling import StepTracer
 from . import steps
-from .masks import multihead_lr_tree, rap_lr_tree
+from .masks import ablation_lr_tree, multihead_lr_tree, rap_lr_tree
 from .optim import poly_lr_factor
 
 RAP_PROTOCOLS = ("step1", "step2", "step3")
+# the models those protocols train: the reference step-1 factory
+# (train_RAPFT_step1.py:451-460)
+RAP_MODELS = ("erfnet_RA_parallel", *ABLATION_MODELS)
 MULTIHEAD_PROTOCOLS = ("multitask", "ft", "fe", "singletask")
 # the trainer's model names -> the multi-head models' kinds (state-dict grammar)
 MULTIHEAD_MODELS = {"erfnet_multi_task": "multi_task", "erfnet_ftp1": "ftp1",
@@ -79,18 +86,19 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item it waits for, for
     what the port's Trainer does not run yet, and ValueError for a model
     that does not fit the protocol."""
-    if cfg.model in ABLATION_MODELS:
-        raise NotImplementedError(
-            f"model {cfg.model!r}: the ablation models wait for ROADMAP A8b")
-    if cfg.model != "erfnet_RA_parallel" and cfg.model not in MULTIHEAD_MODELS:
+    if cfg.model not in RAP_MODELS and cfg.model not in MULTIHEAD_MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.protocol not in RAP_PROTOCOLS + MULTIHEAD_PROTOCOLS:
         raise ValueError(f"unknown protocol {cfg.protocol!r}")
-    if (cfg.protocol in RAP_PROTOCOLS) != (cfg.model == "erfnet_RA_parallel"):
+    if (cfg.protocol in RAP_PROTOCOLS) != (cfg.model in RAP_MODELS):
         raise ValueError(
             f"protocol {cfg.protocol!r} with model {cfg.model!r}: {RAP_PROTOCOLS} train "
-            f"erfnet_RA_parallel, {MULTIHEAD_PROTOCOLS} the multi-head models "
+            f"{RAP_MODELS}, {MULTIHEAD_PROTOCOLS} the multi-head models "
             f"{tuple(MULTIHEAD_MODELS)}")
+    if cfg.fused_train and cfg.model in ABLATION_MODELS:
+        raise ValueError(
+            f"fused_train with model {cfg.model!r}: the fused paths cover the rap/plain "
+            f"encoders only, not {REFERENCE_NAMES[cfg.model]!r}")
     if cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "compute_dtype='bfloat16': bf16 training waits for ROADMAP R7")
@@ -106,17 +114,28 @@ def check_supported(cfg: TrainConfig) -> None:
             "rematerialisation is not ported (ROADMAP 'remat')")
 
 
+def task_stacked_model(model: str, num_classes) -> torch.nn.Module:
+    """A model of the step protocols on the CPU, one task per class count:
+    ERFNetRAP for erfnet_RA_parallel, else the ablation model of that name;
+    torch's initialisation from the global RNG."""
+    nc = list(num_classes)
+    if model == "erfnet_RA_parallel":
+        return ERFNetRAP(nc, len(nc), device="cpu")
+    return ERFNetAblation(nc, len(nc), REFERENCE_NAMES[model], device="cpu")
+
+
 def init_model(cfg: TrainConfig) -> torch.nn.Module:
     """The configuration's model on the CPU, in torch's default initialisation
-    seeded from `cfg.seed` (the global RNG left as it was): ERFNetRAP with one
-    task per class count, or the multi-head model of `cfg.model`."""
+    seeded from `cfg.seed` (the global RNG left as it was): ERFNetRAP or an
+    ablation model with one task per class count, or the multi-head model of
+    `cfg.model`."""
     check_supported(cfg)
-    nc = list(cfg.num_classes)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        if cfg.model == "erfnet_RA_parallel":
-            return ERFNetRAP(nc, len(nc), device="cpu")
-        return ERFNetMultiHead(nc, kind=MULTIHEAD_MODELS[cfg.model], device="cpu")
+        if cfg.model in RAP_MODELS:
+            return task_stacked_model(cfg.model, cfg.num_classes)
+        return ERFNetMultiHead(list(cfg.num_classes), kind=MULTIHEAD_MODELS[cfg.model],
+                               device="cpu")
 
 
 class Trainer:
@@ -126,8 +145,8 @@ class Trainer:
     plain versions. `init_state`: the student's initial weights as a
     reference-grammar state dict of the configuration's model
     (`ckpt.from_jax`, `ckpt.torch_io.load_state`); None -> `init_model`.
-    `teacher`: the previous step's model (an ERFNetRAP with the previous
-    tasks' heads), required by step2 and step3; it is moved to the device
+    `teacher`: the previous step's model (an ERFNetRAP or ablation model
+    with the previous tasks' heads), required by step2 and step3; it is moved to the device
     and never updated. `train/protocols.build_trainer` builds both from
     the previous step's checkpoint.
     """
@@ -254,8 +273,11 @@ class Trainer:
     def _lr_tree(self) -> dict[str, float]:
         cfg, model = self.cfg, self.ts.model
         if cfg.protocol in RAP_PROTOCOLS:
-            return rap_lr_tree(model, current_task=cfg.current_task,
-                               shared_lr=cfg.shared_lr_value(), ds_lr=cfg.lr)
+            kw = dict(current_task=cfg.current_task, shared_lr=cfg.shared_lr_value(),
+                      ds_lr=cfg.lr)
+            if cfg.model in ABLATION_MODELS:
+                return ablation_lr_tree(model, variant=REFERENCE_NAMES[cfg.model], **kw)
+            return rap_lr_tree(model, **kw)
         if cfg.protocol in ("multitask", "singletask"):
             return multihead_lr_tree(model, encoder_lr=cfg.shared_lr_value(), decoder_lr=cfg.lr)
         # ft / fe: the old heads frozen; the encoder trains only in ft

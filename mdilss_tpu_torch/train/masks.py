@@ -9,6 +9,12 @@ incremental step `current_task` (reference train_new_task_step2.py:95-106,
 The port's per-task leaves are separate parameters (`.{t}.` in the name), so
 the JAX tree's [T, 1, ...] columns become one number per parameter.
 
+And of `ablation_lr_tree` (mdilss_tpu/train/masks.py:92-157) for the four
+ablation models: the same rule over each variant's per-task slices
+(`bn_ini`, `bns_k`, `parallel_conv_k`, `series_conv_k`, `Wt_k`), with the JAX
+package's two recorded judgment calls: onlyrap's shared BN moves at
+shared_lr, as the shared convs do; ras's old-task adapters are frozen.
+
 And of `multihead_lr_tree` (mdilss_tpu/train/masks.py:160-179) for the
 shared-encoder multi-head models: the encoder at one LR, each head at its own
 (the multitask baseline: encoder 5e-4 / nb_tasks, every head 5e-4,
@@ -22,23 +28,42 @@ import re
 from torch import nn
 
 _TASK_SLICE = re.compile(r"\.(?:parallel_conv_[12]|bns_[12]|bn_ini)\.(\d+)\.")
+# the ablation models' per-task slices; RCM's `Wt_k.{t}` is a parameter with no suffix
+_ABLATION_SLICE = re.compile(
+    r"\.(?:parallel_conv_[12]|series_conv_[12]|Wt_[12]|bns_[12]|bn_ini)\.(\d+)(?:\.|$)")
 
 
-def rap_lr_tree(model: nn.Module, *, current_task: int, shared_lr: float,
-                ds_lr: float) -> dict[str, float]:
-    """{parameter name: base LR} for every parameter of an ERFNetRAP."""
+def _task_lr_tree(model: nn.Module, task_slice: re.Pattern, current_task: int,
+                  shared_lr: float, ds_lr: float) -> dict[str, float]:
     out = {}
     for name, _ in model.named_parameters():
         if name.startswith("decoder."):
             task = int(name.split(".")[1])
         else:
-            m = _TASK_SLICE.search(name)
+            m = task_slice.search(name)
             if m is None:
                 out[name] = shared_lr
                 continue
             task = int(m.group(1))
         out[name] = ds_lr if task == current_task else 0.0
     return out
+
+
+def rap_lr_tree(model: nn.Module, *, current_task: int, shared_lr: float,
+                ds_lr: float) -> dict[str, float]:
+    """{parameter name: base LR} for every parameter of an ERFNetRAP."""
+    return _task_lr_tree(model, _TASK_SLICE, current_task, shared_lr, ds_lr)
+
+
+def ablation_lr_tree(model: nn.Module, *, variant: str, current_task: int, shared_lr: float,
+                     ds_lr: float) -> dict[str, float]:
+    """{parameter name: base LR} for every parameter of an ERFNetAblation of
+    `variant`: its shared convs and shared BN at shared_lr, the current
+    task's slices and decoder at ds_lr, every other task's at 0."""
+    if getattr(model, "variant", None) != variant:
+        raise ValueError(f"ablation_lr_tree(variant={variant!r}) of a model of variant "
+                         f"{getattr(model, 'variant', None)!r}")
+    return _task_lr_tree(model, _ABLATION_SLICE, current_task, shared_lr, ds_lr)
 
 
 def multihead_lr_tree(model: nn.Module, *, encoder_lr: float,

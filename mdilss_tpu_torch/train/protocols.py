@@ -3,9 +3,13 @@ previous step's checkpoint (port of mdilss_tpu/train/protocols.py).
 
   step1       torch's initialisation and the ImageNet-pretrained encoder,
               `module.features` -> `module`, strict=False
-              (train_RAPFT_step1.py:482-502)
-  step2/3     the previous step's checkpoint (its first t tasks): the teacher
-              loads them verbatim;
+              (train_RAPFT_step1.py:482-502); an ablation model takes the
+              file's shared encoder convs only, through an ERFNet-RAP
+              template (`graft_shared_encoder`; no BN, even onlyrap's shared
+              BN, mdilss_tpu/train/protocols.py:135-140)
+  step2/3     the previous step's checkpoint (its first t tasks; of the
+              configuration's model, RAP or ablation): the teacher loads
+              them verbatim;
               the student is `extend_for_new_task` of it (the new task's slots
               seeded from task t-1, the new decoder a copy without
               output_conv; train_new_task_step2.py:480-532)
@@ -26,10 +30,10 @@ import os
 import torch
 
 from ..ckpt import torch_io
-from ..ckpt.surgery import extend_for_new_task, keep_tasks, load_imagenet_encoder
-from ..config import TrainConfig
-from ..models import ERFNetRAP
-from .loop import MULTIHEAD_MODELS, Trainer, init_model
+from ..ckpt.surgery import (extend_for_new_task, graft_shared_encoder, keep_tasks,
+                            load_imagenet_encoder)
+from ..config import ABLATION_MODELS, TrainConfig
+from .loop import MULTIHEAD_MODELS, Trainer, init_model, task_stacked_model
 
 
 def build_trainer(cfg: TrainConfig, device=None) -> Trainer:
@@ -55,12 +59,26 @@ def _with_pretrained_encoder(cfg: TrainConfig, path: str) -> dict:
                                  torch_io.load_pth_tar(path, strip_module=False))
 
 
+def _kind(cfg: TrainConfig) -> str:
+    """The checkpoint kind of a step protocol's model."""
+    return cfg.model if cfg.model in ABLATION_MODELS else "rap"
+
+
 def _build_step1(cfg: TrainConfig, device) -> Trainer:
     src = cfg.pretrained_encoder or cfg.state
     if not src:
         return Trainer(cfg, device=device)
     if os.path.isdir(src):  # a full 1-task run (a pipeline rerun)
-        return Trainer(cfg, init_state=torch_io.load_state(src, "rap"), device=device)
+        return Trainer(cfg, init_state=torch_io.load_state(src, _kind(cfg)), device=device)
+    if cfg.model in ABLATION_MODELS:
+        # the file into an ERFNet-RAP template seeded as the JAX package's
+        # (erfnet_rap.init(key(seed))), then its shared convs alone
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            template = task_stacked_model("erfnet_RA_parallel", cfg.num_classes).state_dict()
+        template = load_imagenet_encoder(template, torch_io.load_pth_tar(src, strip_module=False))
+        return Trainer(cfg, init_state=graft_shared_encoder(_init_state(cfg), template),
+                       device=device)
     return Trainer(cfg, init_state=_with_pretrained_encoder(cfg, src), device=device)
 
 
@@ -68,14 +86,14 @@ def _build_incremental(cfg: TrainConfig, device) -> Trainer:
     nb_prev = len(cfg.num_classes) - 1
     prev_nc = list(cfg.num_classes[:nb_prev])
     if cfg.state:  # its first nb_prev tasks, as the JAX package converts nb_tasks of a file
-        prev_sd = keep_tasks(torch_io.load_state(cfg.state, "rap"), nb_prev)
+        prev_sd = keep_tasks(torch_io.load_state(cfg.state, _kind(cfg)), nb_prev)
     else:  # smoke runs without a previous checkpoint: torch's init, seed + 1
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed + 1)
-            prev_sd = ERFNetRAP(prev_nc, nb_prev, device="cpu").state_dict()
+            prev_sd = task_stacked_model(cfg.model, prev_nc).state_dict()
     # the teacher copies the weights (load_state_dict), so it shares no tensor
     # with the student
-    teacher = ERFNetRAP(prev_nc, nb_prev, device="cpu")
+    teacher = task_stacked_model(cfg.model, prev_nc)
     teacher.load_state_dict(prev_sd, strict=True)
     student = extend_for_new_task(prev_sd, cfg.num_classes[-1],
                                   generator=torch.Generator().manual_seed(cfg.seed))

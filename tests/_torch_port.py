@@ -6,6 +6,7 @@ bridge, so both packages run the same weights on the same inputs; and the
 import numpy as np
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mdilss_tpu.ops.norm import BNState
@@ -314,3 +315,41 @@ def trainer_parity(protocol: str, tmp_path, monkeypatch) -> None:
             j_cm = jax_confusion_matrix(jnp.asarray(j_logits.argmax(-1)),
                                         jnp.asarray(y.numpy()), num_classes=nc[t])
             cm_near_ties(p_cm, j_cm, j_logits, ptr.ts.model(x, t).numpy(), y)
+
+
+# ---- the ablation models (test_torch_ablations*.py) ---------------------------------------------
+
+ABLATION_VARIANTS = ("bn", "onlyrap", "ras", "rcm")
+
+
+def random_wt(tree, rng):
+    """`tree` with every RCM matrix (`wt1` / `wt2` leaf, any leading axes
+    [..., C, C]) replaced by I + N(0, 0.3^2 / C), not symmetric."""
+    if isinstance(tree, dict):
+        return {k: (jnp.asarray((np.eye(v.shape[-1]) + 0.3 / np.sqrt(v.shape[-1])
+                                 * rng.standard_normal(v.shape)).astype(np.float32))
+                    if k in ("wt1", "wt2") else random_wt(v, rng)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [random_wt(v, rng) for v in tree]
+    return tree
+
+
+def ablation_jax_model(variant: str, classes, seed: int):
+    """An ablation model's JAX (params, state) from `seed`: random BN and Wt."""
+    from mdilss_tpu.models import erfnet_ablations
+
+    rng = np.random.default_rng(seed)
+    params, state = randomize_bn(*erfnet_ablations.init(
+        jax.random.key(seed), list(classes), len(classes), variant=variant), rng)
+    return random_wt(params, rng), state
+
+
+def ablation_port_model(variant: str, params, state):
+    """The port's model of `variant` holding JAX's weights (strict load)."""
+    from mdilss_tpu_torch.ckpt import from_jax
+    from mdilss_tpu_torch.models import ERFNetAblation
+
+    model = ERFNetAblation([int(np.shape(d["output_conv"]["b"])[0]) for d in params["decoders"]],
+                           len(params["decoders"]), variant, device="cpu")
+    model.load_state_dict(from_jax(params, state), strict=True)
+    return model

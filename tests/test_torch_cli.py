@@ -4,7 +4,8 @@ its TINY size (--device cpu): the chain through the CLI, eval and its
 --expect gate, the convert round trip, the baselines, the reversed ft chain,
 weights against the JAX package's, the pipeline; plus what the port adds:
 predict, tsne, export and parity-check on the chain's checkpoints; checked
---data-root values, what waits (bench: A2; the ablation models: A8b), and
+--data-root values, what waits (bench: A2) or is refused (an ablation kind on a
+file; the ablation models are in tests/test_torch_ablations.py), and
 every option of the JAX package's subcommands present in the port's (from
 both --help texts)."""
 import json
@@ -247,21 +248,28 @@ def test_cli_rejects_bad_data_root(value, capsys):
         assert e.value.code == 2 and "usage:" in err and f"{value!r}" in err, err
 
 
+# the ablation kinds load from the port's checkpoint directories only: on anything else
+# (here a .pth.tar) they exit naming the missing torch grammar
+NO_GRAMMAR = "the ablation models have no torch checkpoint grammar"
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["tsne", "ck", "--kind", "erfnet_bn"], "A8b"),
-    (["predict", "ck", "--kind", "erfnet_onlyRAP"], "A8b"),
-    (["export", "ck", "out", "--kind", "erfnet_RA_series"], "A8b"),
-    (["eval", "ck", "--kind", "erfnet_RCM"], "A8b"), (["bench", "--steps", "2"], "A2"),
+    (["tsne", "ck.pth.tar", "--kind", "erfnet_bn"], NO_GRAMMAR),
+    (["predict", "ck.pth.tar", "--kind", "erfnet_onlyRAP"], NO_GRAMMAR),
+    (["export", "ck.pth.tar", "out", "--kind", "erfnet_RA_series"], NO_GRAMMAR),
+    (["eval", "ck.pth.tar", "--kind", "erfnet_RCM"], NO_GRAMMAR),
+    (["bench", "--steps", "2"], "ROADMAP A2"),
 ])
 def test_cli_waiting_subcommands_exit(argv, item):
     with pytest.raises(SystemExit) as e:
         cli_main(argv)
-    assert isinstance(e.value.code, str) and f"ROADMAP {item}" in e.value.code
+    assert isinstance(e.value.code, str) and item in e.value.code
 
 
 def test_cli_ablation_models_and_device(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8b"):
-        cli_main(["step1", "--model", "erfnet_bn", "--savedir", str(tmp_path / "a")] + TINY)
+    with pytest.raises(ValueError, match="fused paths cover the rap/plain encoders only"):
+        cli_main(["step1", "--model", "erfnet_bn", "--fused-train", "--savedir",
+                  str(tmp_path / "a")] + TINY)
     with pytest.raises(SystemExit) as e:
         cli_main(["eval", "ck", "--f64"])
     assert e.value.code == 2

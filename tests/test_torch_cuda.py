@@ -2,9 +2,10 @@
 card (marker `cuda`; skips without one): the nb1d inference kernel (K1), the
 training conv pairs (K2 fwd_pair, K3 bwd_pair) and the training block built on
 them, and the launches of one train step; the steps, the data path and the
-trainer on the card; and (slice 10) the fp32 steps with TF32 at PyTorch's
-defaults, an exported head running K1, and extract_features. Run on a
-machine with an H100:
+trainer on the card; (slice 10) the fp32 steps with TF32 at PyTorch's
+defaults, an exported head running K1, and extract_features; and the four
+ablation models' step-2 step against the CPU and their decoder-only launches.
+Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -850,3 +851,94 @@ def test_extract_features_card_equals_cpu(cuda):
         model.to("cpu")
         assert got.shape == want.shape
         assert _rel(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-5
+
+
+# ---- the ablation models: plain encoder blocks, the kernels in the decoders' 4 nb1d blocks ----
+
+ABLATION_MODELS = ("erfnet_bn", "erfnet_onlyRAP", "erfnet_RA_series", "erfnet_RCM")
+
+
+def _ablation_model(name, classes, seed, device):
+    """Random BN and, for RCM, random non-symmetric matrices Wt."""
+    from mdilss_tpu_torch.models import ERFNetAblation
+    from mdilss_tpu_torch.models.erfnet_ablations import REFERENCE_NAMES
+
+    torch.manual_seed(seed)
+    model = ERFNetAblation(classes, len(classes), REFERENCE_NAMES[name], device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    _randomize_bn(model, gen)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if ".Wt_" in k:
+                p.add_(0.3 / p.shape[0] ** 0.5 * torch.randn(p.shape, generator=gen))
+    return model.to(device)
+
+
+@pytest.mark.parametrize("name", ABLATION_MODELS)
+def test_ablation_step2_card_equals_cpu(cuda, name):
+    """One step-2 step ([20, 20] student at task 1, eval-mode [20] teacher,
+    2x128x256) on the card and on the CPU from the same weights, masks and
+    batch: loss, ce, kld and the student's running statistics within 1e-5;
+    the step launches exactly 8 K1 (the teacher's decoder), 16 K2 and 16 K3
+    (two student forwards and backwards through the decoder's 4 blocks)."""
+    from mdilss_tpu_torch.models.erfnet_ablations import REFERENCE_NAMES
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import ablation_lr_tree
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random((2, 128, 256, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 20, (2, 128, 256)))
+    masks = [make_dropout_masks(rng, 2) for _ in range(2)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        student = _ablation_model(name, [20, 20], 4, dev)
+        teacher = _ablation_model(name, [20], 6, dev)
+        lr = ablation_lr_tree(student, variant=REFERENCE_NAMES[name], current_task=1,
+                              shared_lr=5e-6, ds_lr=5e-4)
+        step = steps.make_distill_step(current_task=1, prev_tasks=(0,), lr_tree=lr,
+                                       class_weight=np.ones(20, np.float32), num_epochs=150)
+        before = _launches()
+        _, m = step(steps.init_train_state(student), teacher, x.to(dev), y.to(dev), masks, 1)
+        vals = {k: float(v) for k, v in m.items()}
+        launched = tuple(a - b for a, b in zip(_launches(), before))
+        running = torch.cat([b.reshape(-1).cpu() for k, b in student.named_buffers()
+                             if "running" in k])
+        out[dev.type] = (vals, running, launched)
+    (g, r_g, launched), (c, r_c, _) = out["cuda"], out["cpu"]
+    assert launched == (8, 16, 16)
+    for k in ("loss", "ce", "kld"):
+        assert abs(g[k] - c[k]) <= 1e-5 * abs(c[k]), (k, g[k], c[k])
+    assert _rel(r_g, r_c) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ABLATION_MODELS)
+def test_ablation_eval_forward_and_ce_step_launch_the_decoder_kernels(cuda, name):
+    """An eval forward launches exactly 8 K1 (the decoder's 4 nb1d blocks;
+    the encoder's ablation blocks run cuDNN) and its logits equal the CPU's
+    within 1e-5; a CE step launches exactly 8 K2 and 8 K3."""
+    from mdilss_tpu_torch.models.erfnet_ablations import REFERENCE_NAMES
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import ablation_lr_tree
+
+    model = _ablation_model(name, [6, 7], 8, "cpu")
+    x = torch.rand(2, 64, 128, 3)
+    want = model(x, 1)
+    model.to(cuda)
+    before = _launches()
+    got = model(x.to(cuda), 1)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (8, 0, 0)
+    assert _rel(got.cpu(), want) <= 1e-5
+    lr = ablation_lr_tree(model, variant=REFERENCE_NAMES[name], current_task=1,
+                          shared_lr=5e-4, ds_lr=5e-4)
+    ce = steps.make_ce_step(task=1, class_weight=np.ones(7, np.float32), lr_tree=lr,
+                            num_epochs=150)
+    y = torch.randint(0, 7, (2, 64, 128), device=cuda)
+    before = _launches()
+    ts, m = ce(steps.init_train_state(model), x.to(cuda), y,
+               make_dropout_masks(np.random.default_rng(1), 2), 1)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 8, 8)
+    assert np.isfinite(float(m["loss"])) and ts.opt.count == 1

@@ -171,7 +171,8 @@ def test_expected_miou_json_is_byte_equal_and_checked():
 
 
 def test_unported_kinds_and_f64_off_the_cpu_raise(setup):
-    with pytest.raises(NotImplementedError, match="A8b"):
+    # an ablation kind loads from the port's checkpoint directories only (no torch grammar)
+    with pytest.raises(ValueError, match="kind 'erfnet_bn' has no torch checkpoint grammar"):
         evaluate.load_checkpoint(setup["ckpt"], kind="erfnet_bn", device="cpu")
     with pytest.raises(ValueError, match="float64"):
         evaluate.evaluate_checkpoint(setup["ckpt"], kind="rap", datasets=["cityscapes", "IDD"],
