@@ -149,12 +149,30 @@ Phases, each fatal on failure (non-zero exit):
      step-3 batch at 6x512x1024 timed (CUDA events), their exact launches,
      peak memory, one profiled call (busy, idle share, K1/K2/K3 ms), and
      `ms_by_family` of each step-2 step and of erfnet_RCM's step-3 batch.
-     Phase 13's tree is removed at its end.
+     Phase 13's tree is removed at its end;
+ 16. bf16 training (compute_dtype="bfloat16"): K2/K3's bf16 kernels at the 7
+     block shapes at batch 6 and the ragged one, RAP and pre-stage each on and
+     off, against their plain bf16 versions (gate TOL_BF16_PAIR) and float64
+     (reported), bitwise on a rerun; the bf16 training block on the kernels
+     against float64, gated at BF16_BLOCK_FACTOR x the same block built from
+     the plain pairs; a step-2 step (2 steps) and a step-3 batch at
+     6x512x1024 bf16 from trainer_OURS.sh's settings with the counts zeroed
+     just before: exactly 34 / 68 / 68 and 0 / 170 / 102 bf16 launches per
+     step and no fp32 launch, the first step's losses within TOL_BF16_VS_FP32
+     of the fp32 step's on the same weights, frozen parameters and the teacher
+     bitwise unchanged, ms, peak, a profiled step and ms_by_family; one bf16
+     step at 2x128x256 card vs CPU (TOL_BF16_CPU); `step1 -> step2 -> step3
+     --dtype bfloat16` through cli.main (6 images per domain and subset, one
+     epoch): exact bf16 launches per stage, LR-0 parameters bitwise, each
+     best evaluated by `eval` in float32; K2/K3 bf16 per block shape (ms,
+     plain ms, bf16 bound, device ms by kind, K3's weight-gradient products as
+     bf16 torch.matmul).
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven, K1's through the exported heads
-and parity-check too, and `launches_ablation_*` on phase 15's) and, as the
-last line,
+and parity-check too, `launches_ablation_*` on phase 15's and
+`launches_bf16_*` on phase 16's; K2's and K3's a `bf16` block with their
+bf16 launches, times, bound and errors) and, as the last line,
 {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
 """
@@ -774,20 +792,28 @@ def train_setup(seed: int, dev, n: int, h: int, w: int):
     return student, teacher, images, labels, masks
 
 
-def make_step(student):
+def make_step(student, compute_dtype: str = "float32"):
     lr = rap_lr_tree(student, current_task=CURRENT_TASK, shared_lr=SHARED_LR, ds_lr=DS_LR)
     step = steps.make_distill_step(current_task=CURRENT_TASK, prev_tasks=PREV_TASKS,
                                    class_weight=CLASS_WEIGHTS["BDD"], lr_tree=lr,
-                                   num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C)
+                                   num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C,
+                                   compute_dtype=compute_dtype)
     return lr, step
 
 
 def launch_counts() -> dict:
+    """Launches of every type: K1, K2, K3."""
     return {"K1": K.LAUNCHES, "K2": T.LAUNCHES_FWD, "K3": T.LAUNCHES_BWD}
+
+
+def bf16_launch_counts() -> dict:
+    """The bfloat16 launches among them."""
+    return {"K1": K.LAUNCHES_BF16, "K2": T.LAUNCHES_FWD_BF16, "K3": T.LAUNCHES_BWD_BF16}
 
 
 def zero_launch_counts() -> None:
     K.LAUNCHES = T.LAUNCHES_FWD = T.LAUNCHES_BWD = 0
+    K.LAUNCHES_BF16 = T.LAUNCHES_FWD_BF16 = T.LAUNCHES_BWD_BF16 = 0
 
 
 def phase_train_step(seed: int, dev: torch.device):
@@ -881,24 +907,27 @@ def phase_train_vs_cpu(seed: int, dev: torch.device) -> dict:
     return rec
 
 
-def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str) -> dict:
-    """Least time of one K2 ("fwd") or K3 ("bwd") call in float32: FLOPs at the
-    CUDA cores' fp32 rate against bytes read and written once. K2: 6C^2 MACs
-    per pixel (+C^2 RAP), reads x, writes y. K3: recompute c, dc, du, dw31,
-    dw13 (5 x 3C^2 MACs, +2C^2 RAP), reads u and gy, writes du and the weight
-    gradients. `bound_3xtf32_ms`: the same FLOPs done as 3xTF32 on the tensor
-    cores (3 TF32 products each at 495 TFLOP/s) against the same bytes."""
-    px = n * h * w
+def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str, dt: str = "f32") -> dict:
+    """Least time of one K2 ("fwd") or K3 ("bwd") call with activations of type
+    dt: FLOPs at the type's peak (fp32 on the CUDA cores, bf16 on the tensor
+    cores) against bytes read and written once. K2: 6C^2 MACs per pixel (+C^2
+    RAP), reads x and the weights, writes y and the float32 stats. K3:
+    recompute c, dc, du, dw31, dw13 (5 x 3C^2 MACs, +2C^2 RAP), reads u, gy and
+    the weights, writes du and the float32 weight gradients. In fp32 also
+    `bound_3xtf32_ms`: the same FLOPs done as 3xTF32 on the tensor cores (3
+    TF32 products each at 495 TFLOP/s) against the same bytes."""
+    px, item = n * h * w, torch.finfo(DTYPES[dt]).bits // 8
     macs = (6 + rap if kind == "fwd" else 15 + 2 * rap) * c * c
     acts = 2 if kind == "fwd" else 3
-    weights = (6 + rap) * c * c * (1 if kind == "fwd" else 2)
+    weights = (6 + rap) * c * c
     flops = 2 * px * macs
-    nbytes = 4 * (acts * px * c + weights + 4 * c)
-    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
-    t_tc = 3 * flops / PEAK_FLOPS["tf32"]
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
+    nbytes = item * (acts * px * c + weights) + 4 * (weights * (kind == "bwd") + 4 * c)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    out = {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if dt == "f32":
+        out["bound_3xtf32_ms"] = max(3 * flops / PEAK_FLOPS["tf32"], t_bytes) * 1e3
+    return out
 
 
 # K2's and K3's launches by kernel name: K2's pair and the fixed-order sum of its partial stats;
@@ -906,34 +935,40 @@ def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str) -> dict:
 K2_KINDS = {"pair": "fwd_pair_mma_kernel", "sum": "namespace)::reduce_kernel("}
 K3_KINDS = {"dc": "bwd_dc_kernel", "du": "bwd_du_kernel", "wgrad": "bwd_wgrad_kernel",
             "sum": "namespace)::reduce_kernel("}
-PAIR_KINDS = {"fwd": K2_KINDS, "bwd": K3_KINDS}
+# the bf16 kernels of K2 and K3 (phase 16)
+K2_BF16_KINDS = {"pair": "fwd_pair_bf16_kernel", "sum": "namespace)::reduce_kernel("}
+K3_BF16_KINDS = {"dc": "bwd_dc_bf16_kernel", "du": "bwd_du_bf16_kernel",
+                 "wgrad": "bwd_wgrad_bf16_kernel", "sum": "namespace)::reduce_kernel("}
+PAIR_KINDS = {("fwd", "f32"): K2_KINDS, ("bwd", "f32"): K3_KINDS,
+              ("fwd", "bf16"): K2_BF16_KINDS, ("bwd", "bf16"): K3_BF16_KINDS}
 
 
-def device_ms_by_kind(fn, kinds: dict, iters: int = 3, tries: int = 3) -> dict:
-    """Device ms per call of `fn` for each kind of kernel (name pattern),
-    from torch.profiler over `iters` calls after one warm-up call. A trace
-    that misses a kind (the profiler's CUDA activity buffer can come back
-    empty) is taken again, up to `tries` times; a kind never seen is None
-    (not measured)."""
+def device_ms_by_kind(fn, kinds: dict, iters: int = 3, tries: int = 5) -> dict:
+    """Device ms per call of `fn` for each kind of kernel (name pattern; every
+    kind launches once per call), from torch.profiler over `iters` calls
+    after one warm-up call: the mean over the launches the traces hold. The
+    profiler's CUDA activity records can come back short, or empty, so traces
+    are taken until each kind has `iters` launches in all, up to `tries`
+    traces; a kind never seen is None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    out = {}
+    total, seen = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0)
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = dict.fromkeys(kinds, 0.0)
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 for k, pat in kinds.items():
                     if pat in e.name:
-                        out[k] += e.time_range.elapsed_us() / 1e3 / iters
-        if all(v > 0 for v in out.values()):
-            return out
-    return {k: (v if v > 0 else None) for k, v in out.items()}
+                        total[k] += e.time_range.elapsed_us() / 1e3
+                        seen[k] += 1
+        if all(n >= iters for n in seen.values()):
+            break
+    return {k: total[k] / seen[k] if seen[k] else None for k in kinds}
 
 
 def fmt_ms(v) -> str:
@@ -948,8 +983,8 @@ def add_ms(a, b):
 def wgrad_library_ms(x: torch.Tensor, gy: torch.Tensor, rap: bool, tf32: bool) -> float:
     """ms of the weight-gradient products of one K3 call as torch.matmul
     calls: [pixels x C]^T [pixels x C], 7 with RAP (dw31 x3, dw13 x3, drap),
-    else 6, at float32 with TF32 off (or on, as information). A yardstick
-    only: the port never calls it."""
+    else 6, in x's type (float32 with TF32 off, or on as information; bf16 on
+    the tensor cores). A yardstick only: the port never calls it."""
     c = x.shape[1]
     a, b = x.permute(0, 2, 3, 1).reshape(-1, c), gy.permute(0, 2, 3, 1).reshape(-1, c)
     n_mat = 7 if rap else 6
@@ -978,12 +1013,13 @@ def profile_once(fn, tag: str, what: str) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    groups = {"K1": tuple(K1_KERNEL.values()), "K2": (K2_KINDS["pair"],),
-              "K3": ("bwd_dc_kernel", "bwd_du_kernel", "bwd_wgrad_kernel"),
+    groups = {"K1": tuple(K1_KERNEL.values()), "K2": (K2_KINDS["pair"], K2_BF16_KINDS["pair"]),
+              "K3": tuple(v for kinds in (K3_KINDS, K3_BF16_KINDS) for k, v in kinds.items()
+                          if k != "sum"),
               "K2/K3 partial sums": ("namespace)::reduce_kernel(",)}
     shares = {g: sum(v for k, v in by_name.items() if any(p in k for p in pats))
               for g, pats in groups.items()}
-    k3_kinds = {kind: sum(v for k, v in by_name.items() if pat in k)
+    k3_kinds = {kind: sum(v for k, v in by_name.items() if pat in k or K3_BF16_KINDS[kind] in k)
                 for kind, pat in K3_KINDS.items() if kind != "sum"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"[{tag}] {what}: host {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle "
@@ -1038,14 +1074,25 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
     out["profile"] = profile_once(one_step, "train-profile", "one step")
     out["profile"].update(family_split(one_step, "train-profile", "step"))
 
+    blocks = pair_times(seed, dev, n, "f32")
+    out["blocks"] = blocks
+    return out
+
+
+def pair_times(seed: int, dev: torch.device, n: int, dt: str) -> list[dict]:
+    """K2 and K3 with activations of type dt at each block shape of one
+    n x 512 x 1024 forward, a row per block over its two pairs ((dilation 1, no
+    pre-stage) and (d, pre-stage)): ms (CUDA events), the plain version's ms,
+    the bound (fp32: also the 3xTF32 one), device ms per launch kind
+    (torch.profiler) and, for K3, its weight-gradient products as torch.matmul
+    calls in the same type (fp32: TF32 off, and on as information)."""
     blocks = []
     for i, spec in enumerate(BLOCKS):
         name, c, d, rap, h, w, count = spec
         gen = torch.Generator().manual_seed(seed + 100 * i)
-        x = cl(torch.randn(n, c, h, w, generator=gen).to(dev))
-        gy = cl(torch.randn(n, c, h, w, generator=gen).to(dev))
-        row = {"block": name, "count": count, "shape": [n, h, w, c]}
-        # the block's two pairs: (dilation 1, no pre-stage) and (d, pre-stage)
+        x = cl(torch.randn(n, c, h, w, generator=gen).to(dev, DTYPES[dt]))
+        gy = cl(torch.randn(n, c, h, w, generator=gen).to(dev, DTYPES[dt]))
+        row = {"block": name, "count": count, "shape": [n, h, w, c], "dtype": dt}
         for pair, (dd, pre) in enumerate(((1, False), (d, True))):
             w31, b31, w13, rapw, pre_ab = pair_args(gen, c, rap, pre, dev)
             args = (w31, b31, w13, rapw, pre_ab, dd)
@@ -1053,32 +1100,35 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
                                       ("bwd", T.bwd_pair, T.bwd_pair_plain)):
                 call = (lambda f: (lambda: f(x, *args))) if kind == "fwd" else (
                     lambda f: (lambda: f(x, gy, *args)))
-                b = pair_bound(n, c, h, w, rap, kind)
+                b = pair_bound(n, c, h, w, rap, kind, dt)
                 vals = [("ms", time_ms(call(kern), iters=10, warmup=2)),
                         ("plain_ms", time_ms(call(plain), iters=5, warmup=1)),
-                        ("bound_ms", b["bound_ms"]), ("bound_3xtf32_ms", b["bound_3xtf32_ms"])]
+                        ("bound_ms", b["bound_ms"])]
+                if dt == "f32":
+                    vals.append(("bound_3xtf32_ms", b["bound_3xtf32_ms"]))
                 if kind == "bwd":
-                    vals += [("wgrad_library_ms", wgrad_library_ms(x, gy, rap, False)),
-                             ("wgrad_library_tf32_ms", wgrad_library_ms(x, gy, rap, True))]
+                    vals.append(("wgrad_library_ms", wgrad_library_ms(x, gy, rap, False)))
+                    if dt == "f32":
+                        vals.append(("wgrad_library_tf32_ms", wgrad_library_ms(x, gy, rap, True)))
                 vals += [(f"{k}_ms", v) for k, v in
-                         device_ms_by_kind(call(kern), PAIR_KINDS[kind]).items()]
+                         device_ms_by_kind(call(kern), PAIR_KINDS[kind, dt]).items()]
                 for key, val in vals:
                     row[f"{kind}_{key}"] = add_ms(row.get(f"{kind}_{key}", 0.0), val)
                 row[f"{kind}_bound_by"] = b["bound_by"]
                 row[f"{kind}_flops"] = row.get(f"{kind}_flops", 0) + b["flops"]
                 row[f"{kind}_bytes"] = row.get(f"{kind}_bytes", 0) + b["bytes"]
         blocks.append(row)
-        print(f"[train-time] {name} [{n},{h},{w},{c}] two pairs: K2 {row['fwd_ms']:.4f} ms "
-              f"(plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f} fp32 / "
-              f"{row['fwd_bound_3xtf32_ms']:.4f} 3xTF32; device "
-              + ", ".join(f"{k} {fmt_ms(row[f'fwd_{k}_ms'])}" for k in K2_KINDS)
+        tc = (lambda k: f" / {row[f'{k}_bound_3xtf32_ms']:.4f} 3xTF32") if dt == "f32" else (
+            lambda k: "")
+        print(f"[train-time] {name} [{n},{h},{w},{c}] {dt} two pairs: K2 {row['fwd_ms']:.4f} ms "
+              f"(plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f} {dt}{tc('fwd')}; "
+              f"device " + ", ".join(f"{k} {fmt_ms(row[f'fwd_{k}_ms'])}" for k in K2_KINDS)
               + f"), K3 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
-              f"{row['bwd_bound_ms']:.4f} fp32 / {row['bwd_bound_3xtf32_ms']:.4f} 3xTF32; device "
+              f"{row['bwd_bound_ms']:.4f} {dt}{tc('bwd')}; device "
               + ", ".join(f"{k} {fmt_ms(row[f'bwd_{k}_ms'])}" for k in K3_KINDS)
-              + f"; weight-gradient matmuls {row['bwd_wgrad_library_ms']:.4f} fp32, "
-              f"{row['bwd_wgrad_library_tf32_ms']:.4f} TF32)")
-    out["blocks"] = blocks
-    return out
+              + f"; weight-gradient matmuls {row['bwd_wgrad_library_ms']:.4f} {dt}"
+              + (f", {row['bwd_wgrad_library_tf32_ms']:.4f} TF32)" if dt == "f32" else ")"))
+    return blocks
 
 
 # R0: the step's device time outside K1/K2/K3 by family, from the chrome trace of one profiled
@@ -1090,7 +1140,8 @@ def phase_train_times(seed: int, dev: torch.device, run) -> dict:
 # to the first family one of whose patterns is in one of those names; what no launch or name
 # places goes by its own name (FAMILY_BY_KERNEL_NAME), else to "unattributed".
 OWN_KERNELS = ("nb1d_pair_", "fwd_pair_mma_kernel", "bwd_dc_kernel", "bwd_du_kernel",
-               "bwd_wgrad_kernel", "namespace)::reduce_kernel(")
+               "bwd_wgrad_kernel", "fwd_pair_bf16_kernel", "bwd_dc_bf16_kernel",
+               "bwd_du_bf16_kernel", "bwd_wgrad_bf16_kernel", "namespace)::reduce_kernel(")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 FAMILIES = (
     ("cuDNN conv and its backward", ("convolution", "cudnn")),
@@ -1233,11 +1284,12 @@ def step3_setup(seed: int, dev, n: int, h: int, w: int):
     return student, teacher, images, labels, masks
 
 
-def make_step3(student):
+def make_step3(student, compute_dtype: str = "float32"):
     lr = rap_lr_tree(student, current_task=STEP3_CURRENT, shared_lr=SHARED_LR, ds_lr=DS_LR)
     step = steps.make_two_phase_distill_step(
         current_task=STEP3_CURRENT, prev_tasks=STEP3_PREV, class_weight=CLASS_WEIGHTS["IDD"],
-        lr_tree=lr, num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C, iou_train=True)
+        lr_tree=lr, num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C, iou_train=True,
+        compute_dtype=compute_dtype)
     return lr, step
 
 
@@ -1462,12 +1514,13 @@ EVAL_CKPT_BATCH = 6  # evaluate_checkpoint: 8 synthetic images per head, 2 batch
 GLUE_FWD_ACTS, GLUE_BWD_ACTS = 3, 3 + 4 + 2 + 3 + 4
 
 
-def glue_bound(n: int = TRAIN_BATCH) -> dict:
-    """K4's byte bound at n x 512 x 1024 float32 over the 17 blocks of one
-    forward: ms per forward without backward (a train-mode teacher), per
-    forward with backward (a student), per step-2 step (two students) and per
-    step-3 batch (three students, two teachers), at PEAK_BYTES."""
-    act = sum(count * n * c * h * w * 4 for _, c, _, _, h, w, count in BLOCKS)
+def glue_bound(n: int = TRAIN_BATCH, item: int = 4) -> dict:
+    """K4's byte bound at n x 512 x 1024 over the 17 blocks of one forward,
+    activations of `item` bytes (4: float32, 2: bf16): ms per forward without
+    backward (a train-mode teacher), per forward with backward (a student),
+    per step-2 step (two students) and per step-3 batch (three students, two
+    teachers), at PEAK_BYTES."""
+    act = sum(count * n * c * h * w * item for _, c, _, _, h, w, count in BLOCKS)
     fwd_ms = GLUE_FWD_ACTS * act / PEAK_BYTES * 1e3
     fb_ms = (GLUE_FWD_ACTS + GLUE_BWD_ACTS) * act / PEAK_BYTES * 1e3
     return {"activation_bytes_per_forward": act, "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms,
@@ -2591,6 +2644,385 @@ def phase_ablations(seed: int, dev: torch.device, chain_root: str) -> dict:
     return rec
 
 
+# ---- phase 16: bf16 training ---------------------------------------------------------------------
+# K2 / K3 in bfloat16 (csrc/nb1d_train.cu: fwd_pair_bf16_kernel, bwd_dc/du/wgrad_bf16_kernel) and
+# compute_dtype="bfloat16" through the steps, the Trainer and the CLI, at trainer_OURS.sh's
+# settings. The gates below were fixed before the first run of this phase.
+BF16 = torch.bfloat16
+# K2/K3 bf16 vs their plain bf16 versions (float32 arithmetic on the bf16 values, rounded to bf16
+# at the kernels' points), relative L2 per output: the two sum in different orders, so now and
+# then an element rounds to its other bf16 neighbour (an ulp is 2^-8 relative) or a relu within
+# float32 rounding of its kink flips
+TOL_BF16_PAIR = 1e-2
+# the bf16 training block on the kernels, its error against float64 (the block from the plain
+# pairs in float64) at most this factor times the error of the same bf16 block built from the
+# plain pairs, plus the float32 floor: both round at the same points
+BF16_BLOCK_FACTOR, BF16_BLOCK_FLOOR = 1.5, 1e-5
+# the bf16 step's loss, ce and kld against the fp32 step's on the same weights, batch and masks,
+# relative
+TOL_BF16_VS_FP32 = 1e-2
+# one bf16 step-2 step at 2x128x256, the card (kernels) vs the CPU (plain pairs): losses and
+# running statistics, relative
+TOL_BF16_CPU = {"loss": 2e-2, "running": 1e-2}
+BF16_CHAIN = {"step1": (CE_LAUNCHES, 1), "step2": (STEP_LAUNCHES, 2), "step3": (STEP3_LAUNCHES, 1)}
+BF16_CHAIN_CLASSES = {"step1": [20], "step2": STUDENT_CLASSES, "step3": STEP3_STUDENT}
+BF16_CHAIN_DATASETS = {"step1": ["cityscapes"], "step2": ["cityscapes", "BDD"],
+                       "step3": ["cityscapes", "BDD", "IDD"]}
+
+
+def bf16_exact(t: torch.Tensor | None) -> torch.Tensor | None:
+    """t rounded to values bf16 represents (float32), so the kernel, its plain
+    version and the float64 reference see the same numbers."""
+    return None if t is None else t.to(BF16).float()
+
+
+def bf16_pair_cases(seed: int, dev: torch.device) -> list[dict]:
+    """K2/K3 bf16 at the 7 block shapes at batch 6 and the ragged one, RAP and
+    pre-stage each on and off: each output against the plain bf16 version
+    (gate TOL_BF16_PAIR) and against float64 (reported); two runs bitwise
+    equal; the output types."""
+    cases = []
+    for i, spec in enumerate(BLOCKS + (RAGGED,)):
+        name, c, d, _, h, w, _ = spec
+        for rap in (False, True):
+            for pre in (False, True):
+                gen = torch.Generator().manual_seed(seed + 300 + 100 * i + 2 * rap + pre)
+                w31, b31, w13, rapw, pre_ab = pair_args(gen, c, rap, pre, dev)
+                w31, w13, rapw = bf16_exact(w31), bf16_exact(w13), bf16_exact(rapw)
+                x = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev, BF16))
+                gy = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev, BF16))
+                args = (w31, b31, w13, rapw, pre_ab, d)
+                got = [*T.fwd_pair(x, *args), *T.bwd_pair(x, gy, *args)]
+                again = [*T.fwd_pair(x, *args), *T.bwd_pair(x, gy, *args)]
+                sync(dev)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+                del again
+                names = ("y", "stats", "du", "dw31", "db31", "dw13", "drap")
+                got = dict(zip(names, got))
+                plain = dict(zip(names, [*T.fwd_pair_plain(x, *args),
+                                         *T.bwd_pair_plain(x, gy, *args)]))
+                a64 = (*(as_f64(t) for t in args[:5]), d)
+                want = dict(zip(names, [*T.fwd_pair_plain(x.double(), *a64),
+                                        *T.bwd_pair_plain(x.double(), gy.double(), *a64)]))
+                keys = [k for k in names if want[k] is not None]
+                vs_plain = {k: rel_l2(got[k], plain[k]) for k in keys}
+                vs_f64 = {k: rel_l2(got[k], want[k]) for k in keys}
+                plain_f64 = {k: rel_l2(plain[k], want[k]) for k in keys}
+                types = (got["y"].dtype == got["du"].dtype == BF16
+                         and all(got[k].dtype == torch.float32 for k in keys
+                                 if k not in ("y", "du")))
+                case = {"block": name, "shape": [TRAIN_BATCH, h, w, c], "dilation": d,
+                        "rap": rap, "pre": pre, "rel_l2_vs_plain": vs_plain,
+                        "rel_l2_vs_f64": vs_f64, "plain_rel_l2_vs_f64": plain_f64,
+                        "max_abs_err_vs_plain": {k: float((got[k].double() - plain[k].double())
+                                                          .abs().max()) for k in keys},
+                        "bitwise": bitwise, "types": types,
+                        "finite": all(bool(torch.isfinite(got[k]).all()) for k in keys)}
+                case["ok"] = (case["finite"] and bitwise and types
+                              and all(v <= TOL_BF16_PAIR for v in vs_plain.values()))
+                cases.append(case)
+                worst = max(vs_plain, key=vs_plain.get)
+                print(f"[bf16-kernel] {name} [{TRAIN_BATCH},{h},{w},{c}] d={d} rap={int(rap)} "
+                      f"pre={int(pre)}: worst rel_l2 vs plain bf16 {vs_plain[worst]:.2e} ({worst}, "
+                      f"gate {TOL_BF16_PAIR:.0e}); vs float64 kernel "
+                      f"{max(vs_f64.values()):.2e}, plain {max(plain_f64.values()):.2e}; bitwise "
+                      f"repeat {bitwise}")
+                del got, plain, want
+    bad = [c for c in cases if not c["ok"]]
+    check(not bad, f"K2/K3 bf16 above rel_l2 {TOL_BF16_PAIR} vs their plain bf16 versions, not "
+                   f"bitwise repeatable, or of the wrong type: {bad}")
+    return cases
+
+
+def bf16_block(seed: int, dev: torch.device) -> list[dict]:
+    """The bf16 training block at the 7 block shapes at batch 6: on the kernels
+    and built from the plain pairs, each against the block from the plain
+    pairs in float64 (the same bf16 input): output, dx, every parameter's
+    gradient (one vector), running statistics. Gate: kernel error <=
+    BF16_BLOCK_FACTOR x plain error + BF16_BLOCK_FLOOR, each."""
+    rows = []
+    for i, spec in enumerate(BLOCKS):
+        name, c, d, rap, h, w, _ = spec
+        torch.manual_seed(seed + 400 + 10 * i)
+        drop = (0.3 if c == 128 else 0.03) if rap else 0.0
+        blk = NonBottleneck1dRAP(c, d, 2, drop) if rap else NonBottleneck1d(c, d)
+        randomize_bn(blk, torch.Generator().manual_seed(seed + 401 + 10 * i))
+        gen = torch.Generator().manual_seed(seed + 402 + 10 * i)
+        x = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev, BF16))
+        cot = torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev)
+        mask = (torch.rand(TRAIN_BATCH, c, generator=gen) < 1 - drop).to(dev) if rap else None
+        res = {}
+        for run, dt, pairs in (("kernel", BF16, T.KERNEL_PAIRS), ("plain", BF16, T.PLAIN_PAIRS),
+                               ("f64", torch.float64, T.PLAIN_PAIRS)):
+            b = copy.deepcopy(blk).to(dev).train()
+            if dt == torch.float64:
+                b = b.double()
+            acc = torch.float64 if dt == torch.float64 else torch.float32
+            xi = x.to(dt).requires_grad_()
+            out = T.nb1d_train_apply(b, xi, 1 if rap else None, drop, mask, pairs)
+            grads = torch.autograd.grad((out.to(acc) * cot.to(acc)).sum(),
+                                        [xi] + list(b.parameters()), allow_unused=True)
+            flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1).double()
+                              for g, p in zip(grads[1:], b.parameters())])
+            running = torch.cat([t.reshape(-1).double() for n_, t in b.named_buffers()
+                                 if "running" in n_])
+            res[run] = {"out": out.detach(), "dx": grads[0], "dparams": flat, "running": running,
+                        "out_dtype": out.dtype}
+            del b, grads
+        sync(dev)
+        row = {"block": name, "shape": [TRAIN_BATCH, h, w, c],
+               "out_bf16": res["kernel"]["out_dtype"] == BF16}
+        for k in ("out", "dx", "dparams", "running"):
+            e_k = rel_l2(res["kernel"][k], res["f64"][k])
+            e_p = rel_l2(res["plain"][k], res["f64"][k])
+            row[k] = {"kernel_vs_f64": e_k, "plain_vs_f64": e_p,
+                      "gate": BF16_BLOCK_FACTOR * e_p + BF16_BLOCK_FLOOR}
+        row["ok"] = row["out_bf16"] and all(row[k]["kernel_vs_f64"] <= row[k]["gate"]
+                                            for k in ("out", "dx", "dparams", "running"))
+        rows.append(row)
+        print(f"[bf16-block] {name} [{TRAIN_BATCH},{h},{w},{c}] vs float64, kernel / plain bf16 "
+              f"(gate): " + ", ".join(f"{k} {row[k]['kernel_vs_f64']:.2e} / "
+                                      f"{row[k]['plain_vs_f64']:.2e} ({row[k]['gate']:.2e})"
+                                      for k in ("out", "dx", "dparams", "running")))
+        del res
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"the bf16 training block on the kernels above {BF16_BLOCK_FACTOR} x the plain "
+                   f"block's error vs float64 (+{BF16_BLOCK_FLOOR}): {bad}")
+    return rows
+
+
+def bf16_path(setup, make, want: dict, n_steps: int, tag: str, seed: int, dev) -> dict:
+    """`n_steps` bf16 steps (make(student, "bfloat16")) at 6x512x1024 from
+    setup(seed, dev, ...)'s weights, batch and masks, the counts zeroed just
+    before: every step exactly `want` launches, all bf16 (no fp32 launch of
+    K1/K2/K3); the first step's losses against the fp32 step's from the same
+    weights (TOL_BF16_VS_FP32); the frozen student parameters and the teacher
+    bitwise unchanged; then ms (CUDA events), peak memory, one profiled step
+    (busy, idle share) and ms_by_family."""
+    student, teacher, images, labels, masks = setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    images, labels = images.to(dev), labels.to(dev)
+    s_state, t_state = state_copy(student), state_copy(teacher)
+    _, step32 = make(student)
+    _, m32 = step32(steps.init_train_state(student), teacher, images, labels, masks, 1)
+    ref = {k: float(v) for k, v in m32.items() if k != "cm"}
+    del step32, m32
+    student.load_state_dict(s_state)
+    teacher.load_state_dict(t_state)
+    lr, step = make(student, "bfloat16")
+    frozen = {k: p.detach().clone() for k, p in student.named_parameters() if lr[k] == 0.0}
+    ts = steps.init_train_state(student)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"steps": [], "fp32_losses": ref}
+    zero_launch_counts()
+    for i in range(n_steps):
+        before, before16 = launch_counts(), bf16_launch_counts()
+        t0 = time.perf_counter()
+        ts, m = step(ts, teacher, images, labels, masks, 1)
+        vals = {k: float(v) for k, v in m.items() if k != "cm"}
+        secs = time.perf_counter() - t0
+        got16 = {k: v - before16[k] for k, v in bf16_launch_counts().items()}
+        got32 = {k: v - before[k] - got16[k] for k, v in launch_counts().items()}
+        rec["steps"].append({**vals, "launches_bf16": got16, "launches_fp32": got32,
+                             "seconds": secs, "dtypes": {k: str(v.dtype) for k, v in m.items()}})
+        print(f"[bf16-{tag}] step {i + 1}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} kld "
+              f"{vals['kld']:.6f}; bf16 launches {got16}, fp32 {got32}; {secs:.3f} s")
+        check(all(np.isfinite(v) for v in vals.values()), f"bf16 {tag}: non-finite {vals}")
+        check(got16 == want and not any(got32.values()),
+              f"bf16 {tag} step launched bf16 {got16} and fp32 {got32}, expected bf16 {want}")
+    first = rec["steps"][0]
+    rec["vs_fp32"] = {k: abs(first[k] - ref[k]) / abs(ref[k]) for k in ("loss", "ce", "kld")}
+    params = dict(student.named_parameters())
+    rec["frozen_moved"] = [k for k, p in frozen.items() if not torch.equal(params[k], p)]
+    rec["teacher_changed"] = changed(teacher, {k: v.to(dev) for k, v in t_state.items()})
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"[bf16-{tag}] step 1 vs the fp32 step on the same weights, relative: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rec["vs_fp32"].items())
+          + f" (gate {TOL_BF16_VS_FP32:.0e}); {len(frozen)} frozen student parameters, "
+          f"{len(rec['frozen_moved'])} moved; teacher changed: {rec['teacher_changed'][:3]}; "
+          f"peak {rec['peak_memory_bytes'] / 2**30:.2f} GiB")
+    check(all(v <= TOL_BF16_VS_FP32 for v in rec["vs_fp32"].values()),
+          f"bf16 {tag}: losses vs fp32 above {TOL_BF16_VS_FP32}: {rec['vs_fp32']}")
+    check(frozen and not rec["frozen_moved"] and not rec["teacher_changed"],
+          f"bf16 {tag}: frozen parameters moved {rec['frozen_moved'][:5]} or the teacher "
+          f"changed {rec['teacher_changed'][:5]}")
+    state = {"ts": ts}
+
+    def one():
+        state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+    rec["ms"] = time_ms(one, iters=3, warmup=1)
+    rec["img_per_s"] = TRAIN_BATCH * 1e3 / rec["ms"]
+    print(f"[bf16-{tag}] {TRAIN_BATCH}x{HEIGHT}x{WIDTH} bf16: {rec['ms']:.3f} ms, "
+          f"{rec['img_per_s']:.2f} img/s")
+    rec["profile"] = profile_once(one, f"bf16-{tag}-profile", f"one bf16 {tag} call")
+    rec["profile"].update(family_split(one, f"bf16-{tag}-profile", f"bf16 {tag} call"))
+    rec["launches_bf16"] = {k: sum(r["launches_bf16"][k] for r in rec["steps"])
+                            for k in ("K1", "K2", "K3")}
+    return rec
+
+
+def bf16_vs_cpu(seed: int, dev: torch.device) -> dict:
+    """One bf16 step-2 step at 2x128x256 on the card (kernels) and on the CPU
+    (plain pairs) from the same weights, masks and batch: loss, ce, kld and
+    the student's running statistics (TOL_BF16_CPU)."""
+    n, h, w = SMALL
+    student, teacher, images, labels, masks = train_setup(seed, "cpu", n, h, w)
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        s, t = copy.deepcopy(student).to(d), copy.deepcopy(teacher).to(d)
+        _, step = make_step(s, "bfloat16")
+        _, m = step(steps.init_train_state(s), t, images.to(d), labels.to(d), masks, 1)
+        out[where] = ({k: float(v) for k, v in m.items()},
+                      torch.cat([b.reshape(-1).cpu() for k, b in s.named_buffers()
+                                 if "running" in k]))
+    (m_g, r_g), (m_c, r_c) = out["card"], out["cpu"]
+    rec = {**{k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in ("loss", "ce", "kld")},
+           "running": rel_l2(r_g, r_c), "card": m_g, "cpu": m_c}
+    print(f"[bf16-cpu] {n}x{h}x{w} bf16 step-2 step, card vs CPU: loss {rec['loss']:.2e}, ce "
+          f"{rec['ce']:.2e}, kld {rec['kld']:.2e}, running stats {rec['running']:.2e} (gates "
+          f"{TOL_BF16_CPU})")
+    check(max(rec[k] for k in ("loss", "ce", "kld")) <= TOL_BF16_CPU["loss"]
+          and rec["running"] <= TOL_BF16_CPU["running"], f"bf16 card vs CPU: {rec}")
+    return rec
+
+
+def bf16_cli_chain(seed: int, dev: torch.device) -> dict:
+    """step1 -> step2 -> step3 --dtype bfloat16 through cli.main at 6x512x1024
+    (6 synthetic images per domain and subset, one epoch): each stage's
+    launches exactly its train step's plus 34 K1 per validation batch, all
+    bf16; every LR-0 parameter of step 2 (step 3) bitwise as in step1/best
+    (step2/best); `eval` (float32) of each best: 34 fp32 K1 per batch per head."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "bf16_chain")
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--synthetic", "--synthetic-size", str(TRAIN_BATCH), "--num-epochs", "1",
+              "--batch-size", str(TRAIN_BATCH), "--height", str(HEIGHT), "--width",
+              str(WIDTH), "--seed", str(seed), "--dtype", "bfloat16"]
+    best = {s: os.path.join(root, s, "best") for s in BF16_CHAIN}
+    rec: dict = {}
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for stage, prev in (("step1", None), ("step2", "step1"), ("step3", "step2")):
+            argv = [stage, "--savedir", os.path.dirname(best[stage]), *common]
+            argv += [] if prev is None else ["--state", best[prev]]
+            per_step, n_val = BF16_CHAIN[stage]
+            want = {k: v + n_val * EVAL_LAUNCHES[k] for k, v in per_step.items()}
+            zero_launch_counts()
+            text, secs = run_cli(argv)
+            got16 = bf16_launch_counts()
+            got32 = {k: v - got16[k] for k, v in launch_counts().items()}
+            row = json.loads(text.strip().splitlines()[-1])
+            r = rec[stage] = {"launches_bf16": got16, "launches_fp32": got32, "expected": want,
+                              "seconds": secs, "train_loss": row["train_loss"]}
+            print(f"[bf16-chain] {stage} --dtype bfloat16: {secs:.3f} s; bf16 launches {got16}, "
+                  f"fp32 {got32} (expected bf16 {want}); loss {row['train_loss']:.6f}")
+            check(got16 == want and not any(got32.values()) and np.isfinite(row["train_loss"]),
+                  f"bf16 chain {stage}: {r}")
+            if prev is not None:
+                classes = BF16_CHAIN_CLASSES[stage]
+                task = len(classes) - 1
+                a = keep_tasks(torch_io.load_state(best[prev], "rap"), task)
+                b = torch_io.load_state(best[stage], "rap")
+                lr = rap_lr_tree(ERFNetRAP(classes, len(classes), device="cpu"),
+                                 current_task=task, shared_lr=SHARED_LR, ds_lr=DS_LR)
+                frozen = [k for k, v in lr.items() if v == 0.0]
+                r["frozen"] = len(frozen)
+                r["frozen_moved"] = [k for k in frozen if not torch.equal(a[k], b[k])]
+                print(f"[bf16-chain] {stage}/best vs {prev}/best: {len(frozen)} parameters at "
+                      f"LR 0, {len(r['frozen_moved'])} moved")
+                check(frozen and not r["frozen_moved"], f"bf16 chain {stage}: {r}")
+            datasets = BF16_CHAIN_DATASETS[stage]
+            zero_launch_counts()
+            text, secs = run_cli(["eval", best[stage], "--synthetic", "--batch-size",
+                                  str(TRAIN_BATCH), "--height", str(HEIGHT), "--width", str(WIDTH),
+                                  "--datasets", *datasets])
+            miou = json.loads(text.strip().splitlines()[-1])
+            got, got16 = launch_counts(), bf16_launch_counts()
+            want_eval = {k: len(datasets) * CHAIN_EVAL_BATCHES * v for k, v in EVAL_LAUNCHES.items()}
+            r["eval"] = {"miou": miou, "launches": got, "launches_bf16": got16, "seconds": secs}
+            print(f"[bf16-chain] eval (float32) of {stage}/best: {miou}; launches {got}, bf16 "
+                  f"{got16} (expected {want_eval}, none bf16)")
+            check(got == want_eval and not any(got16.values())
+                  and all(0.0 <= v <= 1.0 for v in miou.values()), f"eval of {stage}: {r['eval']}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+        shutil.rmtree(root, ignore_errors=True)
+    rec["launches_bf16"] = {k: sum(rec[s]["launches_bf16"][k] for s in BF16_CHAIN)
+                            for k in ("K1", "K2", "K3")}
+    return rec
+
+
+def phase_bf16(seed: int, dev: torch.device) -> dict:
+    """Phase 16: bf16 training. K2/K3 bf16 against their plain versions and
+    float64, the bf16 block against float64, a step-2 step and a step-3 batch
+    at 6x512x1024 in bf16 (exact bf16 launches, losses against fp32, frozen
+    parameters and the teacher, times, profiles), card vs CPU, the CLI chain
+    --dtype bfloat16, and K2/K3 bf16's per-block times."""
+    t_phase = time.perf_counter()
+    rec: dict = {"part_seconds": {}}
+    t_part = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        rec["part_seconds"][name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    rec["kernel_cases"] = bf16_pair_cases(seed, dev)
+    part("kernels")
+    rec["blocks"] = bf16_block(seed, dev)
+    part("block")
+    rec["step2"] = bf16_path(train_setup, make_step, STEP_LAUNCHES, 2, "step2", seed + 500, dev)
+    part("step2")
+    rec["step3"] = bf16_path(step3_setup, make_step3, STEP3_LAUNCHES, 1, "step3", seed + 510, dev)
+    part("step3")
+    rec["vs_cpu"] = bf16_vs_cpu(seed + 520, dev)
+    part("vs_cpu")
+    rec["cli_chain"] = bf16_cli_chain(seed, dev)
+    part("cli_chain")
+    rec["times"] = pair_times(seed + 530, dev, TRAIN_BATCH, "bf16")
+    part("times")
+    rec["glue_bound"] = glue_bound(item=2)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[bf16] phase 16 in {rec['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in rec["part_seconds"].items()) + ")")
+    return rec
+
+
+def bf16_entry(rec: dict, kind: str) -> dict:
+    """The bf16 block of K2's ("fwd") or K3's ("bwd") kernels-line entry: its
+    bf16 launches on each path phase 16 drives, and its times summed over the
+    34 pair calls of one student forward (K2) or backward (K3) at 6x512x1024
+    bf16."""
+    blocks, k = rec["times"], "K2" if kind == "fwd" else "K3"
+    t_ops = sum(r["count"] * r[f"{kind}_flops"] / PEAK_FLOPS["bf16"] for r in blocks)
+    t_bytes = sum(r["count"] * r[f"{kind}_bytes"] / PEAK_BYTES for r in blocks)
+    keys = ("y", "stats") if kind == "fwd" else ("du", "dw31", "db31", "dw13", "drap")
+    cases = rec["kernel_cases"]
+    total = lambda key: sum(r["count"] * r[f"{kind}_{key}"] for r in blocks)  # noqa: E731
+    return {
+        "kernels": list(PAIR_KINDS[kind, "bf16"].values()),
+        "launches_step2": rec["step2"]["launches_bf16"][k],
+        "launches_step3": rec["step3"]["launches_bf16"][k],
+        "launches_cli_chain": rec["cli_chain"]["launches_bf16"][k],
+        "max_rel_l2_vs_plain": max(c["rel_l2_vs_plain"][o] for c in cases for o in keys
+                                   if o in c["rel_l2_vs_plain"]),
+        "max_abs_err": max(c["max_abs_err_vs_plain"][o] for c in cases for o in keys
+                           if o in c["max_abs_err_vs_plain"] and o != "stats"),
+        "max_rel_l2_vs_f64": max(c["rel_l2_vs_f64"][o] for c in cases for o in keys
+                                 if o in c["rel_l2_vs_f64"]),
+        "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        **({"wgrad_library_ms": total("wgrad_library_ms")} if kind == "bwd" else {}),
+        "device_ms_by_kind": {
+            kk: None if any(r[f"{kind}_{kk}_ms"] is None for r in blocks)
+            else total(f"{kk}_ms") for kk in PAIR_KINDS[kind, "bf16"]},
+        "at": f"sum over the 34 pair calls (17 blocks x 2) of one student "
+              f"{'forward' if kind == 'fwd' else 'backward'} at 6x512x1024 bfloat16",
+    }
+
+
 def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], keys, blocks,
                  kind: str, **more_launches) -> dict:
     """The kernels-line entry of K2 or K3: `launches` on the step-2 path (and
@@ -2605,7 +3037,7 @@ def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], key
     extra = {k: sum(r["count"] * r[f"{kind}_{k}"] for r in blocks) for k in sums}
     extra["device_ms_by_kind"] = {
         k: None if any(r[f"{kind}_{k}_ms"] is None for r in blocks)
-        else sum(r["count"] * r[f"{kind}_{k}_ms"] for r in blocks) for k in PAIR_KINDS[kind]}
+        else sum(r["count"] * r[f"{kind}_{k}_ms"] for r in blocks) for k in PAIR_KINDS[kind, "f32"]}
     return {
         "name": name, "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_train.cu",
         "replaces": replaces, "launches": launches, **more_launches,
@@ -2668,6 +3100,7 @@ def main(argv=None) -> int:
     chain_root = cli_chain.pop("root")
     slice10 = phase_slice10(args.seed, dev, chain_root)
     ablations = phase_ablations(args.seed, dev, chain_root)
+    bf16 = phase_bf16(args.seed, dev)
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -2694,6 +3127,9 @@ def main(argv=None) -> int:
         "launches_ablation_eval": ablations["eval"]["launches"]["K1"],
         "launches_ablation_export": ablations["export"]["launches"],
         "launches_ablation_steps": ablations["step_launches"]["K1"],
+        "launches_bf16_step2": bf16["step2"]["launches_bf16"]["K1"],
+        "launches_bf16_step3": bf16["step3"]["launches_bf16"]["K1"],
+        "launches_bf16_cli_chain": bf16["cli_chain"]["launches_bf16"]["K1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -2713,7 +3149,8 @@ def main(argv=None) -> int:
                     launches_step3_trainer=trainer["step3"]["launches"]["K2"],
                     launches_cli_chain=cli_chain["launches"]["K2"],
                     launches_ablation_chain=ablations["chain_launches"]["K2"],
-                    launches_ablation_steps=ablations["step_launches"]["K2"]),
+                    launches_ablation_steps=ablations["step_launches"]["K2"],
+                    bf16=bf16_entry(bf16, "fwd")),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
                      ("du", "dw31", "db31", "dw13", "drap"), train_times["blocks"], "bwd",
@@ -2723,14 +3160,15 @@ def main(argv=None) -> int:
                      launches_step3_trainer=trainer["step3"]["launches"]["K3"],
                      launches_cli_chain=cli_chain["launches"]["K3"],
                      launches_ablation_chain=ablations["chain_launches"]["K3"],
-                     launches_ablation_steps=ablations["step_launches"]["K3"])]}
+                     launches_ablation_steps=ablations["step_launches"]["K3"],
+                     bf16=bf16_entry(bf16, "bwd"))]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
               "kernel_cases": cases, "main_path": main_path, "times": times,
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
               "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
-              "slice10": slice10, "ablations": ablations,
+              "slice10": slice10, "ablations": ablations, "bf16": bf16,
               "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -90,7 +90,8 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--spatial-shards", type=int, default=1,
                    help="one device only: anything but 1 raises (ROADMAP A10)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                   help="bfloat16 training raises (ROADMAP R7)")
+                   help="compute type of the forwards (bfloat16: bf16 activations and "
+                        "kernels; parameters, optimizer state and losses stay float32)")
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
     p.add_argument("--synthetic-size", type=int, default=24)
     p.add_argument("--profile-dir", default=None,

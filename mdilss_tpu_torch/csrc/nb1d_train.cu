@@ -70,6 +70,7 @@
 
 #include <type_traits>
 
+#include "bf16_pair.cuh"
 #include "tf32_pair.cuh"
 
 namespace {
@@ -524,6 +525,498 @@ cudaError_t bwd(const float* raw, const float* gy, const float* w31, const float
   return launch_reduce(part, P, len, grads, s);
 }
 
+// ---- bfloat16: K2 and K3 on bf16 mma.sync with fp32 accumulators (bf16_pair.cuh) ----------
+
+// K2 in bf16: the bf16 pair mainloop (K1's, with the pre-stage), then y rounded to bf16 and the
+// CTA's [2][C] partial sum and sum of squares of the ROUNDED y (what the next pair and the BN glue
+// read, nb1d_train.py:162-165), over its columns inside the image: per thread, over the 8 lanes of
+// each channel pair (a fixed shuffle tree), then over the warp rows in order. Shared memory:
+// bf16_pair_smem_bytes.
+template <int C>
+__global__ void __launch_bounds__(Mma<C>::THREADS, 512 / Mma<C>::THREADS)  // <= 128 registers
+fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
+                     const float* __restrict__ b31, const bf16* __restrict__ w13,
+                     const bf16* __restrict__ rap, const float* __restrict__ pa,
+                     const float* __restrict__ pb, bf16* __restrict__ y,
+                     float* __restrict__ part, int H, int W, int d) {
+  using K = Mma<C>;
+  extern __shared__ uint4 smem16[];
+  bf16* smem = reinterpret_cast<bf16*>(smem16);
+  const int w0 = blockIdx.x * K::TM;
+  const size_t row_base = (static_cast<size_t>(blockIdx.z) * H + blockIdx.y) * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
+  float acc[K::MT][K::NT][4];
+  bf16_pair_mainloop<C>(smem, x, w31, b31, w13, rap, pa, pb, H, W, d, acc);
+
+  float s[K::NT][2], q[K::NT][2];
+#pragma unroll
+  for (int nt = 0; nt < K::NT; ++nt) s[nt][0] = s[nt][1] = q[nt][0] = q[nt][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K::MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
+        if (col >= W) continue;
+        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(y + (row_base + col) * C + co) = v;
+        const float2 f = __bfloat1622float2(v);
+        s[nt][0] += f.x;
+        s[nt][1] += f.y;
+        q[nt][0] += f.x * f.x;
+        q[nt][1] += f.y * f.y;
+      }
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[nt][e] += __shfl_xor_sync(0xffffffffu, s[nt][e], off);
+        q[nt][e] += __shfl_xor_sync(0xffffffffu, q[nt][e], off);
+      }
+  float* red = reinterpret_cast<float*>(smem);  // [WM][2][C]; the ring is free after its last barrier
+  if (g == 0)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt) {
+      const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+      st2(red + (wm * 2 + 0) * C + co, s[nt][0], s[nt][1]);
+      st2(red + (wm * 2 + 1) * C + co, q[nt][0], q[nt][1]);
+    }
+  __syncthreads();
+  float* out = part + cta_index() * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += K::THREADS) {
+    float sum = 0.f;
+    for (int k = 0; k < K::WM; ++k) sum += red[k * 2 * C + i];
+    out[i] = sum;
+  }
+}
+
+// One tap of a bf16 conv launch of K3: output pixel (row, w0 + m) reads row[(w0 + m + shift) * C ..]
+// (0 outside the image) against the weight rows w[ci][co].
+struct Tap16 {
+  const bf16* row;
+  const bf16* w;
+  int shift;
+};
+
+// acc += sum over the taps j < ntaps of A_j @ tap(j).w for the CTA's TM pixels w0 .. of one row,
+// A_j through the pre-stage where pa is non-null; the tiles of the pair's stage B (Mma<C>), each
+// tap's K streamed in chunks of KC input channels through the ring.
+template <int C, typename TapFn>
+__device__ __forceinline__ void conv_gemm_bf16(bf16* smem, TapFn tap, int ntaps, int w0, int W,
+                                               const float* __restrict__ pa,
+                                               const float* __restrict__ pb,
+                                               float (&acc)[Mma<C>::MT][Mma<C>::NT][4]) {
+  using K = Mma<C>;
+  const int warp = threadIdx.x >> 5, wm = warp % K::WM, wn = warp / K::WM;
+  pipeline(
+      ntaps * K::NCH,
+      [&](int s, int buf) {
+        const Tap16 tp = tap(s / K::NCH);
+        const int ci0 = (s % K::NCH) * K::KC;
+        bf16* A = smem + buf * K::STAGE;
+        fetch_rows<C>(A, tp.row + ci0, w0 + tp.shift, K::TM, W);
+        fetch_weights<C>(A + K::B_OFF, tp.w + static_cast<size_t>(ci0) * C);
+      },
+      [&](int s, int buf) {
+        pre_rows<C>(smem + buf * K::STAGE, w0 + tap(s / K::NCH).shift, K::TM, W, pa, pb,
+                    (s % K::NCH) * K::KC);
+      },
+      [&](int, int buf) {
+        const bf16* A = smem + buf * K::STAGE;
+        warp_mma<K::KC, K::MT, K::NT, K::LDA, K::LDB>(acc, A + wm * K::MT * 16 * K::LDA, 16,
+                                                      K::MT, A + K::B_OFF + wn * K::NT * 8);
+      });
+}
+
+// K3 in bf16, launch 1: c (recomputed in K2's order, so for the same inputs the same bf16 c and
+// the same side of each relu) written to a scratch buffer, its sign kept in registers; then
+// dc = bf16(colconv_d^T(gy) * [c > 0]).
+template <int C>
+__global__ void __launch_bounds__(Mma<C>::THREADS, 2)
+bwd_dc_bf16_kernel(const bf16* __restrict__ raw, const bf16* __restrict__ gy,
+                   const bf16* __restrict__ w31, const float* __restrict__ b31,
+                   const bf16* __restrict__ w13t, const float* __restrict__ pa,
+                   const float* __restrict__ pb, bf16* __restrict__ cbuf, bf16* __restrict__ dc,
+                   int H, int W, int d) {
+  using K = Mma<C>;
+  extern __shared__ uint4 smem16[];
+  bf16* smem = reinterpret_cast<bf16*>(smem16);
+  const int w0 = blockIdx.x * K::TM, r = blockIdx.y;
+  const size_t img_row0 = static_cast<size_t>(blockIdx.z) * H;
+  const size_t row_base = (img_row0 + r) * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
+  static_assert(K::MT * K::NT * 4 <= 32, "one sign bit per fragment element");
+
+  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2;  // row taps inside the image
+  float acc[K::MT][K::NT][4];
+  zero_frags(acc);
+  conv_gemm_bf16<C>(
+      smem,
+      [&](int j) {
+        const int tap = k0 + j;
+        return Tap16{raw + (img_row0 + r + (tap - 1) * d) * W * C,
+                     w31 + static_cast<size_t>(tap) * C * C, 0};
+      },
+      k1 - k0 + 1, w0, W, pa, pb, acc);
+  uint32_t pos = 0;  // bit (i*NT + nt)*4 + e: c > 0
+#pragma unroll
+  for (int i = 0; i < K::MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
+        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+        const float2 bias = *reinterpret_cast<const float2*>(b31 + co);
+        const __nv_bfloat162 cv = __floats2bfloat162_rn(fmaxf(acc[i][nt][2 * h] + bias.x, 0.f),
+                                                        fmaxf(acc[i][nt][2 * h + 1] + bias.y, 0.f));
+        const float2 cf = __bfloat1622float2(cv);
+        const int bit = (i * K::NT + nt) * 4 + 2 * h;
+        pos |= (cf.x > 0.f ? 1u : 0u) << bit;
+        pos |= (cf.y > 0.f ? 1u : 0u) << (bit + 1);
+        if (col < W) *reinterpret_cast<__nv_bfloat162*>(cbuf + (row_base + col) * C + co) = cv;
+      }
+
+  // g = colconv_d^T(gy): the 1x3 conv of gy with the transposed, tap-reversed stack
+  zero_frags(acc);
+  conv_gemm_bf16<C>(
+      smem,
+      [&](int j) {
+        return Tap16{gy + row_base * C, w13t + static_cast<size_t>(j) * C * C, (j - 1) * d};
+      },
+      3, w0, W, nullptr, nullptr, acc);
+#pragma unroll
+  for (int i = 0; i < K::MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
+        if (col >= W) continue;
+        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+        const int bit = (i * K::NT + nt) * 4 + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(dc + (row_base + col) * C + co) =
+            __floats2bfloat162_rn((pos >> bit) & 1u ? acc[i][nt][2 * h] : 0.f,
+                                  (pos >> (bit + 1)) & 1u ? acc[i][nt][2 * h + 1] : 0.f);
+      }
+}
+
+// K3 in bf16, launch 2: du = bf16(rowconv_d^T(dc) [+ gy @ rap^T]).
+template <int C>
+__global__ void __launch_bounds__(Mma<C>::THREADS, 2)
+bwd_du_bf16_kernel(const bf16* __restrict__ dc, const bf16* __restrict__ gy,
+                   const bf16* __restrict__ w31t, const bf16* __restrict__ rapt,
+                   bf16* __restrict__ du, int H, int W, int d) {
+  using K = Mma<C>;
+  extern __shared__ uint4 smem16[];
+  bf16* smem = reinterpret_cast<bf16*>(smem16);
+  const int w0 = blockIdx.x * K::TM, r = blockIdx.y;
+  const size_t img_row0 = static_cast<size_t>(blockIdx.z) * H;
+  const size_t row_base = (img_row0 + r) * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
+
+  // the row taps k0 .. k1 inside the image, then RAP on gy's own row
+  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2, nrow = k1 - k0 + 1;
+  float acc[K::MT][K::NT][4];
+  zero_frags(acc);
+  conv_gemm_bf16<C>(
+      smem,
+      [&](int j) {
+        return j < nrow ? Tap16{dc + (img_row0 + r + (k0 + j - 1) * d) * W * C,
+                                w31t + static_cast<size_t>(k0 + j) * C * C, 0}
+                        : Tap16{gy + row_base * C, rapt, 0};
+      },
+      nrow + (rapt != nullptr ? 1 : 0), w0, W, nullptr, nullptr, acc);
+#pragma unroll
+  for (int i = 0; i < K::MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
+        if (col >= W) continue;
+        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(du + (row_base + col) * C + co) =
+            __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
+      }
+}
+
+// K3 in bf16, launch 3: weight-gradient partials, as bwd_wgrad_kernel tiles them (M = ci, N = co,
+// K = pixels; a fixed grid of P CTAs per matrix, two per matrix at C = 128, one per half of the
+// columns; tiles of TP pixels of one image row) but on bf16 mma.sync: the A tile [pixel][ci] is
+// read transposed by ldmatrix, the B tile [pixel][co] as the pair's weights are. Each CTA sums
+// its tiles in the fp32 accumulators; at C = 16 the 8 warps split each tile's k16 steps and are
+// summed in a fixed order at the end.
+template <int C>
+struct WG16 {
+  static constexpr int HALVES = C >= 128 ? 2 : 1;
+  static constexpr int CO = C / HALVES;             // output columns per CTA
+  static constexpr int KS = C == 16 ? 8 : 1;        // warps splitting the k16 steps
+  static constexpr int MT = C == 16 ? 1 : 2;
+  static constexpr int NT = C >= 128 ? 4 : 2;
+  static constexpr int WN = CO / (8 * NT);          // 2, 4, 1 for C = 128, 64, 16
+  static constexpr int WM = C / (16 * MT);          // 4, 2, 1
+  static constexpr int TP = C == 16 ? 128 : 64;     // pixels per staged tile
+  static constexpr int LDA = C + 8, LDB = CO + 8;   // bf16: A tile [TP][LDA], B tile [TP][LDB]
+  static constexpr int B_OFF = TP * LDA;            // stage: A then B
+  static constexpr int STAGE = B_OFF + TP * LDB;
+  static constexpr int AV = C / 8, BV = CO / 8;     // 16-byte groups per pixel of a tile
+  static constexpr int DL = kThreads / BV;          // db31 lanes, 8 channels each
+  static constexpr int RED = KS > 1 ? KS * C * C : 0;  // floats of the per-warp sums
+  static_assert(WM * WN * KS * 32 == kThreads && (TP / 16) % KS == 0 && NT % 2 == 0,
+                "wgrad tile shape");
+  static_assert(kThreads % BV == 0 && (TP * BV) % kThreads == 0, "db31 lanes");
+  static_assert(4 * (RED + DL * CO) <= 2 * kStages * STAGE, "the epilogue reuses the ring");
+};
+
+// The pixel tiles blockIdx.x, blockIdx.x + P, ... of a weight-gradient CTA in order (TP pixels of
+// one image row each), walked without a division per tile: a step of P tiles is step_w tile
+// columns and step_r rows, plus the carries.
+struct TileWalk {
+  int n, r, w0;  // image, row and first column of the tile
+  int step_r, step_w, span, H;
+  __device__ TileWalk(int P, int tpr, int tp, int H_) : span(tpr * tp), H(H_) {
+    const int t = static_cast<int>(blockIdx.x), nr = t / tpr;
+    n = nr / H;
+    r = nr - n * H;
+    w0 = (t - nr * tpr) * tp;
+    step_r = P / tpr;
+    step_w = (P - step_r * tpr) * tp;
+  }
+  __device__ void advance() {
+    w0 += step_w;
+    r += step_r;
+    if (w0 >= span) {
+      w0 -= span;
+      ++r;
+    }
+    while (r >= H) {
+      r -= H;
+      ++n;
+    }
+  }
+};
+
+// Matrix `mat` = blockIdx.y: 0-2 dw31[k] (A = u at row r+(k-1)d, B = dc), 3-5 dw13[k] (A = c at
+// column w+(k-1)d, B = gy), 6 drap (A = u, B = gy); matrix 1 also sums db31 = sum dc. Columns
+// blockIdx.z * CO onwards.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+bwd_wgrad_bf16_kernel(const bf16* __restrict__ raw, const float* __restrict__ pa,
+                      const float* __restrict__ pb, const bf16* __restrict__ cbuf,
+                      const bf16* __restrict__ dc, const bf16* __restrict__ gy,
+                      float* __restrict__ part, size_t part_len, int N, int H, int W, int d) {
+  using K = WG16<C>;
+  extern __shared__ uint4 smem16[];
+  bf16* smem = reinterpret_cast<bf16*>(smem16);
+  const int mat = blockIdx.y, P = gridDim.x, co0 = blockIdx.z * K::CO;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kw = warp % K::KS, wmn = warp / K::KS, wm = wmn % K::WM, wn = wmn / K::WM;
+  const int tpr = row_tiles(W, K::TP), ntiles = N * H * tpr;
+  const int mine = (ntiles - static_cast<int>(blockIdx.x) + P - 1) / P;  // tiles of this CTA
+
+  const bool a_is_c = mat >= 3 && mat < 6;
+  const bf16* asrc = a_is_c ? cbuf : raw;
+  const bf16* bsrc = mat < 3 ? dc : gy;
+  const float* apa = a_is_c ? nullptr : pa;
+  const int drow = mat < 3 ? (mat - 1) * d : 0;
+  const int dcol = a_is_c ? (mat - 4) * d : 0;
+
+  TileWalk fetched(P, tpr, K::TP, H), fixed = fetched;  // the next tile to fetch / to fix up
+  // source of A group idx of the tile, or null for zero padding / past the row's end
+  auto a_src = [&](const TileWalk& ta, int idx) -> const bf16* {
+    const int w = ta.w0 + idx / K::AV, ac = w + dcol, ar = ta.r + drow;
+    if (w >= W || ar < 0 || ar >= H || ac < 0 || ac >= W) return nullptr;
+    return asrc + ((static_cast<size_t>(ta.n) * H + ar) * W + ac) * C + (idx % K::AV) * 8;
+  };
+  auto a_dst = [&](int buf, int idx) {
+    return smem + buf * K::STAGE + (idx / K::AV) * K::LDA + (idx % K::AV) * 8;
+  };
+  auto b_dst = [&](int buf, int idx) {
+    return smem + buf * K::STAGE + K::B_OFF + (idx / K::BV) * K::LDB + (idx % K::BV) * 8;
+  };
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  auto fetch = [&](int, int buf) {  // called for stages 0, 1, ... in order
+    const TileWalk ta = fetched;
+    fetched.advance();
+    for (int idx = threadIdx.x; idx < K::TP * K::AV; idx += kThreads) {
+      const bf16* src = a_src(ta, idx);
+      if (src != nullptr) cp_async16(a_dst(buf, idx), src);
+      else *reinterpret_cast<uint4*>(a_dst(buf, idx)) = zero;
+    }
+    const bf16* brow = bsrc + (static_cast<size_t>(ta.n) * H + ta.r) * W * C + co0;
+    for (int idx = threadIdx.x; idx < K::TP * K::BV; idx += kThreads) {
+      const int p = idx / K::BV;
+      if (ta.w0 + p < W)
+        cp_async16(b_dst(buf, idx), brow + static_cast<size_t>(ta.w0 + p) * C + (idx % K::BV) * 8);
+      else *reinterpret_cast<uint4*>(b_dst(buf, idx)) = zero;
+    }
+  };
+  // db31 = sum dc: each thread sums the 8 channels (threadIdx.x % BV)*8.. of the B groups it
+  // copied; the DL lanes are summed in a fixed order at the end
+  float bsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  auto fixup = [&](int, int buf) {  // called for stages 0, 1, ... in order
+    const TileWalk ta = fixed;
+    fixed.advance();
+    if (apa != nullptr)
+      for (int idx = threadIdx.x; idx < K::TP * K::AV; idx += kThreads)
+        if (a_src(ta, idx) != nullptr) pre8(a_dst(buf, idx), apa, pb, (idx % K::AV) * 8);
+    if (mat == 1)
+      for (int idx = threadIdx.x; idx < K::TP * K::BV; idx += kThreads) {
+        uint4 raw8 = *reinterpret_cast<const uint4*>(b_dst(buf, idx));
+        const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(v[e]);
+          bsum[2 * e] += f.x;
+          bsum[2 * e + 1] += f.y;
+        }
+      }
+  };
+
+  float acc[K::MT][K::NT][4];
+  zero_frags(acc);
+  const int j = lane >> 3, r8 = lane & 7;
+  auto compute = [&](int, int buf) {
+    const bf16* A = smem + buf * K::STAGE;
+    const bf16* B = A + K::B_OFF + wn * K::NT * 8;
+#pragma unroll
+    for (int i = 0; i < K::TP / 16 / K::KS; ++i) {
+      const int k0 = (kw + i * K::KS) * 16;
+      uint32_t bf[K::NT][2];
+      load_b_frags<K::NT, K::LDB>(bf, B, k0);
+#pragma unroll
+      for (int mt = 0; mt < K::MT; ++mt) {
+        // A^T: matrix j holds ci 8(j%2) .., pixels 8(j/2) ..; its rows in memory are pixels
+        uint32_t af[4];
+        ldsm_x4_trans(af, A + (k0 + (j >> 1) * 8 + r8) * K::LDA + wm * K::MT * 16 + mt * 16 +
+                              (j & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < K::NT; ++nt) mma_bf16(acc[mt][nt], af, bf[nt]);
+      }
+    }
+  };
+  pipeline(mine, fetch, fixup, compute);
+
+  // fragment element (mt, nt, e): ci = wm*16MT + mt*16 + g + 8(e/2), co = wn*8NT + nt*8 + 2t + e%2
+  const int g = lane >> 2, t = lane & 3;
+  float* out = part + static_cast<size_t>(blockIdx.x) * part_len + grad_offset(mat, C);
+  float* red = reinterpret_cast<float*>(smem);  // [KS][C][C] (KS > 1)
+#pragma unroll
+  for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = wm * K::MT * 16 + mt * 16 + g + 8 * h;
+        const int co = co0 + wn * K::NT * 8 + nt * 8 + 2 * t;
+        const float a0 = acc[mt][nt][2 * h], a1 = acc[mt][nt][2 * h + 1];
+        if constexpr (K::KS == 1) st2(out + ci * C + co, a0, a1);
+        else st2(red + (kw * C + ci) * C + co, a0, a1);
+      }
+  if constexpr (K::KS > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < C * C; e += kThreads) {
+      float sum = 0.f;
+      for (int k = 0; k < K::KS; ++k) sum += red[k * C * C + e];
+      out[e] = sum;
+    }
+  }
+  if (mat == 1) {
+    float* rb = red + K::RED;  // [DL][CO]
+    float* mine8 = rb + (threadIdx.x / K::BV) * K::CO + (threadIdx.x % K::BV) * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) mine8[e] = bsum[e];
+    __syncthreads();
+    float* db = part + static_cast<size_t>(blockIdx.x) * part_len + static_cast<size_t>(6) * C * C;
+    for (int c = threadIdx.x; c < K::CO; c += kThreads) {
+      float sum = 0.f;
+      for (int l = 0; l < K::DL; ++l) sum += rb[l * K::CO + c];
+      db[co0 + c] = sum;
+    }
+  }
+}
+
+template <int C>
+size_t fwd_bf16_partials(int n, int h, int w) {
+  const dim3 g = bf16_pair_grid<C>(n, h, w);
+  return static_cast<size_t>(g.x) * g.y * g.z;
+}
+
+template <int C>
+int wgrad_bf16_ctas(int n, int h, int w) {
+  const long long ntiles = static_cast<long long>(n) * h * row_tiles(w, WG16<C>::TP);
+  return static_cast<int>(ntiles < 64 ? ntiles : 64);
+}
+
+template <int C>
+cudaError_t fwd_bf16(const bf16* x, const bf16* w31, const float* b31, const bf16* w13,
+                     const bf16* rap, const float* pa, const float* pb, bf16* y, float* stats,
+                     float* scratch, int n, int h, int w, int d, cudaStream_t s) {
+  // shared memory: the ring and c (a halo too wide for a block fails at the attribute)
+  const size_t smem = bf16_pair_smem_bytes<C>(d);
+  if (smem > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fwd_pair_bf16_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  fwd_pair_bf16_kernel<C><<<bf16_pair_grid<C>(n, h, w), Mma<C>::THREADS, smem, s>>>(
+      x, w31, b31, w13, rap, pa, pb, y, scratch, h, w, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce(scratch, static_cast<int>(fwd_bf16_partials<C>(n, h, w)), 2 * C, stats, s);
+}
+
+template <int C>
+cudaError_t bwd_bf16(const bf16* raw, const bf16* gy, const bf16* w31, const float* b31,
+                     const bf16* w13t, const bf16* w31t, const bf16* rapt, const float* pa,
+                     const float* pb, bf16* du, float* grads, float* scratch, int n, int h,
+                     int w, int d, cudaStream_t s) {
+  // the weight-gradient kernel indexes pixels with int
+  if (static_cast<long long>(n) * h * w > INT_MAX) return cudaErrorInvalidValue;
+  const size_t act = static_cast<size_t>(n) * h * w * C;
+  bf16* cbuf = reinterpret_cast<bf16*>(scratch);
+  bf16* dc = cbuf + act;
+  float* part = scratch + act;  // after c and dc: 2 * act bf16 = act floats
+  const dim3 grid = bf16_pair_grid<C>(n, h, w);
+
+  size_t smem = sizeof(bf16) * kStages * Mma<C>::STAGE;
+  cudaError_t err = set_smem(bwd_dc_bf16_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  bwd_dc_bf16_kernel<C><<<grid, Mma<C>::THREADS, smem, s>>>(raw, gy, w31, b31, w13t, pa, pb, cbuf,
+                                                            dc, h, w, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = set_smem(bwd_du_bf16_kernel<C>, smem)) != cudaSuccess) return err;
+  bwd_du_bf16_kernel<C><<<grid, Mma<C>::THREADS, smem, s>>>(dc, gy, w31t, rapt, du, h, w, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const bool rap = rapt != nullptr;
+  const size_t len = grad_len(C, rap);
+  const int P = wgrad_bf16_ctas<C>(n, h, w);
+  smem = sizeof(bf16) * kStages * WG16<C>::STAGE;
+  if ((err = set_smem(bwd_wgrad_bf16_kernel<C>, smem)) != cudaSuccess) return err;
+  bwd_wgrad_bf16_kernel<C><<<dim3(P, rap ? 7 : 6, WG16<C>::HALVES), kThreads, smem, s>>>(
+      raw, pa, pb, cbuf, dc, gy, part, len, n, h, w, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce(part, P, len, grads, s);
+}
+
+// f(std::integral_constant<int, C>{}) for the supported channel counts, else invalid
+template <typename F>
+cudaError_t by_channels(int channels, F f) {
+  switch (channels) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 bool bad_shape(int n, int h, int w, int d) {
   return n <= 0 || h <= 0 || w <= 0 || d <= 0 || h > 65535 || n > 65535;
 }
@@ -620,4 +1113,67 @@ extern "C" int nb1d_train_bwd(int channels, const void* raw, const void* gy, con
 
 extern "C" const char* nb1d_train_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Floats of scratch nb1d_train_fwd_bf16 needs (the per-CTA partial stats); -1 for an unsupported C.
+extern "C" long long nb1d_train_fwd_bf16_scratch(int channels, int n, int h, int w) {
+  switch (channels) {
+    case 16: return static_cast<long long>(fwd_bf16_partials<16>(n, h, w)) * 2 * 16;
+    case 64: return static_cast<long long>(fwd_bf16_partials<64>(n, h, w)) * 2 * 64;
+    case 128: return static_cast<long long>(fwd_bf16_partials<128>(n, h, w)) * 2 * 128;
+    default: return -1;
+  }
+}
+
+// K2 in bf16, as nb1d_train_fwd with x, y, w31, w13 and rap in bf16 (b31, pa, pb, stats float32);
+// the stats are the sums of the bf16 y.
+extern "C" int nb1d_train_fwd_bf16(int channels, const void* x, const void* w31, const void* b31,
+                                   const void* w13, const void* rap, const void* pa,
+                                   const void* pb, void* y, void* stats, void* scratch, int n,
+                                   int h, int w, int d, void* stream) {
+  if (bad_shape(n, h, w, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_channels(channels, [&](auto c) {
+    return fwd_bf16<decltype(c)::value>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w31),
+        static_cast<const float*>(b31), static_cast<const bf16*>(w13),
+        static_cast<const bf16*>(rap), static_cast<const float*>(pa),
+        static_cast<const float*>(pb), static_cast<bf16*>(y), static_cast<float*>(stats),
+        static_cast<float*>(scratch), n, h, w, d, s);
+  }));
+}
+
+// Floats of scratch nb1d_train_bwd_bf16 needs: c and dc in bf16 (n*h*w*C each, n*h*w*C floats
+// together) and the weight-gradient partials; -1 for an unsupported C.
+extern "C" long long nb1d_train_bwd_bf16_scratch(int channels, int n, int h, int w, int rap) {
+  const long long act = static_cast<long long>(n) * h * w * channels;
+  long long ctas;
+  switch (channels) {
+    case 16: ctas = wgrad_bf16_ctas<16>(n, h, w); break;
+    case 64: ctas = wgrad_bf16_ctas<64>(n, h, w); break;
+    case 128: ctas = wgrad_bf16_ctas<128>(n, h, w); break;
+    default: return -1;
+  }
+  return act + ctas * static_cast<long long>(grad_len(channels, rap != 0));
+}
+
+// K3 in bf16, as nb1d_train_bwd with raw, gy, du and the weight stacks in bf16 (b31, pa, pb and
+// the gradient vector float32). du is rounded to bf16 once; the weight gradients are fp32 sums of
+// bf16 products.
+extern "C" int nb1d_train_bwd_bf16(int channels, const void* raw, const void* gy, const void* w31,
+                                   const void* b31, const void* w13t, const void* w31t,
+                                   const void* rapt, const void* pa, const void* pb, void* du,
+                                   void* grads, void* scratch, int n, int h, int w, int d,
+                                   void* stream) {
+  if (bad_shape(n, h, w, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_channels(channels, [&](auto c) {
+    return bwd_bf16<decltype(c)::value>(
+        static_cast<const bf16*>(raw), static_cast<const bf16*>(gy),
+        static_cast<const bf16*>(w31), static_cast<const float*>(b31),
+        static_cast<const bf16*>(w13t), static_cast<const bf16*>(w31t),
+        static_cast<const bf16*>(rapt), static_cast<const float*>(pa),
+        static_cast<const float*>(pb), static_cast<bf16*>(du), static_cast<float*>(grads),
+        static_cast<float*>(scratch), n, h, w, d, s);
+  }));
 }

@@ -101,16 +101,19 @@ def draw_augment(gen: torch.Generator, n: int):
 # ---------------------------------------------------------------------------
 
 def augment_batch(images_u8: torch.Tensor, labels_u8: torch.Tensor, flip, tx, ty, *,
-                  num_classes: int):
+                  num_classes: int, out_dtype: torch.dtype = torch.float32):
     """Train-time augment on the tensors' device: hflip where `flip`, a
     (tx, ty) translate (content moves right/down for positive shifts), /255,
     relabel 255 -> num_classes - 1.
 
     images_u8 [N,H,W,3] uint8, labels_u8 [N,H,W] uint8; flip, tx, ty [N]
-    (`draw_augment`'s draws; any device). Returns (images float32 in [0, 1],
-    labels int32). A pixel shifted in from the top/left takes 0 in the image
-    and 255 (then the ignore class) in the label; one from the bottom/right
-    takes 0 in both, as PIL's expand + crop gives."""
+    (`draw_augment`'s draws; any device). Returns (images in [0, 1] of type
+    `out_dtype`, labels int32): a bf16 trainer passes torch.bfloat16, and the
+    /255 still runs in float32 and then rounds, so the values are those of a
+    later cast (mdilss_tpu/data/transforms.py:113, :143-144). A pixel shifted
+    in from the top/left takes 0 in the image and 255 (then the ignore class)
+    in the label; one from the bottom/right takes 0 in both, as PIL's expand
+    + crop gives."""
     n, h, w = labels_u8.shape
     dev = images_u8.device
     # the three draws in one small host -> device copy
@@ -134,7 +137,7 @@ def augment_batch(images_u8: torch.Tensor, labels_u8: torch.Tensor, flip, tx, ty
     imgs = torch.where((border_pos | border_neg)[..., None], zero, imgs)
     lbls = torch.where(border_pos, torch.full_like(zero, 255), lbls)
     lbls = torch.where(border_neg, zero, lbls)
-    return _finalize(imgs, lbls, num_classes)
+    return _finalize(imgs, lbls, num_classes, out_dtype)
 
 
 def prepare_batch(images_u8, labels_u8, *, num_classes: int):
@@ -150,8 +153,9 @@ def prepare_batch(images_u8, labels_u8, *, num_classes: int):
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
-def _finalize(imgs_u8: torch.Tensor, lbls_u8: torch.Tensor, num_classes: int):
-    images = imgs_u8.to(torch.float32) * _INV_255
+def _finalize(imgs_u8: torch.Tensor, lbls_u8: torch.Tensor, num_classes: int,
+              out_dtype: torch.dtype = torch.float32):
+    images = (imgs_u8.to(torch.float32) * _INV_255).to(out_dtype)
     labels = lbls_u8.to(torch.int32)
     labels = torch.where(labels == 255, num_classes - 1, labels)
     return images, labels

@@ -15,7 +15,8 @@ dispatcher picks by the tensors' device only; a CUDA tensor the kernel does
 not take raises, it never falls back to the plain version or to the other
 kernel.
 
-`LAUNCHES` counts kernel launches (two per block).
+`LAUNCHES` counts kernel launches (two per block), `LAUNCHES_BF16` the
+bfloat16 ones among them.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from . import _build
 from .norm import fold_bn
 
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 LAUNCHES_PER_BLOCK = 2
 SUPPORTED_CHANNELS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -235,7 +237,7 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _launch_pair(u, w31, b31, w13, rap, a, b, res, d: int) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     lib = _library()
     n, c, h, w = u.shape
     out = torch.empty_like(u, memory_format=torch.channels_last)
@@ -252,4 +254,6 @@ def _launch_pair(u, w31, b31, w13, rap, a, b, res, d: int) -> torch.Tensor:
             f"{u.dtype}, dilation {d}"
         )
     LAUNCHES += 1
+    if u.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
     return out

@@ -23,9 +23,16 @@ is unchanged, they get no gradient (zero in JAX), and only the recorded
 running mean adds them back (`nb1d_train_apply`).
 
 Weights are torch conv weights (w31 [C, C, 3, 1], w13 [C, C, 1, 3]); a RAP
-matrix is [C_in, C_out] (`x @ rap`); activations are NCHW float32 in
-torch.channels_last memory. `LAUNCHES_FWD` / `LAUNCHES_BWD` count kernel
-calls of `fwd_pair` / `bwd_pair`.
+matrix is [C_in, C_out] (`x @ rap`); activations are NCHW float32 or bfloat16
+in torch.channels_last memory. In bfloat16 (the Trainer's
+`compute_dtype="bfloat16"`) the pairs take and return bf16 activations and
+run the weights rounded to bf16, with fp32 accumulation, and round at the
+kernels' points only: u after the pre-stage, c after bias and relu, y, dc
+and du; the stats and the weight gradients are float32, and the glue of
+`Nb1dTrain` computes in float32 and casts back to the activation type where
+the JAX block does (nb1d_train.py:461-464, :496-520). `LAUNCHES_FWD` /
+`LAUNCHES_BWD` count kernel calls of `fwd_pair` / `bwd_pair` of every type,
+`LAUNCHES_FWD_BF16` / `LAUNCHES_BWD_BF16` the bfloat16 ones among them.
 """
 from __future__ import annotations
 
@@ -41,7 +48,11 @@ from .norm import BN_EPS, update_running_stats
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+LAUNCHES_FWD_BF16 = 0
+LAUNCHES_BWD_BF16 = 0
 SUPPORTED_CHANNELS = (16, 64, 128)
+# the kernels' activation types -> the suffix of their C entries
+_ENTRY = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -55,29 +66,63 @@ def _pre(x: torch.Tensor, pre) -> torch.Tensor:
     return F.relu(x * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1))
 
 
-def _pair(u, w31, b31, w13, rap, d: int) -> torch.Tensor:
-    c = F.relu(F.conv2d(u, w31, b31, padding=(d, 0), dilation=(d, 1)))
+def _acc(dt: torch.dtype) -> torch.dtype:
+    """The type the plain pairs compute in for activations of type `dt`:
+    float32 for bfloat16 and float32, float64 for float64."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def _pair(u, w31, b31, w13, rap, d: int, dt: torch.dtype) -> torch.Tensor:
+    """y in the compute type from u in it, c rounded to the activation type
+    `dt` (a no-op unless dt is bfloat16). In autograd the rounding of c also
+    rounds the gradient reaching c, so dc is rounded as the kernel rounds it."""
+    acc = u.dtype
+    c = F.relu(F.conv2d(u, w31, b31, padding=(d, 0), dilation=(d, 1))).to(dt).to(acc)
     y = F.conv2d(c, w13, padding=(0, d), dilation=(1, d))
     if rap is not None:
         y = y + F.conv2d(u, rap.t()[:, :, None, None])
     return y
 
 
+def _plain_operands(x, w31, b31, w13, rap, pre):
+    """The pair's operands in the compute type of x: the weight matrices
+    rounded to x's type first (the kernels take them in it), b31 and the
+    pre-stage as they are (float32 in the kernels)."""
+    dt, acc = x.dtype, _acc(x.dtype)
+    rw = lambda t: None if t is None else t.detach().to(dt).to(acc)  # noqa: E731
+    pre = None if pre is None else tuple(t.detach().to(acc) for t in pre)
+    return rw(w31), b31.detach().to(acc), rw(w13), rw(rap), pre
+
+
 def fwd_pair_plain(x, w31, b31, w13, rap, pre, d: int):
-    """(y, stats [2, C] = sum and sum of squares of y over N, H, W)."""
-    y = _pair(_pre(x, pre), w31, b31, w13, rap, d)
-    return y, torch.stack([y.sum((0, 2, 3)), y.square().sum((0, 2, 3))])
+    """(y in x's type, stats [2, C] = sum and sum of squares of y over N, H,
+    W in the compute type). bfloat16 x: float32 arithmetic on the bf16
+    values, u, c and y rounded to bf16 where the kernel rounds them, the
+    stats from the rounded y."""
+    dt, acc = x.dtype, _acc(x.dtype)
+    w31, b31, w13, rap, pre = _plain_operands(x, w31, b31, w13, rap, pre)
+    u = _pre(x.to(acc), pre).to(dt).to(acc)
+    y = _pair(u, w31, b31, w13, rap, d, dt).to(dt)
+    yf = y.to(acc)
+    return y, torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
 
 
 def bwd_pair_plain(raw, gy, w31, b31, w13, rap, pre, d: int):
     """Gradient of sum(y * gy) for y = the pair of u = pre(raw): (du, dw31,
-    db31, dw13, drap or None), du with respect to u (after the pre-stage)."""
+    db31, dw13, drap or None), du with respect to u (after the pre-stage), in
+    raw's type; the weight gradients in the compute type (float32 for
+    bfloat16 raw, where dc and du are rounded to bf16 as the kernel rounds
+    them)."""
+    dt, acc = raw.dtype, _acc(raw.dtype)
+    w31, b31, w13, rap, pre = _plain_operands(raw, w31, b31, w13, rap, pre)
     with torch.enable_grad():
-        u = _pre(raw.detach(), pre).detach().requires_grad_()
-        ws = [t.detach().requires_grad_() for t in (w31, b31, w13)]
-        rp = None if rap is None else rap.detach().requires_grad_()
-        y = _pair(u, *ws, rp, d)
-        grads = torch.autograd.grad(y, [u, *ws] + ([rp] if rp is not None else []), gy)
+        u = _pre(raw.detach().to(acc), pre).to(dt).to(acc).requires_grad_()
+        ws = [t.requires_grad_() for t in (w31, b31, w13)]
+        rp = None if rap is None else rap.requires_grad_()
+        y = _pair(u, *ws, rp, d, dt)
+        grads = torch.autograd.grad(y, [u, *ws] + ([rp] if rp is not None else []),
+                                    gy.to(acc))
+    grads = (grads[0].to(dt), *grads[1:])
     return (*grads, None) if rap is None else tuple(grads)
 
 
@@ -89,14 +134,18 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("nb1d_train")
     if lib.nb1d_train_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.nb1d_train_fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.nb1d_train_fwd.restype = i
-        lib.nb1d_train_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.nb1d_train_bwd.restype = i
-        lib.nb1d_train_fwd_scratch.argtypes = [i, i, i, i]
-        lib.nb1d_train_fwd_scratch.restype = ll
-        lib.nb1d_train_bwd_scratch.argtypes = [i, i, i, i, i]
-        lib.nb1d_train_bwd_scratch.restype = ll
+        for sfx in _ENTRY.values():
+            fwd, bwd = getattr(lib, "nb1d_train_fwd" + sfx), getattr(lib, "nb1d_train_bwd" + sfx)
+            fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            fwd.restype = i
+            bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            bwd.restype = i
+            fwd_scratch = getattr(lib, f"nb1d_train_fwd{sfx}_scratch")
+            fwd_scratch.argtypes = [i, i, i, i]
+            fwd_scratch.restype = ll
+            bwd_scratch = getattr(lib, f"nb1d_train_bwd{sfx}_scratch")
+            bwd_scratch.argtypes = [i, i, i, i, i]
+            bwd_scratch.restype = ll
         lib.nb1d_train_grad_len.argtypes = [i, i]
         lib.nb1d_train_grad_len.restype = ll
         lib.nb1d_train_error_string.argtypes = [i]
@@ -107,8 +156,8 @@ def _library() -> ctypes.CDLL:
 def _check_act(name: str, t: torch.Tensor, like: torch.Tensor | None = None) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, not {t.dtype}")
+    if t.dtype not in _ENTRY:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16, not {t.dtype}")
     if t.dim() != 4 or t.shape[1] not in SUPPORTED_CHANNELS:
         raise ValueError(f"{name} must be [N,C,H,W] with C in {SUPPORTED_CHANNELS}, "
                          f"got {tuple(t.shape)}")
@@ -119,9 +168,10 @@ def _check_act(name: str, t: torch.Tensor, like: torch.Tensor | None = None) -> 
     n, _, h, w = t.shape
     if n > 65535 or h > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(t.shape)}")
-    if like is not None and (t.shape != like.shape or t.device != like.device):
-        raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not match "
-                         f"{tuple(like.shape)} on {like.device}")
+    if like is not None and (t.shape != like.shape or t.device != like.device
+                             or t.dtype != like.dtype):
+        raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on {t.device} does not match "
+                         f"{like.dtype} {tuple(like.shape)} on {like.device}")
 
 
 def _operand(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
@@ -142,11 +192,13 @@ def _stack_t(ws: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_operands(x, w31, b31, w13, rap, pre):
-    c, dev = x.shape[1], x.device
-    w31s = stack_taps(_operand("w31", w31, (c, c, 3, 1), dev), torch.float32)
-    w13s = stack_taps(_operand("w13", w13, (c, c, 1, 3), dev), torch.float32)
+    """The kernels' operands from float32 weights: the weight matrices
+    stacked in x's type, b31 and the pre-stage float32."""
+    c, dev, dt = x.shape[1], x.device, x.dtype
+    w31s = stack_taps(_operand("w31", w31, (c, c, 3, 1), dev), dt)
+    w13s = stack_taps(_operand("w13", w13, (c, c, 1, 3), dev), dt)
     b31v = _operand("b31", b31, (c,), dev)
-    rapm = None if rap is None else _operand("rap", rap, (c, c), dev)
+    rapm = None if rap is None else _operand("rap", rap, (c, c), dev).to(dt).contiguous()
     pa = pb = None
     if pre is not None:
         pa, pb = (_operand(f"pre[{i}]", t, (c,), dev) for i, t in enumerate(pre))
@@ -165,10 +217,10 @@ def _raise_on(lib, rc: int, what: str, x: torch.Tensor, d: int) -> None:
 
 
 def fwd_pair(x, w31, b31, w13, rap, pre, d: int):
-    """K2: (y [N,C,H,W], stats [2, C] float32) of the pair on u = pre(x)
-    (`pre` = (a, b) per-channel, or None). CPU tensor -> plain version; CUDA
-    tensor -> the kernel or raise."""
-    global LAUNCHES_FWD
+    """K2: (y [N,C,H,W] in x's type, stats [2, C] float32) of the pair on u =
+    pre(x) (`pre` = (a, b) per-channel, or None). CPU tensor -> plain version;
+    CUDA tensor -> the kernel of its type (float32 or bfloat16) or raise."""
+    global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     if x.device.type == "cpu":
         return fwd_pair_plain(x, w31, b31, w13, rap, pre, d)
     _check_act("x", x)
@@ -179,16 +231,19 @@ def fwd_pair(x, w31, b31, w13, rap, pre, d: int):
     n, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
     stats = torch.empty(2, c, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(lib.nb1d_train_fwd_scratch(c, n, h, w), dtype=torch.float32,
-                          device=x.device)
+    sfx = _ENTRY[x.dtype]
+    scratch = torch.empty(getattr(lib, f"nb1d_train_fwd{sfx}_scratch")(c, n, h, w),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.nb1d_train_fwd(
+        rc = getattr(lib, "nb1d_train_fwd" + sfx)(
             c, _ptr(x), _ptr(w31s), _ptr(b31v), _ptr(w13s), _ptr(rapm), _ptr(pa), _ptr(pb),
             _ptr(y), _ptr(stats), _ptr(scratch), n, h, w, d,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(lib, rc, "nb1d_train_fwd", x, d)
+    _raise_on(lib, rc, "nb1d_train_fwd" + sfx, x, d)
     LAUNCHES_FWD += 1
+    if x.dtype == torch.bfloat16:
+        LAUNCHES_FWD_BF16 += 1
     return y, stats
 
 
@@ -196,9 +251,10 @@ def bwd_pair(raw, gy, w31, b31, w13, rap, pre, d: int):
     """K3: (du, dw31, db31, dw13, drap or None) of sum(y * gy) for y =
     fwd_pair(raw, ...)[0]; du is with respect to the pair's input after the
     pre-stage (the pre-stage's own backward needs batch reductions and is the
-    caller's). Weight gradients in the weights' shapes, float32. CPU tensor ->
-    plain version; CUDA tensor -> the kernel or raise."""
-    global LAUNCHES_BWD
+    caller's); du in raw's type, the weight gradients in the weights' shapes,
+    float32. CPU tensor -> plain version; CUDA tensor -> the kernel of its
+    type (float32 or bfloat16) or raise."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_BF16
     if raw.device.type == "cpu":
         return bwd_pair_plain(raw, gy, w31, b31, w13, rap, pre, d)
     _check_act("raw", raw)
@@ -214,16 +270,19 @@ def bwd_pair(raw, gy, w31, b31, w13, rap, pre, d: int):
     du = torch.empty_like(raw, memory_format=torch.channels_last)
     grads = torch.empty(lib.nb1d_train_grad_len(c, has_rap), dtype=torch.float32,
                         device=raw.device)
-    scratch = torch.empty(lib.nb1d_train_bwd_scratch(c, n, h, w, has_rap), dtype=torch.float32,
-                          device=raw.device)
+    sfx = _ENTRY[raw.dtype]
+    scratch = torch.empty(getattr(lib, f"nb1d_train_bwd{sfx}_scratch")(c, n, h, w, has_rap),
+                          dtype=torch.float32, device=raw.device)
     with torch.cuda.device(raw.device):
-        rc = lib.nb1d_train_bwd(
+        rc = getattr(lib, "nb1d_train_bwd" + sfx)(
             c, _ptr(raw), _ptr(gy), _ptr(w31s), _ptr(b31v), _ptr(w13t), _ptr(w31t), _ptr(rapt),
             _ptr(pa), _ptr(pb), _ptr(du), _ptr(grads), _ptr(scratch), n, h, w, d,
             torch.cuda.current_stream(raw.device).cuda_stream,
         )
-    _raise_on(lib, rc, "nb1d_train_bwd", raw, d)
+    _raise_on(lib, rc, "nb1d_train_bwd" + sfx, raw, d)
     LAUNCHES_BWD += 1
+    if raw.dtype == torch.bfloat16:
+        LAUNCHES_BWD_BF16 += 1
     cc = c * c
     dw31 = unstack_taps(grads[: 3 * cc].view(3 * c, c), True).contiguous()
     dw13 = unstack_taps(grads[3 * cc: 6 * cc].view(3 * c, c), False).contiguous()
@@ -247,12 +306,13 @@ def _col(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1)
 
 
-def _bn_backward(g_z, yhat, scale_inv, count: int):
-    """Batch-statistics BN backward: (g_y, d_scale, d_bias) for z = scale*yhat + bias."""
+def _bn_backward(g_z, yhat, scale_inv, count: int, dt: torch.dtype):
+    """Batch-statistics BN backward: (g_y in the activation type `dt`, d_scale,
+    d_bias) for z = scale*yhat + bias, computed in g_z's type."""
     dbias = g_z.sum((0, 2, 3))
     dscale = (g_z * yhat).sum((0, 2, 3))
     g_y = _col(scale_inv) * (g_z - _col(dbias / count) - yhat * _col(dscale / count))
-    return g_y.contiguous(memory_format=torch.channels_last), dscale, dbias
+    return g_y.to(dt).contiguous(memory_format=torch.channels_last), dscale, dbias
 
 
 class Nb1dTrain(torch.autograd.Function):
@@ -262,8 +322,12 @@ class Nb1dTrain(torch.autograd.Function):
               mask_scaled, d, eps, pairs) -> (out, mu1, var1, mu2, var2)
 
     rap1/rap2 are [C, C] or None (plain block); mask_scaled is the [N, C, 1, 1]
-    dropout multiplier or None; mu/var are the batch statistics of the pre-BN
-    activations without the absorbed biases (not differentiable). `pairs` is
+    dropout multiplier (in the compute type) or None; mu/var are the batch
+    statistics of the pre-BN activations without the absorbed biases (not
+    differentiable). x, out and the pairs' y1, y2 and du are in x's type
+    (float32 or bfloat16, float64 for a plain yardstick); the glue computes in
+    at least float32 and rounds out, g_y1, g_y2 and dx back to x's type, as
+    nb1d_train.py:461-464, :496-520 do. `pairs` is
     (fwd, bwd): `(fwd_pair, bwd_pair)` for the block itself, or the plain pair
     functions to build the same block from plain versions on any device (a
     yardstick for the kernels).
@@ -286,7 +350,7 @@ class Nb1dTrain(torch.autograd.Function):
         z2 = y2 * _col(g2 * inv2) + _col(be2 - mu2 * g2 * inv2)
         if mask_scaled is not None:
             z2 = z2 * mask_scaled
-        out = F.relu(z2 + x)
+        out = F.relu(z2 + x).to(x.dtype)
         ctx.save_for_backward(x, y1, y2, out, mu1, inv1, a1, b1, mu2, inv2,
                               w31a, b31a, w13a, rap1, g1, w31b, b31b, w13b, rap2, g2, mask_scaled)
         ctx.d, ctx.pairs = d, pairs
@@ -300,15 +364,17 @@ class Nb1dTrain(torch.autograd.Function):
         bwd = ctx.pairs[1]
         n, c, h, w = x.shape
         count = n * h * w
-        g_f = torch.where(out > 0, g_out, torch.zeros((), dtype=g_out.dtype, device=g_out.device))
+        dt, acc = x.dtype, _acc(x.dtype)
+        zero = torch.zeros((), dtype=acc, device=x.device)
+        g_f = torch.where(out > 0, g_out.to(acc), zero)
         g_z2 = g_f if mask_scaled is None else g_f * mask_scaled
-        g_y2, dg2, dbe2 = _bn_backward(g_z2, (y2 - _col(mu2)) * _col(inv2), g2 * inv2, count)
+        g_y2, dg2, dbe2 = _bn_backward(g_z2, (y2 - _col(mu2)) * _col(inv2), g2 * inv2, count, dt)
         dm, dw31b, db31b, dw13b, drap2 = bwd(y1, g_y2, w31b, b31b, w13b, rap2, (a1, b1), ctx.d)
         z1 = y1 * _col(a1) + _col(b1)
-        g_z1 = torch.where(z1 > 0, dm, torch.zeros((), dtype=dm.dtype, device=dm.device))
-        g_y1, dg1, dbe1 = _bn_backward(g_z1, (y1 - _col(mu1)) * _col(inv1), g1 * inv1, count)
+        g_z1 = torch.where(z1 > 0, dm.to(acc), zero)
+        g_y1, dg1, dbe1 = _bn_backward(g_z1, (y1 - _col(mu1)) * _col(inv1), g1 * inv1, count, dt)
         dx_c, dw31a, db31a, dw13a, drap1 = bwd(x, g_y1, w31a, b31a, w13a, rap1, None, 1)
-        dx = g_f + dx_c
+        dx = (g_f + dx_c.to(acc)).to(dt)
         return (dx, dw31a, db31a, dw13a, drap1, dg1, dbe1,
                 dw31b, db31b, dw13b, drap2, dg2, dbe2, None, None, None, None)
 
@@ -324,14 +390,16 @@ def nb1d_train_apply(block, x: torch.Tensor, task: int | None, dropprob: float =
     Port of mdilss_tpu/models/blocks.py:364-439: `drop_mask` [N, C] bool keep-
     mask (required when dropprob > 0), the RAP/BN slices of `task`, and the
     running-stat update with the absorbed pre-BN biases added back to the mean
-    and the unbiased variance."""
+    and the unbiased variance. x is float32 or bfloat16 (float64 with plain
+    `pairs`); the output has x's type, and the dropout multiplier is in the
+    compute type (float32 for a bf16 x, as blocks.py:388 makes it)."""
     check_not_ablation(block)
     if dropprob > 0.0 and drop_mask is None:
         raise ValueError("nb1d_train_apply needs a host drop_mask when dropprob > 0 "
                          "(models/topology.py make_dropout_masks)")
     x = x.contiguous(memory_format=torch.channels_last)
     n, _, h, w = x.shape
-    mask_scaled = None if dropprob == 0.0 else drop_scale(drop_mask, dropprob, x.dtype)
+    mask_scaled = None if dropprob == 0.0 else drop_scale(drop_mask, dropprob, _acc(x.dtype))
     if hasattr(block, "parallel_conv_1"):
         if task is None:
             raise ValueError("a RAP block needs a task")

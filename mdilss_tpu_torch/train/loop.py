@@ -38,8 +38,15 @@ confusion matrices are int64 on the device and summed there; checkpoints
 are torch files (`ckpt/torch_io.py`); a model that does not fit the protocol
 raises, and so does `fused_train` with an ablation model (the JAX package's
 fused paths cover the RAP and plain encoders only,
-mdilss_tpu/models/topology.py:197-200). bf16 training, spatial sharding and
-remat raise NotImplementedError.
+mdilss_tpu/models/topology.py:197-200). Spatial sharding and remat raise
+NotImplementedError.
+
+`compute_dtype="bfloat16"` trains as the JAX package's bf16 Trainer does:
+augment writes bf16 images, and every train and eval forward (student,
+teacher and validation) runs in bf16, so activations and logits are bf16
+(K1/K2/K3's bf16 kernels on the card), while the parameters, Adam's state,
+the BN statistics, the weight gradients, the losses and the checkpoints stay
+float32.
 """
 from __future__ import annotations
 
@@ -85,7 +92,8 @@ OLD_EVAL_PROTOCOLS = ("step2", "step3", "multitask", "ft", "fe")
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item it waits for, for
     what the port's Trainer does not run yet, and ValueError for a model
-    that does not fit the protocol."""
+    that does not fit the protocol or a compute_dtype other than float32
+    and bfloat16."""
     if cfg.model not in RAP_MODELS and cfg.model not in MULTIHEAD_MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.protocol not in RAP_PROTOCOLS + MULTIHEAD_PROTOCOLS:
@@ -99,11 +107,7 @@ def check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             f"fused_train with model {cfg.model!r}: the fused paths cover the rap/plain "
             f"encoders only, not {REFERENCE_NAMES[cfg.model]!r}")
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16': bf16 training waits for ROADMAP R7")
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 or bfloat16")
+    steps.compute_dtype_of(cfg.compute_dtype)  # float32 or bfloat16, else ValueError
     if cfg.spatial_shards != 1:
         raise NotImplementedError(
             f"spatial_shards={cfg.spatial_shards}: the port trains on one device; "
@@ -292,7 +296,8 @@ class Trainer:
         cur = cfg.current_task
         cur_ds = cfg.datasets[cur]
         common = dict(lr_tree=self._lr_tree(), num_epochs=cfg.num_epochs,
-                      weight_decay=cfg.weight_decay, iou_train=cfg.iou_train)
+                      weight_decay=cfg.weight_decay, iou_train=cfg.iou_train,
+                      compute_dtype=cfg.compute_dtype)
         prev = tuple(range(cur - 1, -1, -1))  # newest to oldest, the reference's order
         distill = dict(current_task=cur, prev_tasks=prev, class_weight=self._weight(cur_ds),
                        lambda_c=cfg.lambda_c, kld_fn=kld_fn, **common)
@@ -311,7 +316,8 @@ class Trainer:
                 teacher_dropout=cfg.teacher_dropout, **distill)}
         self.eval_steps = {
             d: steps.make_eval_step(task=t, class_weight=self._weight(d),
-                                    num_classes=cfg.num_classes[t])
+                                    num_classes=cfg.num_classes[t],
+                                    compute_dtype=cfg.compute_dtype)
             for t, d in enumerate(cfg.datasets)
         }
 
@@ -391,7 +397,8 @@ class Trainer:
         n = imgs.shape[0]
         flip, tx, ty = transforms.draw_augment(self.aug_gen, n)
         x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
-                                        num_classes=cfg.num_classes[task])
+                                        num_classes=cfg.num_classes[task],
+                                        out_dtype=steps.compute_dtype_of(cfg.compute_dtype))
         step = self.train_steps[dataset]
         if cfg.protocol in ("step2", "step3"):
             n_fwd = 1 + cfg.current_task

@@ -30,6 +30,13 @@ update the BN running statistics twice). `iou_train` adds the batch's
 confusion matrix ("cm") from the current-task logits of the step. Every
 step runs its float32 convs and matmuls with TF32 off (`ops.precision.no_tf32`),
 whatever the process's flags are.
+
+`compute_dtype` ("float32", the default, or "bfloat16"): every forward of a
+step, the student's and the teacher's, casts its images to it, as the JAX
+package's `apply_fn` casts `x` (mdilss_tpu/train/loop.py:267-276), so the
+activations and logits are in that type while the parameters, Adam's state,
+the BN statistics, the weight gradients and the losses stay float32 (the
+losses upcast the logits).
 """
 from __future__ import annotations
 
@@ -45,6 +52,18 @@ from ..metrics import confusion_matrix
 from ..ops.precision import no_tf32
 from . import optim
 from .optim import AdamState
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(compute_dtype) -> torch.dtype:
+    """"float32" / "bfloat16" (or that torch dtype) -> the torch dtype the
+    forwards run in; anything else raises ValueError."""
+    dt = COMPUTE_DTYPES.get(compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
+    if dt not in COMPUTE_DTYPES.values():
+        raise ValueError(f"compute_dtype={compute_dtype!r}: float32 or bfloat16")
+    return dt
 
 
 class TrainState(NamedTuple):
@@ -168,16 +187,18 @@ def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.T
 
 
 def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epochs: int,
-                 weight_decay: float = 1e-4, iou_train: bool = False):
+                 weight_decay: float = 1e-4, iou_train: bool = False,
+                 compute_dtype="float32"):
     """step(ts, images, labels, masks, epoch) -> (ts', metrics): weighted CE on
     head `task`, one Adam step. `masks`: one `make_dropout_masks` dict or
     None. metrics {"loss", "ce"} (+ "cm" [C, C] int64 with `iou_train`) as
     tensors on the device."""
     weight = _class_weight(class_weight)
+    dt = compute_dtype_of(compute_dtype)
 
     @no_tf32()
     def step(ts: TrainState, images, labels, masks, epoch: int):
-        ce, logits, grads = ce_loss_and_grads(ts.model, images, labels, masks, task=task,
+        ce, logits, grads = ce_loss_and_grads(ts.model, images.to(dt), labels, masks, task=task,
                                               class_weight=weight)
         metrics = {"loss": ce, "ce": ce}
         if iou_train:
@@ -194,16 +215,17 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
 def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_weight,
                       lr_tree: dict[str, float], num_epochs: int, lambda_c: float = 0.1,
                       kld_fn: Callable = kld_faithful, weight_decay: float = 1e-4,
-                      iou_train: bool = False):
+                      iou_train: bool = False, compute_dtype="float32"):
     """step(ts, teacher, images, labels, masks, epoch) -> (ts', metrics), with
     metrics {"loss", "ce", "kld"} (+ "cm" with `iou_train`) as tensors on the
     device (reading them waits for the step)."""
     weight = _class_weight(class_weight)
+    dt = compute_dtype_of(compute_dtype)
 
     @no_tf32()
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
         total, ce, kld, grads, logits = distill_loss_and_grads(
-            ts.model, teacher, images, labels, masks, current_task=current_task,
+            ts.model, teacher, images.to(dt), labels, masks, current_task=current_task,
             prev_tasks=prev_tasks, class_weight=weight, lambda_c=lambda_c, kld_fn=kld_fn,
         )
         metrics = {"loss": total, "ce": ce, "kld": kld}
@@ -222,7 +244,8 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
                                 lr_tree: dict[str, float], num_epochs: int,
                                 lambda_c: float = 0.1, kld_fn: Callable = kld_faithful,
                                 weight_decay: float = 1e-4, iou_train: bool = False,
-                                teacher_training: bool = True, teacher_dropout: bool = False):
+                                teacher_training: bool = True, teacher_dropout: bool = False,
+                                compute_dtype="float32"):
     """Step 3 (train_new_task_step3.py:317-356): a CE backward and Adam step,
     then lambda_c * sum KLD against the updated weights, its backward and a
     second Adam step with the same schedule factor; `ts.opt.count` grows by 2.
@@ -242,11 +265,13 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
         raise ValueError("teacher_dropout=True requires teacher_training=True (dropout is a "
                          "train-mode behaviour; the eval-mode teacher has none)")
     weight = _class_weight(class_weight)
+    dt = compute_dtype_of(compute_dtype)
     n_prev = len(prev_tasks)
     n_masks = 1 + n_prev * (2 if teacher_dropout else 1)
 
     @no_tf32()
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
+        images = images.to(dt)
         mask_list = _mask_list(masks, n_masks, need_list=teacher_dropout)
         lr_scale = optim.poly_lr_factor(epoch, num_epochs)
         params = dict(ts.model.named_parameters())
@@ -272,17 +297,19 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     return step
 
 
-def make_eval_step(*, task: int, class_weight, num_classes: int):
+def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="float32"):
     """step(model, images, labels) -> (loss, cm): eval-mode forward of head
-    `task`, weighted CE, argmax and the [C, C] int64 confusion matrix, all on
-    the model's device. `labels` are prepared (`data.transforms.
-    prepare_batch`: the void label as the last class, whose weight is 0)."""
+    `task` in `compute_dtype` (bfloat16: K1's bf16 kernel on the card),
+    weighted CE, argmax and the [C, C] int64 confusion matrix, all on the
+    model's device. `labels` are prepared (`data.transforms.prepare_batch`:
+    the void label as the last class, whose weight is 0)."""
     weight = _class_weight(class_weight)
+    dt = compute_dtype_of(compute_dtype)
 
     @no_tf32()
     def step(model: nn.Module, images, labels):
         model.eval()
-        logits = model(images, task)
+        logits = model(images.to(dt), task)
         loss = weighted_cross_entropy(logits, labels, weight)
         return loss, confusion_matrix(logits.argmax(-1), labels, num_classes=num_classes)
 

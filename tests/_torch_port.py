@@ -353,3 +353,56 @@ def ablation_port_model(variant: str, params, state):
                            len(params["decoders"]), variant, device="cpu")
     model.load_state_dict(from_jax(params, state), strict=True)
     return model
+
+
+# ---- bf16 training (test_torch_bf16_*.py) ---------------------------------------------------
+# The error budget: each bf16 output of the port must lie at most BF16_K times as far from the
+# port's float64 plain path as the JAX package's bf16 output lies, plus BF16_EPS (relative L2).
+# The two packages round at different points (the port accumulates in float32 and rounds once
+# per stage, where JAX rounds each tap of a 1x3 conv and the RAP term to bf16), but both meet the
+# same relu band: the bf16 rounding of u and c moves elements near a relu's kink to its other
+# side, which moves the gradients through that relu by a few percent in relative L2 in both, by
+# amounts that differ between the two only in which elements flip (port / JAX 0.2-1.1 at
+# 2x16x32). BF16_EPS is the float32 floor of outputs that neither rounds to bf16 (a weight
+# gradient of bf16 products summed in float32).
+# A whole model's training forward at random weights amplifies bf16's rounding through its
+# ~40 BN+relu layers: at 2x32x64 the bf16 logits of both packages lie 15-60% (relative L2) from
+# float64, the port's 10-25% nearer. A loss is one number, a mean over those logits, so its
+# error is one draw of that noise (measured 1e-4 to 1e-2 relative in both packages) and the
+# port's may be the larger draw: a loss gets BF16_EPS_LOSS = 2^-6 as its floor. The many-element
+# outputs of a step carry the comparison: the running statistics, and each trained
+# parameter's move divided by its LR (`lr_moves`; one Adam step moves an element by about
+# -lr * sign(gradient), so this measures how often the gradient's sign is wrong).
+BF16_K, BF16_EPS, BF16_EPS_LOSS = 1.5, 1e-5, 2.0 ** -6
+
+
+def bf16_exact(a) -> np.ndarray:
+    """float32 values that bf16 represents exactly (`a` rounded to bf16), so
+    the float64 reference and both bf16 paths start from the same numbers."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def bf16_exact_tree(tree):
+    """A JAX tree of float32 leaves with every leaf rounded to bf16 values."""
+    return jax.tree.map(lambda a: jnp.asarray(bf16_exact(a)), tree)
+
+
+def within_budget(name: str, port, jax_out, ref, k: float = BF16_K,
+                  eps: float = BF16_EPS) -> None:
+    """rel_l2(port, ref) <= k * rel_l2(jax_out, ref) + eps; prints both and
+    the direct port-vs-JAX relative L2 (under `pytest -s`)."""
+    port, jax_out, ref = (np.asarray(a, np.float64) for a in (port, jax_out, ref))
+    e_port, e_jax = rel_l2(port, ref), rel_l2(jax_out, ref)
+    print(f"[bf16] {name}: port vs float64 {e_port:.3e}, JAX vs float64 {e_jax:.3e}, "
+          f"port vs JAX {rel_l2(port, jax_out):.3e}")
+    assert e_port <= k * e_jax + eps, (name, e_port, e_jax)
+
+
+def lr_moves(model, before: dict, lr: dict, after: dict | None = None) -> np.ndarray:
+    """Each trained parameter's move over a step (from `before` to `after`, or
+    to the model's current value) divided by its LR, flat, in the model's
+    parameter order."""
+    after = dict(model.named_parameters()) if after is None else after
+    return np.concatenate([
+        ((after[k].detach().double() - before[k].double()) / lr[k]).numpy().ravel()
+        for k, _ in model.named_parameters() if lr[k] > 0])

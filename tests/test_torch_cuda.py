@@ -4,7 +4,10 @@ training conv pairs (K2 fwd_pair, K3 bwd_pair) and the training block built on
 them, and the launches of one train step; the steps, the data path and the
 trainer on the card; (slice 10) the fp32 steps with TF32 at PyTorch's
 defaults, an exported head running K1, and extract_features; and the four
-ablation models' step-2 step against the CPU and their decoder-only launches.
+ablation models' step-2 step against the CPU and their decoder-only launches;
+(bf16 training) K2/K3's bf16 kernels against their plain bf16 versions at
+each channel count, bitwise reruns, the bf16 c and y shared with K1 bf16,
+the types the kernels refuse, and a bf16 training forward and backward.
 Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -17,7 +20,9 @@ cuDNN's order, while the kernel keeps y in float32 up to its epilogue. K2/K3 (fl
 1e-5, and both (3xTF32 on the tensor cores) at their tile edges against
 float64 (K2's batch mean and variance at 1e-4); K1's fp32 kernel runs K2's
 mainloop and is held to K2's y bit for bit; the training block's
-gradients at 1e-4 (the BN backward divides by the batch std).
+gradients at 1e-4 (the BN backward divides by the batch std). K2/K3 in
+bfloat16 at relative L2 1e-2 against their plain bf16 versions, which round
+at the same points (chip_smoke.py's TOL_BF16_PAIR).
 """
 import numpy as np
 import pytest
@@ -402,8 +407,8 @@ def test_train_wrappers_reject_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="channels_last"):
         T.fwd_pair(x, w31, b31, w13, rap, pre, 1)
     x = x.contiguous(memory_format=torch.channels_last)
-    with pytest.raises(TypeError, match="float32"):
-        T.fwd_pair(x.to(torch.bfloat16), w31, b31, w13, rap, pre, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        T.fwd_pair(x.to(torch.float16), w31, b31, w13, rap, pre, 1)
     with pytest.raises(ValueError, match="operand w13"):
         T.bwd_pair(x, x, w31, b31, w13[:32], rap, pre, 1)
     x32 = torch.randn(1, 32, 8, 8, device=cuda).contiguous(memory_format=torch.channels_last)
@@ -942,3 +947,182 @@ def test_ablation_eval_forward_and_ce_step_launch_the_decoder_kernels(cuda, name
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 8, 8)
     assert np.isfinite(float(m["loss"])) and ts.opt.count == 1
+
+
+# ---- K2 / K3 in bfloat16 (bf16 training) ------------------------------------------------------
+TOL_BF16_PAIR = 1e-2  # as chip_smoke.py: the same rounding points, another summation order
+
+
+def _bf16_pair_args(gen, c, use_rap, use_pre, dev):
+    """_pair_args with the weight matrices rounded to bf16 values."""
+    w31, b31, w13, rap, pre = _pair_args(gen, c, use_rap, use_pre, dev)
+    bf = lambda t: None if t is None else t.to(torch.bfloat16).float()  # noqa: E731
+    return bf(w31), b31, bf(w13), bf(rap), pre
+
+
+def _bf16_act(gen, n, c, h, w, dev):
+    return torch.randn(n, c, h, w, generator=gen).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("use_rap,use_pre", [(False, False), (True, True), (True, False),
+                                             (False, True)])
+@pytest.mark.parametrize("c,d,n,h,w", TRAIN_SHAPES)
+def test_bf16_train_pairs_match_plain(cuda, c, d, n, h, w, use_rap, use_pre):
+    gen = torch.Generator().manual_seed(c + d + h + 1)
+    args = _bf16_pair_args(gen, c, use_rap, use_pre, cuda)
+    x, gy = _bf16_act(gen, n, c, h, w, cuda), _bf16_act(gen, n, c, h, w, cuda)
+    before = T.LAUNCHES_FWD_BF16, T.LAUNCHES_BWD_BF16, T.LAUNCHES_FWD, T.LAUNCHES_BWD
+    y, st = T.fwd_pair(x, *args, d)
+    got = T.bwd_pair(x, gy, *args, d)
+    torch.cuda.synchronize()
+    assert (T.LAUNCHES_FWD_BF16, T.LAUNCHES_BWD_BF16, T.LAUNCHES_FWD, T.LAUNCHES_BWD) == tuple(
+        b + 1 for b in before)
+    y_p, st_p = T.fwd_pair_plain(x, *args, d)
+    want = T.bwd_pair_plain(x, gy, *args, d)
+    assert y.dtype == got[0].dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(y, y_p) <= TOL_BF16_PAIR and _rel(st, st_p) <= TOL_BF16_PAIR
+    for name, g, g_p in zip(("du", "dw31", "db31", "dw13", "drap"), got, want):
+        if g_p is None:
+            assert g is None
+            continue
+        assert g.shape == g_p.shape and g.dtype == g_p.dtype, name
+        assert _rel(g, g_p) <= TOL_BF16_PAIR, (name, _rel(g, g_p))
+
+
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_bf16_train_pairs_bitwise_repeatable(cuda, c):
+    gen = torch.Generator().manual_seed(c)
+    args = _bf16_pair_args(gen, c, True, True, cuda)
+    x, gy = _bf16_act(gen, 2, c, 9, 150, cuda), _bf16_act(gen, 2, c, 9, 150, cuda)
+    first = (*T.fwd_pair(x, *args, 4), *T.bwd_pair(x, gy, *args, 4))
+    second = (*T.fwd_pair(x, *args, 4), *T.bwd_pair(x, gy, *args, 4))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_fwd_and_bwd_compute_the_same_c(cuda):
+    """K2's bf16 stage A and K3's bwd_dc_bf16_kernel compute c in the same
+    order. With w13 the identity at its centre tap and no RAP, K2's y is the
+    bf16 c times 1 summed in float32, c itself; so y must equal the bf16 c
+    that K3 writes to its scratch, bit for bit."""
+    c, d, n, h, w = 64, 2, 2, 9, 150
+    gen = torch.Generator().manual_seed(12)
+    w31, b31, _, _, pre = _bf16_pair_args(gen, c, False, True, cuda)
+    w13 = torch.zeros(c, c, 1, 3, device=cuda)
+    w13[:, :, 0, 1] = torch.eye(c, device=cuda)
+    x, gy = _bf16_act(gen, n, c, h, w, cuda), _bf16_act(gen, n, c, h, w, cuda)
+    y, _ = T.fwd_pair(x, w31, b31, w13, None, pre, d)
+    lib = T._library()
+    w31s, b31v, w13s, _, pa, pb = T._kernel_operands(x, w31, b31, w13, None, pre)
+    scratch = torch.empty(lib.nb1d_train_bwd_bf16_scratch(c, n, h, w, 0), device=cuda)
+    du = torch.empty_like(x)
+    grads = torch.empty(lib.nb1d_train_grad_len(c, 0), device=cuda)
+    rc = lib.nb1d_train_bwd_bf16(c, x.data_ptr(), gy.data_ptr(), w31s.data_ptr(),
+                                 b31v.data_ptr(), T._stack_t(w13s).data_ptr(),
+                                 T._stack_t(w31s).data_ptr(), None, pa.data_ptr(),
+                                 pb.data_ptr(), du.data_ptr(), grads.data_ptr(),
+                                 scratch.data_ptr(), n, h, w, d,
+                                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    c_k3 = scratch.view(torch.bfloat16)[: n * h * w * c].view(n, h, w, c)  # K3's c, NHWC
+    got = y.permute(0, 2, 3, 1)
+    assert int((c_k3 > 0).sum()) > 0
+    assert torch.equal(got, c_k3), int((got != c_k3).sum())
+
+
+@pytest.mark.parametrize("rap", [True, False], ids=["rap", "plain"])
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_k1_bf16_and_k2_bf16_compute_the_same_y(cuda, c, rap):
+    """K1's bf16 kernel and K2's bf16 kernel run the same mainloop
+    (csrc/bf16_pair.cuh). One K1 pair with a = 1, b = 0 and no residual
+    writes bf16(relu(fma(1, y, 0))), which must equal relu of K2's bf16 y."""
+    gen = torch.Generator().manual_seed(9 * c + rap)
+    w31, b31, w13, rapw, _ = _bf16_pair_args(gen, c, rap, False, cuda)
+    x = _bf16_act(gen, 2, c, 9, 300, cuda)
+    y, _ = T.fwd_pair(x, w31, b31, w13, rapw, None, 8)
+    w31s, b31v, w13s, rapm, _, _ = T._kernel_operands(x, w31, b31, w13, rapw, None)
+    ones = torch.ones(c, device=cuda)
+    before = K.LAUNCHES_BF16
+    got = K._launch_pair(x, w31s, b31v, w13s, rapm, ones, torch.zeros_like(ones), None, 8)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES_BF16 == before + 1
+    assert int((y > 0).sum()) > 0 and int((y < 0).sum()) > 0
+    assert torch.equal(got, torch.relu(y)), int((got != torch.relu(y)).sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64], ids=["f16", "f64"])
+def test_train_pairs_refuse_other_types_on_the_card(cuda, dtype):
+    gen = torch.Generator().manual_seed(3)
+    args = _pair_args(gen, 16, True, True, cuda)
+    x = torch.randn(1, 16, 8, 8, device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    before = T.LAUNCHES_FWD, T.LAUNCHES_BWD
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        T.fwd_pair(x, *args, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        T.bwd_pair(x, x, *args, 1)
+    with pytest.raises(ValueError, match="does not match"):
+        T.bwd_pair(x.to(torch.bfloat16), x.float(), *args, 1)
+    assert (T.LAUNCHES_FWD, T.LAUNCHES_BWD) == before
+
+
+@pytest.mark.parametrize("c,d,rap", [(64, 1, True), (128, 16, True), (16, 1, False)])
+def test_bf16_train_block_matches_plain_pairs(cuda, c, d, rap):
+    """The bf16 training block on the kernels against the same block built
+    from the plain bf16 pairs: output bf16 and within TOL_BF16_PAIR; dx, the
+    parameters' gradients (float32) and the running statistics within 4x
+    that (the BN backward divides by the batch std)."""
+    gen = torch.Generator().manual_seed(c * 10 + d + 1)
+    torch.manual_seed(c + d + 1)
+    blocks = [NonBottleneck1dRAP(c, d, 2, 0.3) if rap else NonBottleneck1d(c, d) for _ in range(2)]
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    for blk in blocks:
+        blk.to(cuda).train()
+    x = _bf16_act(gen, 2, c, 16, 40, cuda)
+    mask = (torch.rand(2, c, generator=gen) < 0.7).to(cuda) if rap else None
+    cot = torch.randn(2, c, 16, 40, generator=gen).to(cuda)
+    results = []
+    for blk, pairs in zip(blocks, (T.KERNEL_PAIRS, T.PLAIN_PAIRS)):
+        xi = x.clone().requires_grad_()
+        out = T.nb1d_train_apply(blk, xi, 1 if rap else None, 0.3 if rap else 0.0, mask, pairs)
+        grads = torch.autograd.grad((out.float() * cot).sum(), [xi] + list(blk.parameters()),
+                                    allow_unused=True)
+        results.append((out, grads, [b.clone() for b in blk.buffers()]))
+    (out_k, g_k, b_k), (out_p, g_p, b_p) = results
+    assert out_k.dtype == out_p.dtype == torch.bfloat16 and g_k[0].dtype == torch.bfloat16
+    assert _rel(out_k, out_p) <= TOL_BF16_PAIR
+    for a, b in zip(g_k, g_p):
+        assert (a is None) == (b is None)
+        if a is not None and b.norm() > 0:
+            assert _rel(a, b) <= 4 * TOL_BF16_PAIR
+    for a, b in zip(b_k, b_p):
+        if a.is_floating_point() and b.norm() > 0:
+            assert _rel(a, b) <= 4 * TOL_BF16_PAIR
+        else:
+            assert torch.equal(a, b)
+
+
+def test_bf16_training_forward_and_backward_stay_bf16(cuda):
+    """A bf16 training forward of ERFNet-RAP keeps bf16 to the logits and
+    launches only the bf16 kernels: 34 K2 for the forward, 34 K3 for its
+    backward; the parameters' gradients float32."""
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+
+    torch.manual_seed(0)
+    model = ERFNetRAP([5, 5], 2, device=cuda).train()
+    x = torch.rand(2, 64, 128, 3, device=cuda).to(torch.bfloat16)
+    masks = make_dropout_masks(np.random.default_rng(0), 2)
+    before, before16 = _launches(), (K.LAUNCHES_BF16, T.LAUNCHES_FWD_BF16, T.LAUNCHES_BWD_BF16)
+    logits = model(x, 1, masks)
+    grads = torch.autograd.grad(logits.float().square().mean(), list(model.parameters()),
+                                allow_unused=True)
+    torch.cuda.synchronize()
+    assert logits.dtype == torch.bfloat16
+    assert all(g is None or g.dtype == torch.float32 for g in grads)
+    got = tuple(a - b for a, b in zip(_launches(), before))
+    got16 = tuple(a - b for a, b in zip(
+        (K.LAUNCHES_BF16, T.LAUNCHES_FWD_BF16, T.LAUNCHES_BWD_BF16), before16))
+    assert got == got16 == (0, 34, 34)

@@ -2,8 +2,8 @@
 images, batch 2, 32x64): run artifacts, the checkpoint files, bit-exact
 resume, cached = hybrid = streaming trajectories, the best-epoch rule, the
 train-IoU column, the profiler trace, the cache budget, and the options that
-wait for later slices (the multi-head protocols are tested in
-test_torch_multihead.py and test_torch_protocols.py)."""
+wait for later slices or that it refuses (the multi-head protocols are
+tested in test_torch_multihead.py and test_torch_protocols.py)."""
 import json
 import os
 
@@ -196,10 +196,11 @@ def test_device_cache_budget(tmp_path):
 @pytest.mark.parametrize("make,kw,error,match", [
     # the ablation models train; what they still refuse
     ("step1", dict(model="erfnet_bn", fused_train=True), ValueError, "fused paths"),
-    ("step1", dict(model="erfnet_onlyRAP", compute_dtype="bfloat16"), NotImplementedError, "R7"),
+    ("step1", dict(model="erfnet_onlyRAP", compute_dtype="float16"), ValueError,
+     "float32 or bfloat16"),
     ("step2", dict(model="erfnet_RA_series"), ValueError, "distils from a teacher"),
     ("step3", dict(model="erfnet_RCM", spatial_shards=2), NotImplementedError, "A10"),
-    ("step1", dict(compute_dtype="bfloat16"), NotImplementedError, "R7"),
+    ("step1", dict(compute_dtype="float64"), ValueError, "float32 or bfloat16"),
     ("step1", dict(spatial_shards=2), NotImplementedError, "A10"),
     ("step1", dict(remat=True), NotImplementedError, "remat"),
 ])

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""K1's kernels (csrc/nb1d_infer.cu) of two checkouts of the port, bit for
+bit, on one NVIDIA card.
+
+    python3 tools_torch/k1_bitwise.py ROOT_A ROOT_B [--seed 0]
+
+Builds `csrc/nb1d_infer.cu` of each root with that root's own `ops/_build.py`
+(tools_torch/sass_compare.py `build`), loads both libraries with ctypes and
+calls their C entry `nb1d_pair` on the same random inputs: one conv pair of
+each of the 7 nb1d block shapes of a 512x1024 forward at batch 1 and 6, in
+float32 and bfloat16, without and with the residual. Prints, per case,
+whether the two outputs are equal bit for bit, and exits 1 if any differs.
+Use it when a change moves K1's code without meaning to change its results
+(a refactor into a shared header).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from sass_compare import build  # noqa: E402
+
+# (name, C, dilation, rap, H, W) of chip_smoke.py's BLOCKS
+BLOCKS = (
+    ("enc64_d1_rap", 64, 1, True, 128, 256),
+    ("enc128_d2_rap", 128, 2, True, 64, 128),
+    ("enc128_d4_rap", 128, 4, True, 64, 128),
+    ("enc128_d8_rap", 128, 8, True, 64, 128),
+    ("enc128_d16_rap", 128, 16, True, 64, 128),
+    ("dec64_d1", 64, 1, False, 128, 256),
+    ("dec16_d1", 16, 1, False, 256, 512),
+)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nb1d_pair.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.nb1d_pair.restype = i
+    return lib
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("root_a", type=Path)
+    ap.add_argument("root_b", type=Path)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    libs = [load(build(r.resolve(), "nb1d_infer")) for r in (args.root_a, args.root_b)]
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed)
+    same = True
+    for name, c, d, rap, h, w in BLOCKS:
+        for n in (1, 6):
+            for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+                def mk(*shape, scale=1.0, dtype=dt):
+                    return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype).contiguous()
+
+                u = mk(n, h, w, c)  # NHWC
+                w31, w13 = mk(3 * c, c, scale=c ** -0.5), mk(3 * c, c, scale=c ** -0.5)
+                rapm = mk(c, c, scale=c ** -0.5) if rap else None
+                b31, a, b = (mk(c, dtype=torch.float32) for _ in range(3))
+                for res in (None, mk(n, h, w, c)):
+                    outs = []
+                    for lib in libs:
+                        out = torch.empty_like(u)
+                        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+                        rc = lib.nb1d_pair(code, c, u.data_ptr(), w31.data_ptr(), b31.data_ptr(),
+                                           w13.data_ptr(), ptr(rapm), a.data_ptr(), b.data_ptr(),
+                                           ptr(res), out.data_ptr(), n, h, w, d,
+                                           torch.cuda.current_stream().cuda_stream)
+                        torch.cuda.synchronize()
+                        if rc != 0:
+                            raise RuntimeError(f"nb1d_pair returned {rc} for {name}")
+                        outs.append(out)
+                    equal = torch.equal(outs[0], outs[1])
+                    same &= equal
+                    print(f"{name} [{n},{h},{w},{c}] {str(dt)[6:]} "
+                          f"{'with' if res is not None else 'without'} residual: "
+                          + ("bitwise equal" if equal else
+                             f"{int((outs[0] != outs[1]).sum())} elements differ"))
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,7 @@ card: device time per forward and accuracy against the plain version.
                                        [--dtypes f32 bf16]
 
 Variants, each a text substitution of the committed sources (csrc/nb1d_infer.cu,
-csrc/tf32_pair.cuh, csrc/sm90_async.cuh, ops/nb1d_infer.py) built into
+csrc/tf32_pair.cuh, csrc/bf16_pair.cuh, csrc/sm90_async.cuh, ops/nb1d_infer.py) built into
 build/k1_variants/<name>/ and run in its own process:
   as_built     the sources as they are (run first and last);
   fp32:
@@ -48,8 +48,9 @@ PACKAGE = ROOT / "mdilss_tpu_torch"
 WORK = ROOT / "build" / "k1_variants"
 # the files a variant may change, relative to the package
 SOURCE, PAIR, RING = "csrc/nb1d_infer.cu", "csrc/tf32_pair.cuh", "csrc/sm90_async.cuh"
+BF16 = "csrc/bf16_pair.cuh"  # the bf16 kernel's tiles and mainloop
 WRAPPER = "ops/nb1d_infer.py"
-FILES = (SOURCE, PAIR, RING, WRAPPER)
+FILES = (SOURCE, PAIR, RING, WRAPPER, BF16)
 DTYPES = ("f32", "bf16")
 # both types' kernels and the CUDA-core one by name in a profiler trace (one type per call)
 KERNEL = "nb1d_pair_"
@@ -333,7 +334,7 @@ def _sub(text: str, old: str, new: str, count: int = 1) -> str:
 def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
     """name -> {file (relative to the package): its text} for each file the
     variant changes; `files` holds the committed text of FILES."""
-    src, pair, ring, wrapper = (files[f] for f in FILES)
+    src, pair, ring, wrapper, bf16 = (files[f] for f in FILES)
 
     cores = _sub(src, "// ---- float32: 3xTF32 on the tensor cores",
                  CUDA_CORES + "\n// ---- float32: 3xTF32 on the tensor cores")
@@ -371,7 +372,7 @@ def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
                     "        w31, w13, rap = (_presplit(t) for t in (w31, w13, rap))\n")
 
     kc = "static constexpr int KC = C < 32 ? C : 32;        // input channels per staged chunk"
-    narrow = _sub(src, "static constexpr int THREADS = 256;", "static constexpr int THREADS = 128;")
+    narrow = _sub(bf16, "static constexpr int THREADS = 256;", "static constexpr int THREADS = 128;")
     narrow = _sub(narrow, "static constexpr int MTA = 3;", "static constexpr int MTA = C == 128 ? 4 : 3;")
     return {
         "as_built": {},
@@ -380,8 +381,8 @@ def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
                                  "__launch_bounds__(kThreads, 1)\nnb1d_pair_tf32_kernel")},
         "presplit_w": {PAIR: split, WRAPPER: split_py},
         "stages4": {RING: _sub(ring, "constexpr int kStages = 3;", "constexpr int kStages = 4;")},
-        "kc64": {SOURCE: _sub(src, kc, kc.replace("C < 32 ? C : 32", "C < 64 ? C : 64"))},
-        "narrow": {SOURCE: narrow},
+        "kc64": {BF16: _sub(bf16, kc, kc.replace("C < 32 ? C : 32", "C < 64 ? C : 64"))},
+        "narrow": {BF16: narrow},
     }
 
 
