@@ -922,11 +922,35 @@ def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str, dt: str = "
     weights = (6 + rap) * c * c
     flops = 2 * px * macs
     nbytes = item * (acts * px * c + weights) + 4 * (weights * (kind == "bwd") + 4 * c)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
-    out = {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    out = {"flops": flops, "bytes": nbytes, **_bound(flops, nbytes, dt)}
     if dt == "f32":
-        out["bound_3xtf32_ms"] = max(3 * flops / PEAK_FLOPS["tf32"], t_bytes) * 1e3
+        out["bound_3xtf32_ms"] = max(3 * flops / PEAK_FLOPS["tf32"], nbytes / PEAK_BYTES) * 1e3
+    if kind == "bwd":
+        out["kinds"] = k3_kind_bounds(n, c, h, w, rap, dt)
+    return out
+
+
+def _bound(flops: int, nbytes: int, dt: str) -> dict:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+    return {"ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k3_kind_bounds(n: int, c: int, h: int, w: int, rap: bool, dt: str = "f32") -> dict:
+    """K3's FLOPs and least time split by its launch kinds, each with the
+    activation passes its own design moves (each read or written once):
+    dc recomputes c (3C^2 MACs per pixel) and takes colconv^T (3C^2),
+    reading u and gy and writing c and dc; du is rowconv^T (3C^2, +C^2 RAP),
+    reading dc and gy and writing du; wgrad is dw31, dw13 (6C^2, +C^2 drap),
+    reading u, c, dc and gy and writing the float32 gradients. The kinds'
+    FLOPs sum to pair_bound's."""
+    px, item, cc = n * h * w, torch.finfo(DTYPES[dt]).bits // 8, c * c
+    kinds = {"dc": (6 * cc, 4, 6 * cc, 4 * c), "du": ((3 + rap) * cc, 3, (3 + rap) * cc, 0),
+             "wgrad": ((6 + rap) * cc, 4, 0, 4 * ((6 + rap) * cc + c))}
+    out = {}
+    for kind, (macs, passes, weights, f32_bytes) in kinds.items():
+        flops, nbytes = 2 * px * macs, item * (passes * px * c + weights) + f32_bytes
+        out[kind] = {"flops": flops, "bytes": nbytes, **_bound(flops, nbytes, dt)}
     return out
 
 
@@ -937,8 +961,9 @@ K3_KINDS = {"dc": "bwd_dc_kernel", "du": "bwd_du_kernel", "wgrad": "bwd_wgrad_ke
             "sum": "namespace)::reduce_kernel("}
 # the bf16 kernels of K2 and K3 (phase 16)
 K2_BF16_KINDS = {"pair": "fwd_pair_bf16_kernel", "sum": "namespace)::reduce_kernel("}
-K3_BF16_KINDS = {"dc": "bwd_dc_bf16_kernel", "du": "bwd_du_bf16_kernel",
-                 "wgrad": "bwd_wgrad_bf16_kernel", "sum": "namespace)::reduce_kernel("}
+K3_BF16_KINDS = {"dc": "k3_c_dc_bf16_kernel", "du": "k3_du_bf16_kernel",
+                 "wgrad": "k3_wgrad_bf16_kernel", "sum": "namespace)::reduce_kernel("}
+K3_BOUND_KINDS = tuple(k for k in K3_KINDS if k != "sum")  # the kinds k3_kind_bounds splits
 PAIR_KINDS = {("fwd", "f32"): K2_KINDS, ("bwd", "f32"): K3_KINDS,
               ("fwd", "bf16"): K2_BF16_KINDS, ("bwd", "bf16"): K3_BF16_KINDS}
 
@@ -1117,6 +1142,9 @@ def pair_times(seed: int, dev: torch.device, n: int, dt: str) -> list[dict]:
                 row[f"{kind}_bound_by"] = b["bound_by"]
                 row[f"{kind}_flops"] = row.get(f"{kind}_flops", 0) + b["flops"]
                 row[f"{kind}_bytes"] = row.get(f"{kind}_bytes", 0) + b["bytes"]
+                for k, kb in b.get("kinds", {}).items():  # K3's launch kinds
+                    for key in ("bound_ms", "ops_ms", "flops"):
+                        row[f"{kind}_{k}_{key}"] = row.get(f"{kind}_{k}_{key}", 0) + kb[key]
         blocks.append(row)
         tc = (lambda k: f" / {row[f'{k}_bound_3xtf32_ms']:.4f} 3xTF32") if dt == "f32" else (
             lambda k: "")
@@ -1125,7 +1153,9 @@ def pair_times(seed: int, dev: torch.device, n: int, dt: str) -> list[dict]:
               f"device " + ", ".join(f"{k} {fmt_ms(row[f'fwd_{k}_ms'])}" for k in K2_KINDS)
               + f"), K3 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
               f"{row['bwd_bound_ms']:.4f} {dt}{tc('bwd')}; device "
-              + ", ".join(f"{k} {fmt_ms(row[f'bwd_{k}_ms'])}" for k in K3_KINDS)
+              + ", ".join(f"{k} {fmt_ms(row[f'bwd_{k}_ms'])}"
+                          + (f" (bound {row[f'bwd_{k}_bound_ms']:.4f})"
+                             if f"bwd_{k}_bound_ms" in row else "") for k in K3_KINDS)
               + f"; weight-gradient matmuls {row['bwd_wgrad_library_ms']:.4f} {dt}"
               + (f", {row['bwd_wgrad_library_tf32_ms']:.4f} TF32)" if dt == "f32" else ")"))
     return blocks
@@ -1140,8 +1170,8 @@ def pair_times(seed: int, dev: torch.device, n: int, dt: str) -> list[dict]:
 # to the first family one of whose patterns is in one of those names; what no launch or name
 # places goes by its own name (FAMILY_BY_KERNEL_NAME), else to "unattributed".
 OWN_KERNELS = ("nb1d_pair_", "fwd_pair_mma_kernel", "bwd_dc_kernel", "bwd_du_kernel",
-               "bwd_wgrad_kernel", "fwd_pair_bf16_kernel", "bwd_dc_bf16_kernel",
-               "bwd_du_bf16_kernel", "bwd_wgrad_bf16_kernel", "namespace)::reduce_kernel(")
+               "bwd_wgrad_kernel", "fwd_pair_bf16_kernel", "k3_c_dc_bf16_kernel",
+               "k3_du_bf16_kernel", "k3_wgrad_bf16_kernel", "namespace)::reduce_kernel(")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 FAMILIES = (
     ("cuDNN conv and its backward", ("convolution", "cudnn")),
@@ -2982,11 +3012,34 @@ def phase_bf16(seed: int, dev: torch.device) -> dict:
     part("cli_chain")
     rec["times"] = pair_times(seed + 530, dev, TRAIN_BATCH, "bf16")
     part("times")
+    rec["k3_by_kind"] = k3_kind_totals(rec["times"])
+    print(f"[bf16] K3 bf16 per student backward at {TRAIN_BATCH}x{HEIGHT}x{WIDTH}, device ms by "
+          f"launch kind (bound: each kind's operations and activation passes, k3_kind_bounds): "
+          + ", ".join(f"{k} {fmt_ms(v['device_ms'])} (bound {v['bound_ms']:.4f}, "
+                      f"{v['bound_by']})" if "bound_ms" in v else f"{k} {fmt_ms(v['device_ms'])}"
+                      for k, v in rec["k3_by_kind"].items()))
     rec["glue_bound"] = glue_bound(item=2)
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"[bf16] phase 16 in {rec['seconds']:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in rec["part_seconds"].items()) + ")")
     return rec
+
+
+def k3_kind_totals(blocks: list[dict]) -> dict:
+    """K3's device ms per launch kind summed over the 34 pair calls of one
+    student backward (None if a kind was not measured), with each kind's
+    bound (k3_kind_bounds) where it has one."""
+    out = {}
+    for k in K3_KINDS:
+        ms = [r[f"bwd_{k}_ms"] for r in blocks]
+        rec = {"device_ms": None if any(v is None for v in ms)
+               else sum(r["count"] * v for r, v in zip(blocks, ms))}
+        if f"bwd_{k}_bound_ms" in blocks[0]:
+            ops = sum(r["count"] * r[f"bwd_{k}_ops_ms"] for r in blocks)
+            rec["bound_ms"] = sum(r["count"] * r[f"bwd_{k}_bound_ms"] for r in blocks)
+            rec["bound_by"] = "operations" if ops >= rec["bound_ms"] - 1e-12 else "bytes"
+        out[k] = rec
+    return out
 
 
 def bf16_entry(rec: dict, kind: str) -> dict:
@@ -3018,6 +3071,9 @@ def bf16_entry(rec: dict, kind: str) -> dict:
         "device_ms_by_kind": {
             kk: None if any(r[f"{kind}_{kk}_ms"] is None for r in blocks)
             else total(f"{kk}_ms") for kk in PAIR_KINDS[kind, "bf16"]},
+        **({"bound_ms_by_kind": {kk: total(f"{kk}_bound_ms") for kk in K3_BOUND_KINDS},
+            "ops_ms_by_kind": {kk: total(f"{kk}_ops_ms") for kk in K3_BOUND_KINDS}}
+           if kind == "bwd" else {}),
         "at": f"sum over the 34 pair calls (17 blocks x 2) of one student "
               f"{'forward' if kind == 'fwd' else 'backward'} at 6x512x1024 bfloat16",
     }
@@ -3038,6 +3094,9 @@ def kernel_entry(name: str, replaces: str, launches: int, cases: list[dict], key
     extra["device_ms_by_kind"] = {
         k: None if any(r[f"{kind}_{k}_ms"] is None for r in blocks)
         else sum(r["count"] * r[f"{kind}_{k}_ms"] for r in blocks) for k in PAIR_KINDS[kind, "f32"]}
+    if kind == "bwd":
+        extra["bound_ms_by_kind"] = {k: sum(r["count"] * r[f"bwd_{k}_bound_ms"] for r in blocks)
+                                     for k in K3_BOUND_KINDS}
     return {
         "name": name, "route": "cuda", "source": "mdilss_tpu_torch/csrc/nb1d_train.cu",
         "replaces": replaces, "launches": launches, **more_launches,

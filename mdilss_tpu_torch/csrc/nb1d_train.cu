@@ -595,195 +595,385 @@ fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
   }
 }
 
-// One tap of a bf16 conv launch of K3: output pixel (row, w0 + m) reads row[(w0 + m + shift) * C ..]
-// (0 outside the image) against the weight rows w[ci][co].
-struct Tap16 {
-  const bf16* row;
-  const bf16* w;
-  int shift;
+// ---- K3 in bf16 ------------------------------------------------------------------------------
+// Three launches and the fixed-order sum, as in fp32, redesigned for the H100:
+//   k3_c_dc_bf16_kernel   c (recomputed in K2's order) written to a scratch buffer, then
+//                         dc = bf16(colconv_d^T(gy) * [c > 0]);
+//   k3_du_bf16_kernel     du = bf16(rowconv_d^T(dc) [+ gy @ rap^T]);
+//   k3_wgrad_bf16_kernel  the weight-gradient partials of every matrix from one staging of each
+//                         pixel tile's operands;
+//   reduce_kernel         the partials summed in a fixed order.
+// On the H100 the three launches are bound neither by the tensor cores nor by device memory: the
+// mma.sync products with their ldmatrix loads, the operands' traffic from L2 into shared memory
+// and the barrier of each ring stage take the time. The design cuts the traffic (each operand
+// staged once per tile for every product that reads it, weights resident, halos) and the
+// barriers (wide chunks, persistent CTAs); PERF.md has the measured split.
+// The conv launches are persistent: a CTA walks the pixel tiles blockIdx.x, blockIdx.x +
+// gridDim.x, ... as one stream of ring stages (tile, tap, chunk of KC input channels), so the
+// loads of the next tile overlap the products and the epilogue of this one; the grid is as many
+// CTAs as fit on the card at once. Each output pixel is computed by one CTA in a fixed order, so
+// the grid does not change a bit of the result.
+
+// The conv launches' tiles, rings and resident weights. The warp tiles are Mma<C>'s (32 pixels x
+// 8NT channels), with twice the pair's warps along the pixels: a tile of TM pixels of one row per
+// CTA. A CTA keeps the weights of its products resident in shared memory for its whole walk
+// (loaded once), except dc's w31 at C = 128, which does not fit beside w13t and the ring and is
+// streamed a chunk per stage: so each weight is read once per CTA, not once per tile. A stage
+// holds an A chunk (KC input channels of the TM pixels, or of TM + 2d for a halo of d <= DMAX
+// columns on each side); the chunk is wider than the pair's (fewer stages and barriers per tile).
+// None of this changes the k16 steps of any product, so c keeps the pair's order. A tile's
+// outputs go through the stage buffer just multiplied and leave as 16-byte rows (conv_store):
+// written straight from the fragments, each store would fill half a 32-byte sector.
+template <int C>
+struct ConvTiles {
+  static constexpr int THREADS = 512;
+  static constexpr int WM = THREADS / 32 / Mma<C>::WN;  // warps along the pixels: 4, 8, 16
+  static constexpr int TM = WM * Mma<C>::MT * 16;       // pixels per tile: 128, 256, 512
+  static constexpr int KC = C >= 64 ? 64 : C;           // input channels per stage
+  static constexpr int NCH = C / KC;
+  static constexpr int LDA = KC + 8;                    // an odd multiple of 16 bytes, as Mma<C>'s
+  static constexpr int LDB = Mma<C>::LDB;               // weight rows [ci][LDB]
+  static constexpr int LDO = C + 8;                     // the epilogue's tile [TM][LDO]
+  static_assert(KC % 16 == 0 && C % KC == 0 && (LDA / 8) % 2 == 1, "conv chunk");
 };
 
-// acc += sum over the taps j < ntaps of A_j @ tap(j).w for the CTA's TM pixels w0 .. of one row,
-// A_j through the pre-stage where pa is non-null; the tiles of the pair's stage B (Mma<C>), each
-// tap's K streamed in chunks of KC input channels through the ring.
-template <int C, typename TapFn>
-__device__ __forceinline__ void conv_gemm_bf16(bf16* smem, TapFn tap, int ntaps, int w0, int W,
-                                               const float* __restrict__ pa,
-                                               const float* __restrict__ pb,
-                                               float (&acc)[Mma<C>::MT][Mma<C>::NT][4]) {
+// Launch 1's shared memory: w13t [3C][LDB] (and w31 after it at C <= 64), then DEPTH stages of an
+// A chunk [TM + 2 DMAX][LDA] (and at C = 128 a w31 chunk [KC][LDB]), each at least as large as
+// the epilogue's tile.
+template <int C>
+struct DcRing : ConvTiles<C> {
+  using T = ConvTiles<C>;
+  static constexpr bool W31_RESIDENT = C <= 64;
+  static constexpr int DMAX = 16;  // the widest halo a stage holds (the model's d <= 16)
+  static constexpr int WRES = (W31_RESIDENT ? 6 : 3) * C * T::LDB;
+  static constexpr int B_OFF = (T::TM + 2 * DMAX) * T::LDA;
+  static constexpr int OPERANDS = B_OFF + (W31_RESIDENT ? 0 : T::KC * T::LDB);
+  static constexpr int STAGE = OPERANDS > T::TM * T::LDO ? OPERANDS : T::TM * T::LDO;
+  static constexpr int DEPTH = 3;  // 225.8 KB of shared memory at C = 128
+  static constexpr size_t BYTES = sizeof(bf16) * (WRES + DEPTH * STAGE);
+};
+
+// Launch 2's shared memory: w31t [3C][LDB] and rapt [C][LDB], then DEPTH stages of an A chunk
+// [TM][LDA], each as large as the epilogue's tile.
+template <int C>
+struct DuRing : ConvTiles<C> {
+  using T = ConvTiles<C>;
+  static constexpr int WRES = 4 * C * T::LDB;
+  static constexpr int STAGE = T::TM * T::LDO;
+  static constexpr int DEPTH = 2;  // a third stage does not fit beside the weights at C = 128
+  static constexpr size_t BYTES = sizeof(bf16) * (WRES + DEPTH * STAGE);
+  static_assert(T::LDA <= T::LDO, "an A chunk fits a stage");
+};
+
+// A chunk row m <- src_row[col0 + m, 0 : KC] for m < rows, 0 outside the image (columns 0 .. W-1)
+template <int C>
+__device__ __forceinline__ void conv_fetch_rows(bf16* A, const bf16* src_row, int col0, int W,
+                                                int rows = ConvTiles<C>::TM) {
+  using R = ConvTiles<C>;
+  constexpr int AV = R::KC / 8;
+  for (int idx = threadIdx.x; idx < rows * AV; idx += R::THREADS) {
+    const int m = idx / AV, v = (idx % AV) * 8, col = col0 + m;
+    bf16* dst = A + m * R::LDA + v;
+    if (col >= 0 && col < W) cp_async16(dst, src_row + static_cast<size_t>(col) * C + v);
+    else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// the pre-stage on the groups this thread copied with conv_fetch_rows(A, ., col0, W) from input
+// channel ci0 on; nothing without one (pa null)
+template <int C>
+__device__ __forceinline__ void conv_pre_rows(bf16* A, int col0, int W,
+                                              const float* __restrict__ pa,
+                                              const float* __restrict__ pb, int ci0) {
+  using R = ConvTiles<C>;
+  constexpr int AV = R::KC / 8;
+  if (pa == nullptr) return;
+  for (int idx = threadIdx.x; idx < R::TM * AV; idx += R::THREADS) {
+    const int m = idx / AV, v = (idx % AV) * 8, col = col0 + m;
+    if (col >= 0 && col < W) pre8(A + m * R::LDA + v, pa, pb, ci0 + v);
+  }
+}
+
+// rows rows of a [rows][C] weight matrix from w into B (row stride LDB)
+template <int C>
+__device__ __forceinline__ void conv_fetch_weights(bf16* B, const bf16* w, int rows) {
+  constexpr int V = C / 8;
+  for (int e = threadIdx.x; e < rows * V; e += ConvTiles<C>::THREADS) {
+    const int row = e / V, c8 = (e % V) * 8;
+    cp_async16(B + row * ConvTiles<C>::LDB + c8, w + static_cast<size_t>(row) * C + c8);
+  }
+}
+
+// A conv launch's position in its CTA's walk: pixel tile t (TM columns w0 .. of image row `row`
+// = n*H + r), tap j of the tile's n0 row taps k0 .. k0+n0-1 (the rows inside the image) and
+// `extra` more, chunk ch. next() steps to the following stage.
+struct ConvWalk {
+  int t, row, r, w0, k0, n0, j, ch;
+  int stride, tpr, tm, H, d, extra, nch;
+  __device__ void tile(int t_) {
+    t = t_;
+    row = t / tpr;
+    r = row % H;
+    w0 = (t - row * tpr) * tm;
+    k0 = r - d < 0 ? 1 : 0;
+    n0 = (r + d >= H ? 1 : 2) - k0 + 1;
+    j = ch = 0;
+  }
+  __device__ void next() {
+    if (++ch < nch) return;
+    ch = 0;
+    if (++j < n0 + extra) return;
+    tile(t + stride);
+  }
+  // the stages of the walk from tile blockIdx.x on
+  __device__ int stages(int ntiles) const {
+    ConvWalk w = *this;
+    int s = 0;
+    for (int u = static_cast<int>(blockIdx.x); u < ntiles; u += stride) {
+      w.tile(u);
+      s += (w.n0 + extra) * nch;
+    }
+    return s;
+  }
+};
+
+template <int C>
+__device__ ConvWalk conv_walk(int H, int W, int d, int extra) {
+  ConvWalk w{};
+  w.stride = static_cast<int>(gridDim.x);
+  w.tm = ConvTiles<C>::TM;
+  w.tpr = (W + ConvTiles<C>::TM - 1) / ConvTiles<C>::TM;
+  w.H = H;
+  w.d = d;
+  w.extra = extra;
+  w.nch = ConvTiles<C>::NCH;
+  w.tile(static_cast<int>(blockIdx.x));
+  return w;
+}
+
+// The tile's outputs, fn(i, nt, h) for the fragment pair (i, nt, 2h .. 2h+1) of each warp, through
+// `stage` (the ring buffer just multiplied) to pixels w0 .. of image row `row` inside the image, of
+// dst (an activation [N][H][W][C]), as 16-byte stores. The next refill of the buffer comes after
+// the ring's next barrier.
+template <int C, typename Fn>
+__device__ __forceinline__ void conv_store(bf16* stage, bf16* __restrict__ dst, int row, int w0,
+                                           int W, Fn fn) {
   using K = Mma<C>;
-  const int warp = threadIdx.x >> 5, wm = warp % K::WM, wn = warp / K::WM;
-  pipeline(
-      ntaps * K::NCH,
-      [&](int s, int buf) {
-        const Tap16 tp = tap(s / K::NCH);
-        const int ci0 = (s % K::NCH) * K::KC;
-        bf16* A = smem + buf * K::STAGE;
-        fetch_rows<C>(A, tp.row + ci0, w0 + tp.shift, K::TM, W);
-        fetch_weights<C>(A + K::B_OFF, tp.w + static_cast<size_t>(ci0) * C);
-      },
-      [&](int s, int buf) {
-        pre_rows<C>(smem + buf * K::STAGE, w0 + tap(s / K::NCH).shift, K::TM, W, pa, pb,
-                    (s % K::NCH) * K::KC);
+  using R = ConvTiles<C>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % R::WM, wn = warp / R::WM, g = lane >> 2, t = lane & 3;
+  __syncthreads();  // every warp is done with the stage's operands
+#pragma unroll
+  for (int i = 0; i < K::MT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(stage + (wm * K::MT * 16 + i * 16 + g + 8 * h) * R::LDO +
+                                           wn * K::NT * 8 + nt * 8 + 2 * t) = fn(i, nt, h);
+  __syncthreads();
+  constexpr int V = C / 8;
+  bf16* out = dst + (static_cast<size_t>(row) * W + w0) * C;
+  for (int idx = threadIdx.x; idx < R::TM * V; idx += R::THREADS) {
+    const int m = idx / V, v = (idx % V) * 8;
+    if (w0 + m < W)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * C + v) =
+          *reinterpret_cast<const uint4*>(stage + m * R::LDO + v);
+  }
+}
+
+// acc += A[16MT rows of this warp from a][KC] @ B[KC][the warp's 8NT channels from b]
+template <int C>
+__device__ __forceinline__ void conv_mma(const bf16* a, const bf16* b,
+                                         float (&acc)[Mma<C>::MT][Mma<C>::NT][4]) {
+  using K = Mma<C>;
+  using R = ConvTiles<C>;
+  const int warp = threadIdx.x >> 5, wm = warp % R::WM, wn = warp / R::WM;
+  warp_mma<R::KC, K::MT, K::NT, R::LDA, R::LDB>(acc, a + wm * K::MT * 16 * R::LDA, 16, K::MT,
+                                                b + wn * K::NT * 8);
+}
+
+// Launch 1: per tile, GEMM 0 (the row taps k0 .. k0+n0-1 of w31 on u, through the pre-stage)
+// then GEMM 1 (the 3 column taps of w13t on gy). GEMM 0 runs the taps, chunks and k16 steps of
+// K2's stage A in K2's order into a fresh accumulator, so for the same inputs c is K2's bf16 c bit
+// for bit and each relu takes the same side (card test test_bf16_fwd_and_bwd_compute_the_same_c).
+// For d <= DMAX, GEMM 1 takes one stage per chunk: gy's TM + 2d columns w0-d .. once, tap k
+// reading it from row k*d on; else a stage per tap and chunk.
+template <int C>
+__global__ void __launch_bounds__(ConvTiles<C>::THREADS, 1)
+k3_c_dc_bf16_kernel(const bf16* __restrict__ raw, const bf16* __restrict__ gy,
+                    const bf16* __restrict__ w31, const float* __restrict__ b31,
+                    const bf16* __restrict__ w13t, const float* __restrict__ pa,
+                    const float* __restrict__ pb, bf16* __restrict__ cbuf, bf16* __restrict__ dc,
+                    int ntiles, int H, int W, int d) {
+  using K = Mma<C>;
+  using R = DcRing<C>;
+  extern __shared__ uint4 smem16[];
+  bf16* wres = reinterpret_cast<bf16*>(smem16);  // w13t, then w31 if resident
+  bf16* ring = wres + R::WRES;
+  conv_fetch_weights<C>(wres, w13t, 3 * C);
+  if (R::W31_RESIDENT) conv_fetch_weights<C>(wres + 3 * C * R::LDB, w31, 3 * C);
+  cp_async_commit();  // complete before the ring's first stage
+  const bool halo = d <= R::DMAX;
+  // fetch runs a stage ahead; fixup and multiply of a stage share a position
+  ConvWalk fw = conv_walk<C>(H, W, d, halo ? 1 : 3), mw = fw;
+  static_assert(K::MT * K::NT * 4 <= 32, "one sign bit per fragment element");
+  const int co_base = (threadIdx.x >> 5) / R::WM * K::NT * 8 + 2 * (threadIdx.x & 3);
+  float acc[K::MT][K::NT][4];
+  zero_frags(acc);
+  uint32_t pos = 0;  // bit (i*NT + nt)*4 + e: c > 0
+  pipeline<R::DEPTH>(
+      fw.stages(ntiles),
+      [&](int, int buf) {
+        bf16* A = ring + buf * R::STAGE;
+        const int ci0 = fw.ch * R::KC;
+        if (fw.j < fw.n0) {
+          const int tap = fw.k0 + fw.j;
+          conv_fetch_rows<C>(A, raw + static_cast<size_t>(fw.row + (tap - 1) * d) * W * C + ci0,
+                             fw.w0, W);
+          if (!R::W31_RESIDENT)
+            conv_fetch_weights<C>(A + R::B_OFF, w31 + (static_cast<size_t>(tap) * C + ci0) * C,
+                                  R::KC);
+        } else {
+          const int shift = halo ? -d : (fw.j - fw.n0 - 1) * d;
+          conv_fetch_rows<C>(A, gy + static_cast<size_t>(fw.row) * W * C + ci0, fw.w0 + shift, W,
+                             halo ? R::TM + 2 * d : R::TM);
+        }
+        fw.next();
       },
       [&](int, int buf) {
-        const bf16* A = smem + buf * K::STAGE;
-        warp_mma<K::KC, K::MT, K::NT, K::LDA, K::LDB>(acc, A + wm * K::MT * 16 * K::LDA, 16,
-                                                      K::MT, A + K::B_OFF + wn * K::NT * 8);
+        if (mw.j < mw.n0) conv_pre_rows<C>(ring + buf * R::STAGE, mw.w0, W, pa, pb, mw.ch * R::KC);
+      },
+      [&](int, int buf) {
+        bf16* stage = ring + buf * R::STAGE;
+        const int ci0 = mw.ch * R::KC;
+        if (mw.j < mw.n0) {
+          const int tap = mw.k0 + mw.j;
+          conv_mma<C>(stage, R::W31_RESIDENT ? wres + ((3 + tap) * C + ci0) * R::LDB
+                                             : stage + R::B_OFF, acc);
+        } else if (halo) {
+          for (int k = 0; k < 3; ++k)
+            conv_mma<C>(stage + k * d * R::LDA, wres + (k * C + ci0) * R::LDB, acc);
+        } else {
+          conv_mma<C>(stage, wres + ((mw.j - mw.n0) * C + ci0) * R::LDB, acc);
+        }
+        if (mw.ch == R::NCH - 1 && mw.j == mw.n0 - 1) {  // c = relu(acc + b31) as bf16
+          pos = 0;
+          conv_store<C>(stage, cbuf, mw.row, mw.w0, W, [&](int i, int nt, int h) {
+            const float2 bias = *reinterpret_cast<const float2*>(b31 + co_base + nt * 8);
+            const __nv_bfloat162 cv = __floats2bfloat162_rn(
+                fmaxf(acc[i][nt][2 * h] + bias.x, 0.f), fmaxf(acc[i][nt][2 * h + 1] + bias.y, 0.f));
+            const float2 cf = __bfloat1622float2(cv);
+            const int bit = (i * K::NT + nt) * 4 + 2 * h;
+            pos |= (cf.x > 0.f ? 1u : 0u) << bit | (cf.y > 0.f ? 1u : 0u) << (bit + 1);
+            return cv;
+          });
+          zero_frags(acc);
+        } else if (mw.ch == R::NCH - 1 && mw.j == mw.n0 + mw.extra - 1) {  // dc = g * [c > 0]
+          conv_store<C>(stage, dc, mw.row, mw.w0, W, [&](int i, int nt, int h) {
+            const int bit = (i * K::NT + nt) * 4 + 2 * h;
+            return __floats2bfloat162_rn((pos >> bit) & 1u ? acc[i][nt][2 * h] : 0.f,
+                                         (pos >> (bit + 1)) & 1u ? acc[i][nt][2 * h + 1] : 0.f);
+          });
+          zero_frags(acc);
+        }
+        mw.next();
       });
 }
 
-// K3 in bf16, launch 1: c (recomputed in K2's order, so for the same inputs the same bf16 c and
-// the same side of each relu) written to a scratch buffer, its sign kept in registers; then
-// dc = bf16(colconv_d^T(gy) * [c > 0]).
+// Launch 2: per tile, the row taps k0 .. k0+n0-1 of w31t on dc, then RAP (rapt on gy's own row).
 template <int C>
-__global__ void __launch_bounds__(Mma<C>::THREADS, 2)
-bwd_dc_bf16_kernel(const bf16* __restrict__ raw, const bf16* __restrict__ gy,
-                   const bf16* __restrict__ w31, const float* __restrict__ b31,
-                   const bf16* __restrict__ w13t, const float* __restrict__ pa,
-                   const float* __restrict__ pb, bf16* __restrict__ cbuf, bf16* __restrict__ dc,
-                   int H, int W, int d) {
+__global__ void __launch_bounds__(ConvTiles<C>::THREADS, 1)
+k3_du_bf16_kernel(const bf16* __restrict__ dc, const bf16* __restrict__ gy,
+                  const bf16* __restrict__ w31t, const bf16* __restrict__ rapt,
+                  bf16* __restrict__ du, int ntiles, int H, int W, int d) {
   using K = Mma<C>;
+  using R = DuRing<C>;
   extern __shared__ uint4 smem16[];
-  bf16* smem = reinterpret_cast<bf16*>(smem16);
-  const int w0 = blockIdx.x * K::TM, r = blockIdx.y;
-  const size_t img_row0 = static_cast<size_t>(blockIdx.z) * H;
-  const size_t row_base = (img_row0 + r) * W;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
-  static_assert(K::MT * K::NT * 4 <= 32, "one sign bit per fragment element");
-
-  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2;  // row taps inside the image
+  bf16* wres = reinterpret_cast<bf16*>(smem16);  // w31t, then rapt
+  bf16* ring = wres + R::WRES;
+  conv_fetch_weights<C>(wres, w31t, 3 * C);
+  if (rapt != nullptr) conv_fetch_weights<C>(wres + 3 * C * R::LDB, rapt, C);
+  cp_async_commit();  // complete before the ring's first stage
+  ConvWalk fw = conv_walk<C>(H, W, d, rapt != nullptr ? 1 : 0), mw = fw;
   float acc[K::MT][K::NT][4];
   zero_frags(acc);
-  conv_gemm_bf16<C>(
-      smem,
-      [&](int j) {
-        const int tap = k0 + j;
-        return Tap16{raw + (img_row0 + r + (tap - 1) * d) * W * C,
-                     w31 + static_cast<size_t>(tap) * C * C, 0};
+  pipeline<R::DEPTH>(
+      fw.stages(ntiles),
+      [&](int, int buf) {
+        const bool conv = fw.j < fw.n0;
+        conv_fetch_rows<C>(ring + buf * R::STAGE,
+                           (conv ? dc + static_cast<size_t>(fw.row + (fw.k0 + fw.j - 1) * d) * W * C
+                                 : gy + static_cast<size_t>(fw.row) * W * C) +
+                               fw.ch * R::KC,
+                           fw.w0, W);
+        fw.next();
       },
-      k1 - k0 + 1, w0, W, pa, pb, acc);
-  uint32_t pos = 0;  // bit (i*NT + nt)*4 + e: c > 0
-#pragma unroll
-  for (int i = 0; i < K::MT; ++i)
-#pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
-        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
-        const float2 bias = *reinterpret_cast<const float2*>(b31 + co);
-        const __nv_bfloat162 cv = __floats2bfloat162_rn(fmaxf(acc[i][nt][2 * h] + bias.x, 0.f),
-                                                        fmaxf(acc[i][nt][2 * h + 1] + bias.y, 0.f));
-        const float2 cf = __bfloat1622float2(cv);
-        const int bit = (i * K::NT + nt) * 4 + 2 * h;
-        pos |= (cf.x > 0.f ? 1u : 0u) << bit;
-        pos |= (cf.y > 0.f ? 1u : 0u) << (bit + 1);
-        if (col < W) *reinterpret_cast<__nv_bfloat162*>(cbuf + (row_base + col) * C + co) = cv;
-      }
-
-  // g = colconv_d^T(gy): the 1x3 conv of gy with the transposed, tap-reversed stack
-  zero_frags(acc);
-  conv_gemm_bf16<C>(
-      smem,
-      [&](int j) {
-        return Tap16{gy + row_base * C, w13t + static_cast<size_t>(j) * C * C, (j - 1) * d};
-      },
-      3, w0, W, nullptr, nullptr, acc);
-#pragma unroll
-  for (int i = 0; i < K::MT; ++i)
-#pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
-        if (col >= W) continue;
-        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
-        const int bit = (i * K::NT + nt) * 4 + 2 * h;
-        *reinterpret_cast<__nv_bfloat162*>(dc + (row_base + col) * C + co) =
-            __floats2bfloat162_rn((pos >> bit) & 1u ? acc[i][nt][2 * h] : 0.f,
-                                  (pos >> (bit + 1)) & 1u ? acc[i][nt][2 * h + 1] : 0.f);
-      }
+      [](int, int) {},
+      [&](int, int buf) {
+        bf16* stage = ring + buf * R::STAGE;
+        const int wrow = (mw.j < mw.n0 ? (mw.k0 + mw.j) * C : 3 * C) + mw.ch * R::KC;
+        conv_mma<C>(stage, wres + wrow * R::LDB, acc);
+        if (mw.ch == R::NCH - 1 && mw.j == mw.n0 + mw.extra - 1) {
+          conv_store<C>(stage, du, mw.row, mw.w0, W, [&](int i, int nt, int h) {
+            return __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
+          });
+          zero_frags(acc);
+        }
+        mw.next();
+      });
 }
 
-// K3 in bf16, launch 2: du = bf16(rowconv_d^T(dc) [+ gy @ rap^T]).
-template <int C>
-__global__ void __launch_bounds__(Mma<C>::THREADS, 2)
-bwd_du_bf16_kernel(const bf16* __restrict__ dc, const bf16* __restrict__ gy,
-                   const bf16* __restrict__ w31t, const bf16* __restrict__ rapt,
-                   bf16* __restrict__ du, int H, int W, int d) {
-  using K = Mma<C>;
-  extern __shared__ uint4 smem16[];
-  bf16* smem = reinterpret_cast<bf16*>(smem16);
-  const int w0 = blockIdx.x * K::TM, r = blockIdx.y;
-  const size_t img_row0 = static_cast<size_t>(blockIdx.z) * H;
-  const size_t row_base = (img_row0 + r) * W;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
-
-  // the row taps k0 .. k1 inside the image, then RAP on gy's own row
-  const int k0 = r - d < 0 ? 1 : 0, k1 = r + d >= H ? 1 : 2, nrow = k1 - k0 + 1;
-  float acc[K::MT][K::NT][4];
-  zero_frags(acc);
-  conv_gemm_bf16<C>(
-      smem,
-      [&](int j) {
-        return j < nrow ? Tap16{dc + (img_row0 + r + (k0 + j - 1) * d) * W * C,
-                                w31t + static_cast<size_t>(k0 + j) * C * C, 0}
-                        : Tap16{gy + row_base * C, rapt, 0};
-      },
-      nrow + (rapt != nullptr ? 1 : 0), w0, W, nullptr, nullptr, acc);
-#pragma unroll
-  for (int i = 0; i < K::MT; ++i)
-#pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
-        if (col >= W) continue;
-        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(du + (row_base + col) * C + co) =
-            __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
-      }
-}
-
-// K3 in bf16, launch 3: weight-gradient partials, as bwd_wgrad_kernel tiles them (M = ci, N = co,
-// K = pixels; a fixed grid of P CTAs per matrix, two per matrix at C = 128, one per half of the
-// columns; tiles of TP pixels of one image row) but on bf16 mma.sync: the A tile [pixel][ci] is
-// read transposed by ldmatrix, the B tile [pixel][co] as the pair's weights are. Each CTA sums
-// its tiles in the fp32 accumulators; at C = 16 the 8 warps split each tile's k16 steps and are
-// summed in a fixed order at the end.
+// Launch 3: the weight gradients, [pixels x C]^T [pixels x C] products (M = ci, N = co, K =
+// pixels) on bf16 mma.sync, the A tiles [pixel][ci] read transposed by ldmatrix. Written so that
+// the operands two matrices share are staged once:
+//   dw31[k] = sum_s u[s]^T dc[s - (k-1)d]   (u at its own row, dc at rows s+d, s, s-d),
+//   dw13[k] = sum_w c[w]^T gy[w - (k-1)d]   (c at its own column, gy at columns w+d, w, w-d),
+//   drap    = sum u^T gy,   db31 = sum dc,
+// zero outside the image. A CTA computes all 7 (6 without RAP) matrices for CO output columns:
+// per pixel tile (TP pixels of one image row) it stages u and c at all C channels, dc at its three
+// rows and gy once with a halo of d columns on each side (three shifted tiles for d > TP), each
+// at its CO channels, once, and runs every product on them; at C = 128 the 4 column slices of
+// one walker are neighbours in the grid, so they run together and the L2 serves their common u
+// and c. The pre-stage's a and b of each thread's channels stay in registers. The grid is fixed by the shape (SLICES x P walkers, walker y taking tiles
+// y, y + P, ...), each CTA writes its own partials and the fixed-order sum adds them: reruns are
+// bitwise equal. At C = 16 the 8 warps split each tile's k16 steps and are summed in a fixed
+// order at the end.
 template <int C>
 struct WG16 {
-  static constexpr int HALVES = C >= 128 ? 2 : 1;
-  static constexpr int CO = C / HALVES;             // output columns per CTA
+  static constexpr int THREADS = 256;
+  static constexpr int CO = C >= 128 ? 32 : C;      // output columns per CTA
+  static constexpr int SLICES = C / CO;             // CTAs per walker: 4, 1, 1
+  static constexpr int WALKERS = C >= 128 ? 32 : 128;  // P at most
   static constexpr int KS = C == 16 ? 8 : 1;        // warps splitting the k16 steps
-  static constexpr int MT = C == 16 ? 1 : 2;
-  static constexpr int NT = C >= 128 ? 4 : 2;
-  static constexpr int WN = CO / (8 * NT);          // 2, 4, 1 for C = 128, 64, 16
+  static constexpr int MT = C == 16 ? 1 : 2;        // m16 (ci) tiles per warp
+  static constexpr int NT = 2;                      // n8 (co) tiles per warp
   static constexpr int WM = C / (16 * MT);          // 4, 2, 1
+  static constexpr int WN = CO / (8 * NT);          // 2, 4, 1
   static constexpr int TP = C == 16 ? 128 : 64;     // pixels per staged tile
-  static constexpr int LDA = C + 8, LDB = CO + 8;   // bf16: A tile [TP][LDA], B tile [TP][LDB]
-  static constexpr int B_OFF = TP * LDA;            // stage: A then B
-  static constexpr int STAGE = B_OFF + TP * LDB;
+  static constexpr int LDA = C + 8, LDB = CO + 8;   // bf16 row strides
   static constexpr int AV = C / 8, BV = CO / 8;     // 16-byte groups per pixel of a tile
-  static constexpr int DL = kThreads / BV;          // db31 lanes, 8 channels each
-  static constexpr int RED = KS > 1 ? KS * C * C : 0;  // floats of the per-warp sums
-  static_assert(WM * WN * KS * 32 == kThreads && (TP / 16) % KS == 0 && NT % 2 == 0,
-                "wgrad tile shape");
-  static_assert(kThreads % BV == 0 && (TP * BV) % kThreads == 0, "db31 lanes");
-  static_assert(4 * (RED + DL * CO) <= 2 * kStages * STAGE, "the epilogue reuses the ring");
+  static constexpr int C_OFF = TP * LDA;            // stage: u [TP][LDA], c [TP][LDA],
+  static constexpr int D_OFF = 2 * TP * LDA;        // dc at rows r+d, r, r-d ([TP][LDB] each),
+  static constexpr int GY_OFF = D_OFF + 3 * TP * LDB;  // then gy, TP + 2d <= 3TP rows or 3 tiles
+  static constexpr int STAGE = GY_OFF + 3 * TP * LDB;
+  static constexpr int DL = THREADS / BV;           // db31 lanes, 8 channels each
+  static constexpr int RED = KS > 1 ? KS * 7 * C * CO : 0;  // floats of the per-warp sums
+  static constexpr size_t BYTES = sizeof(bf16) * kStages * STAGE;
+  static_assert(WM * WN * KS * 32 == THREADS && (TP / 16) % KS == 0 && NT == 2, "wgrad tiles");
+  static_assert(THREADS % BV == 0 && (TP * BV) % THREADS == 0, "db31 lanes");
+  static_assert(THREADS % AV == 0 && (TP * AV) % THREADS == 0, "fixed u and c groups per thread");
+  static_assert(sizeof(float) * (RED + DL * CO) <= BYTES, "the epilogue reuses the ring");
 };
 
-// The pixel tiles blockIdx.x, blockIdx.x + P, ... of a weight-gradient CTA in order (TP pixels of
-// one image row each), walked without a division per tile: a step of P tiles is step_w tile
-// columns and step_r rows, plus the carries.
+// The pixel tiles t, t + P, ... of a weight-gradient walker in order (TP pixels of one
+// image row each), walked without a division per tile: a step of P tiles is step_w tile columns
+// and step_r rows, plus the carries.
 struct TileWalk {
   int n, r, w0;  // image, row and first column of the tile
   int step_r, step_w, span, H;
-  __device__ TileWalk(int P, int tpr, int tp, int H_) : span(tpr * tp), H(H_) {
-    const int t = static_cast<int>(blockIdx.x), nr = t / tpr;
+  __device__ TileWalk(int t, int P, int tpr, int tp, int H_) : span(tpr * tp), H(H_) {
+    const int nr = t / tpr;
     n = nr / H;
     r = nr - n * H;
     w0 = (t - nr * tpr) * tp;
@@ -804,143 +994,195 @@ struct TileWalk {
   }
 };
 
-// Matrix `mat` = blockIdx.y: 0-2 dw31[k] (A = u at row r+(k-1)d, B = dc), 3-5 dw13[k] (A = c at
-// column w+(k-1)d, B = gy), 6 drap (A = u, B = gy); matrix 1 also sums db31 = sum dc. Columns
-// blockIdx.z * CO onwards.
+// relu(a * v + b) on the 8 bf16 values at p (16-byte aligned) as pre8 computes it, with the 8
+// channels' a and b in registers
+__device__ __forceinline__ void pre8_regs(bf16* p, const float (&a)[8], const float (&b)[8]) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    h[i] = __floats2bfloat162_rn(fmaxf(__fadd_rn(__fmul_rn(a[2 * i], v.x), b[2 * i]), 0.f),
+                                 fmaxf(__fadd_rn(__fmul_rn(a[2 * i + 1], v.y), b[2 * i + 1]), 0.f));
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
 template <int C>
-__global__ void __launch_bounds__(kThreads)
-bwd_wgrad_bf16_kernel(const bf16* __restrict__ raw, const float* __restrict__ pa,
-                      const float* __restrict__ pb, const bf16* __restrict__ cbuf,
-                      const bf16* __restrict__ dc, const bf16* __restrict__ gy,
-                      float* __restrict__ part, size_t part_len, int N, int H, int W, int d) {
+__global__ void __launch_bounds__(WG16<C>::THREADS, 1)
+k3_wgrad_bf16_kernel(const bf16* __restrict__ raw, const float* __restrict__ pa,
+                     const float* __restrict__ pb, const bf16* __restrict__ cbuf,
+                     const bf16* __restrict__ dc, const bf16* __restrict__ gy, bool rap,
+                     float* __restrict__ part, size_t part_len, int N, int H, int W, int d) {
   using K = WG16<C>;
   extern __shared__ uint4 smem16[];
   bf16* smem = reinterpret_cast<bf16*>(smem16);
-  const int mat = blockIdx.y, P = gridDim.x, co0 = blockIdx.z * K::CO;
+  const int P = gridDim.y, co0 = blockIdx.x * K::CO;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kw = warp % K::KS, wmn = warp / K::KS, wm = wmn % K::WM, wn = wmn / K::WM;
   const int tpr = row_tiles(W, K::TP), ntiles = N * H * tpr;
-  const int mine = (ntiles - static_cast<int>(blockIdx.x) + P - 1) / P;  // tiles of this CTA
+  const int mine = (ntiles - static_cast<int>(blockIdx.y) + P - 1) / P;  // tiles of this CTA
 
-  const bool a_is_c = mat >= 3 && mat < 6;
-  const bf16* asrc = a_is_c ? cbuf : raw;
-  const bf16* bsrc = mat < 3 ? dc : gy;
-  const float* apa = a_is_c ? nullptr : pa;
-  const int drow = mat < 3 ? (mat - 1) * d : 0;
-  const int dcol = a_is_c ? (mat - 4) * d : 0;
-
-  TileWalk fetched(P, tpr, K::TP, H), fixed = fetched;  // the next tile to fetch / to fix up
-  // source of A group idx of the tile, or null for zero padding / past the row's end
-  auto a_src = [&](const TileWalk& ta, int idx) -> const bf16* {
-    const int w = ta.w0 + idx / K::AV, ac = w + dcol, ar = ta.r + drow;
-    if (w >= W || ar < 0 || ar >= H || ac < 0 || ac >= W) return nullptr;
-    return asrc + ((static_cast<size_t>(ta.n) * H + ar) * W + ac) * C + (idx % K::AV) * 8;
-  };
-  auto a_dst = [&](int buf, int idx) {
-    return smem + buf * K::STAGE + (idx / K::AV) * K::LDA + (idx % K::AV) * 8;
-  };
-  auto b_dst = [&](int buf, int idx) {
-    return smem + buf * K::STAGE + K::B_OFF + (idx / K::BV) * K::LDB + (idx % K::BV) * 8;
-  };
+  TileWalk fetched(blockIdx.y, P, tpr, K::TP, H), fixed = fetched;  // next tile to fetch / fix up
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // Each thread copies the same groups of every tile: u and c groups (pixel pu + i*THREADS/AV,
+  // channels vu ..), dc and gy groups (tile k6, pixel pd + .., channels co0 + vd ..). For d <= TP,
+  // gy is staged once with a halo of d columns on each side (TP + 2d <= 3TP rows), and the
+  // product of shift k reads it from row (2-k)d on; else as three shifted tiles.
+  const bool halo = d <= K::TP;
+  int gy_row[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) gy_row[k] = halo ? (2 - k) * d : k * K::TP;
+  constexpr int NU = K::TP * K::AV / K::THREADS, ND = 6 * K::TP * K::BV / K::THREADS;
+  const int pu = threadIdx.x / K::AV, vu = (threadIdx.x % K::AV) * 8;
+  const int pd = threadIdx.x / K::BV, vd = (threadIdx.x % K::BV) * 8;
   auto fetch = [&](int, int buf) {  // called for stages 0, 1, ... in order
     const TileWalk ta = fetched;
     fetched.advance();
-    for (int idx = threadIdx.x; idx < K::TP * K::AV; idx += kThreads) {
-      const bf16* src = a_src(ta, idx);
-      if (src != nullptr) cp_async16(a_dst(buf, idx), src);
-      else *reinterpret_cast<uint4*>(a_dst(buf, idx)) = zero;
+    bf16* st = smem + buf * K::STAGE;
+    const size_t img = static_cast<size_t>(ta.n) * H;
+    const size_t own = ((img + ta.r) * W + ta.w0) * C;  // the tile's first pixel
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {  // u and c at the tile's own pixels
+      const int p = pu + i * (K::THREADS / K::AV);
+      bf16* ud = st + p * K::LDA + vu;
+      if (ta.w0 + p < W) {
+        cp_async16(ud, raw + own + static_cast<size_t>(p) * C + vu);
+        cp_async16(ud + K::C_OFF, cbuf + own + static_cast<size_t>(p) * C + vu);
+      } else {
+        *reinterpret_cast<uint4*>(ud) = zero;
+        *reinterpret_cast<uint4*>(ud + K::C_OFF) = zero;
+      }
     }
-    const bf16* brow = bsrc + (static_cast<size_t>(ta.n) * H + ta.r) * W * C + co0;
-    for (int idx = threadIdx.x; idx < K::TP * K::BV; idx += kThreads) {
-      const int p = idx / K::BV;
-      if (ta.w0 + p < W)
-        cp_async16(b_dst(buf, idx), brow + static_cast<size_t>(ta.w0 + p) * C + (idx % K::BV) * 8);
-      else *reinterpret_cast<uint4*>(b_dst(buf, idx)) = zero;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {  // dc at rows r+d, r, r-d (and gy at columns w+d, w, w-d)
+      const int k6 = i * K::THREADS / (K::TP * K::BV);
+      if (k6 >= 3 && halo) break;
+      const int p = pd + (i * K::THREADS % (K::TP * K::BV)) / K::BV, shift = (1 - k6 % 3) * d;
+      const int rr = k6 < 3 ? ta.r + shift : ta.r, w = ta.w0 + p + (k6 < 3 ? 0 : shift);
+      bf16* dst = st + K::D_OFF + (k6 * K::TP + p) * K::LDB + vd;
+      if (rr >= 0 && rr < H && w >= 0 && w < W)
+        cp_async16(dst, (k6 < 3 ? dc : gy) + ((img + rr) * W + w) * C + co0 + vd);
+      else *reinterpret_cast<uint4*>(dst) = zero;
     }
+    if (halo)  // gy at columns w0-d .. w0+TP+d-1 once
+      for (int q = pd; q < K::TP + 2 * d; q += K::THREADS / K::BV) {
+        const int w = ta.w0 - d + q;
+        bf16* dst = st + K::GY_OFF + q * K::LDB + vd;
+        if (w >= 0 && w < W) cp_async16(dst, gy + ((img + ta.r) * W + w) * C + co0 + vd);
+        else *reinterpret_cast<uint4*>(dst) = zero;
+      }
   };
-  // db31 = sum dc: each thread sums the 8 channels (threadIdx.x % BV)*8.. of the B groups it
-  // copied; the DL lanes are summed in a fixed order at the end
+  // the pre-stage's a and b of the channels vu .. vu+7 of every u group this thread copies, kept
+  // in registers
+  float pre_a[8], pre_b[8];
+  if (pa != nullptr)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      pre_a[e] = pa[vu + e];
+      pre_b[e] = pb[vu + e];
+    }
+  // db31 = sum dc: each thread sums the channels co0 + vd .. +7 of the groups of dc at the tile's
+  // own row that it copied; the DL lanes are summed in a fixed order at the end
   float bsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   auto fixup = [&](int, int buf) {  // called for stages 0, 1, ... in order
     const TileWalk ta = fixed;
     fixed.advance();
-    if (apa != nullptr)
-      for (int idx = threadIdx.x; idx < K::TP * K::AV; idx += kThreads)
-        if (a_src(ta, idx) != nullptr) pre8(a_dst(buf, idx), apa, pb, (idx % K::AV) * 8);
-    if (mat == 1)
-      for (int idx = threadIdx.x; idx < K::TP * K::BV; idx += kThreads) {
-        uint4 raw8 = *reinterpret_cast<const uint4*>(b_dst(buf, idx));
-        const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw8);
+    bf16* st = smem + buf * K::STAGE;
+    if (pa != nullptr)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(v[e]);
-          bsum[2 * e] += f.x;
-          bsum[2 * e + 1] += f.y;
-        }
+      for (int i = 0; i < NU; ++i) {
+        const int p = pu + i * (K::THREADS / K::AV);
+        if (ta.w0 + p < W) pre8_regs(st + p * K::LDA + vu, pre_a, pre_b);
       }
+#pragma unroll
+    for (int i = 0; i < K::TP * K::BV / K::THREADS; ++i) {  // dc at the tile's own row
+      const int p = pd + i * (K::THREADS / K::BV);
+      uint4 raw8 = *reinterpret_cast<const uint4*>(st + K::D_OFF + (K::TP + p) * K::LDB + vd);
+      const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(v[e]);
+        bsum[2 * e] += f.x;
+        bsum[2 * e + 1] += f.y;
+      }
+    }
   };
 
-  float acc[K::MT][K::NT][4];
-  zero_frags(acc);
+  float acc[7][K::MT][K::NT][4];  // dw31[0..2], dw13[0..2], drap
+#pragma unroll
+  for (int m = 0; m < 7; ++m) zero_frags(acc[m]);
   const int j = lane >> 3, r8 = lane & 7;
   auto compute = [&](int, int buf) {
-    const bf16* A = smem + buf * K::STAGE;
-    const bf16* B = A + K::B_OFF + wn * K::NT * 8;
+    const bf16* st = smem + buf * K::STAGE;
+    const bf16* B = st + K::D_OFF + wn * K::NT * 8;
 #pragma unroll
     for (int i = 0; i < K::TP / 16 / K::KS; ++i) {
       const int k0 = (kw + i * K::KS) * 16;
-      uint32_t bf[K::NT][2];
-      load_b_frags<K::NT, K::LDB>(bf, B, k0);
+      // A^T fragments of u and c: matrix j holds ci 8(j%2) .., pixels 8(j/2) ..
+      uint32_t au[K::MT][4], ac[K::MT][4];
 #pragma unroll
       for (int mt = 0; mt < K::MT; ++mt) {
-        // A^T: matrix j holds ci 8(j%2) .., pixels 8(j/2) ..; its rows in memory are pixels
-        uint32_t af[4];
-        ldsm_x4_trans(af, A + (k0 + (j >> 1) * 8 + r8) * K::LDA + wm * K::MT * 16 + mt * 16 +
-                              (j & 1) * 8);
+        const bf16* a = st + (k0 + (j >> 1) * 8 + r8) * K::LDA + wm * K::MT * 16 + mt * 16 +
+                        (j & 1) * 8;
+        ldsm_x4_trans(au[mt], a);
+        ldsm_x4_trans(ac[mt], a + K::C_OFF);
+      }
 #pragma unroll
-        for (int nt = 0; nt < K::NT; ++nt) mma_bf16(acc[mt][nt], af, bf[nt]);
+      for (int k = 0; k < 6; ++k) {
+        const int brow = k < 3 ? k * K::TP : 3 * K::TP + gy_row[k - 3];  // dc tile k / gy shift
+        uint32_t bf[K::NT][2];
+        load_b_frags<K::NT, K::LDB>(bf, B + brow * K::LDB, k0);
+#pragma unroll
+        for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < K::NT; ++nt) {
+            mma_bf16(acc[k][mt][nt], k < 3 ? au[mt] : ac[mt], bf[nt]);
+            if (k == 4 && rap) mma_bf16(acc[6][mt][nt], au[mt], bf[nt]);
+          }
       }
     }
   };
   pipeline(mine, fetch, fixup, compute);
 
   // fragment element (mt, nt, e): ci = wm*16MT + mt*16 + g + 8(e/2), co = wn*8NT + nt*8 + 2t + e%2
-  const int g = lane >> 2, t = lane & 3;
-  float* out = part + static_cast<size_t>(blockIdx.x) * part_len + grad_offset(mat, C);
-  float* red = reinterpret_cast<float*>(smem);  // [KS][C][C] (KS > 1)
+  const int g = lane >> 2, t = lane & 3, nmat = rap ? 7 : 6;
+  float* out = part + static_cast<size_t>(blockIdx.y) * part_len;
+  float* red = reinterpret_cast<float*>(smem);  // [KS][7][C][CO] (KS > 1)
 #pragma unroll
-  for (int mt = 0; mt < K::MT; ++mt)
+  for (int m = 0; m < 7; ++m) {
+    if (m >= nmat) break;
 #pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt)
+    for (int mt = 0; mt < K::MT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ci = wm * K::MT * 16 + mt * 16 + g + 8 * h;
-        const int co = co0 + wn * K::NT * 8 + nt * 8 + 2 * t;
-        const float a0 = acc[mt][nt][2 * h], a1 = acc[mt][nt][2 * h + 1];
-        if constexpr (K::KS == 1) st2(out + ci * C + co, a0, a1);
-        else st2(red + (kw * C + ci) * C + co, a0, a1);
-      }
+      for (int nt = 0; nt < K::NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ci = wm * K::MT * 16 + mt * 16 + g + 8 * h;
+          const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
+          const float a0 = acc[m][mt][nt][2 * h], a1 = acc[m][mt][nt][2 * h + 1];
+          if constexpr (K::KS == 1) st2(out + grad_offset(m, C) + ci * C + co0 + co, a0, a1);
+          else st2(red + ((kw * 7 + m) * C + ci) * K::CO + co, a0, a1);
+        }
+  }
   if constexpr (K::KS > 1) {
     __syncthreads();
-    for (int e = threadIdx.x; e < C * C; e += kThreads) {
+    for (int e = threadIdx.x; e < nmat * C * K::CO; e += K::THREADS) {
+      const int m = e / (C * K::CO), ci = (e / K::CO) % C, co = e % K::CO;
       float sum = 0.f;
-      for (int k = 0; k < K::KS; ++k) sum += red[k * C * C + e];
-      out[e] = sum;
+      for (int k = 0; k < K::KS; ++k) sum += red[k * 7 * C * K::CO + e];
+      out[grad_offset(m, C) + ci * C + co0 + co] = sum;
     }
   }
-  if (mat == 1) {
-    float* rb = red + K::RED;  // [DL][CO]
-    float* mine8 = rb + (threadIdx.x / K::BV) * K::CO + (threadIdx.x % K::BV) * 8;
+  float* rb = red + K::RED;  // [DL][CO]
+  float* mine8 = rb + (threadIdx.x / K::BV) * K::CO + (threadIdx.x % K::BV) * 8;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) mine8[e] = bsum[e];
-    __syncthreads();
-    float* db = part + static_cast<size_t>(blockIdx.x) * part_len + static_cast<size_t>(6) * C * C;
-    for (int c = threadIdx.x; c < K::CO; c += kThreads) {
-      float sum = 0.f;
-      for (int l = 0; l < K::DL; ++l) sum += rb[l * K::CO + c];
-      db[co0 + c] = sum;
-    }
+  for (int e = 0; e < 8; ++e) mine8[e] = bsum[e];
+  __syncthreads();
+  for (int c = threadIdx.x; c < K::CO; c += K::THREADS) {
+    float sum = 0.f;
+    for (int l = 0; l < K::DL; ++l) sum += rb[l * K::CO + c];
+    out[static_cast<size_t>(6) * C * C + co0 + c] = sum;
   }
 }
 
@@ -951,9 +1193,31 @@ size_t fwd_bf16_partials(int n, int h, int w) {
 }
 
 template <int C>
-int wgrad_bf16_ctas(int n, int h, int w) {
+int wgrad_bf16_walkers(int n, int h, int w) {
   const long long ntiles = static_cast<long long>(n) * h * row_tiles(w, WG16<C>::TP);
-  return static_cast<int>(ntiles < 64 ? ntiles : 64);
+  return static_cast<int>(ntiles < WG16<C>::WALKERS ? ntiles : WG16<C>::WALKERS);
+}
+
+// The grid of a persistent conv launch: as many CTAs of `kernel` as the card holds at once, at
+// most one per tile. The count is cached per device: K3 runs twice per pair call, and the bf16
+// training step is bound by the host's launches.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int ntiles, int* grid) {
+  static int resident[64] = {};  // per device index; 0 until asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    resident[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *grid = resident[dev] < ntiles ? resident[dev] : ntiles;
+  return cudaSuccess;
 }
 
 template <int C>
@@ -976,35 +1240,43 @@ cudaError_t bwd_bf16(const bf16* raw, const bf16* gy, const bf16* w31, const flo
                      const bf16* w13t, const bf16* w31t, const bf16* rapt, const float* pa,
                      const float* pb, bf16* du, float* grads, float* scratch, int n, int h,
                      int w, int d, cudaStream_t s) {
-  // the weight-gradient kernel indexes pixels with int
+  // the kernels index pixels and tiles with int
   if (static_cast<long long>(n) * h * w > INT_MAX) return cudaErrorInvalidValue;
   const size_t act = static_cast<size_t>(n) * h * w * C;
   bf16* cbuf = reinterpret_cast<bf16*>(scratch);
   bf16* dc = cbuf + act;
   float* part = scratch + act;  // after c and dc: 2 * act bf16 = act floats
-  const dim3 grid = bf16_pair_grid<C>(n, h, w);
+  const int ntiles = n * h * row_tiles(w, ConvTiles<C>::TM);
+  constexpr int threads = ConvTiles<C>::THREADS;
+  int grid = 0;
 
-  size_t smem = sizeof(bf16) * kStages * Mma<C>::STAGE;
-  cudaError_t err = set_smem(bwd_dc_bf16_kernel<C>, smem);
+  size_t smem = DcRing<C>::BYTES;
+  cudaError_t err = set_smem(k3_c_dc_bf16_kernel<C>, smem);
+  if (err == cudaSuccess)
+    err = persistent_grid(k3_c_dc_bf16_kernel<C>, threads, smem, ntiles, &grid);
   if (err != cudaSuccess) return err;
-  bwd_dc_bf16_kernel<C><<<grid, Mma<C>::THREADS, smem, s>>>(raw, gy, w31, b31, w13t, pa, pb, cbuf,
-                                                            dc, h, w, d);
+  k3_c_dc_bf16_kernel<C><<<grid, threads, smem, s>>>(raw, gy, w31, b31, w13t, pa, pb, cbuf, dc,
+                                                     ntiles, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = set_smem(bwd_du_bf16_kernel<C>, smem)) != cudaSuccess) return err;
-  bwd_du_bf16_kernel<C><<<grid, Mma<C>::THREADS, smem, s>>>(dc, gy, w31t, rapt, du, h, w, d);
+  smem = DuRing<C>::BYTES;
+  if ((err = set_smem(k3_du_bf16_kernel<C>, smem)) == cudaSuccess)
+    err = persistent_grid(k3_du_bf16_kernel<C>, threads, smem, ntiles, &grid);
+  if (err != cudaSuccess) return err;
+  k3_du_bf16_kernel<C><<<grid, threads, smem, s>>>(dc, gy, w31t, rapt, du, ntiles, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
+  using WK = WG16<C>;
   const bool rap = rapt != nullptr;
   const size_t len = grad_len(C, rap);
-  const int P = wgrad_bf16_ctas<C>(n, h, w);
-  smem = sizeof(bf16) * kStages * WG16<C>::STAGE;
-  if ((err = set_smem(bwd_wgrad_bf16_kernel<C>, smem)) != cudaSuccess) return err;
-  bwd_wgrad_bf16_kernel<C><<<dim3(P, rap ? 7 : 6, WG16<C>::HALVES), kThreads, smem, s>>>(
-      raw, pa, pb, cbuf, dc, gy, part, len, n, h, w, d);
+  const int P = wgrad_bf16_walkers<C>(n, h, w);
+  if ((err = set_smem(k3_wgrad_bf16_kernel<C>, WK::BYTES)) != cudaSuccess) return err;
+  k3_wgrad_bf16_kernel<C><<<dim3(WK::SLICES, P), WK::THREADS, WK::BYTES, s>>>(
+      raw, pa, pb, cbuf, dc, gy, rap, part, len, n, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_reduce(part, P, len, grads, s);
 }
+
 
 // f(std::integral_constant<int, C>{}) for the supported channel counts, else invalid
 template <typename F>
@@ -1149,9 +1421,9 @@ extern "C" long long nb1d_train_bwd_bf16_scratch(int channels, int n, int h, int
   const long long act = static_cast<long long>(n) * h * w * channels;
   long long ctas;
   switch (channels) {
-    case 16: ctas = wgrad_bf16_ctas<16>(n, h, w); break;
-    case 64: ctas = wgrad_bf16_ctas<64>(n, h, w); break;
-    case 128: ctas = wgrad_bf16_ctas<128>(n, h, w); break;
+    case 16: ctas = wgrad_bf16_walkers<16>(n, h, w); break;
+    case 64: ctas = wgrad_bf16_walkers<64>(n, h, w); break;
+    case 128: ctas = wgrad_bf16_walkers<128>(n, h, w); break;
     default: return -1;
   }
   return act + ctas * static_cast<long long>(grad_len(channels, rap != 0));

@@ -7,7 +7,9 @@ defaults, an exported head running K1, and extract_features; and the four
 ablation models' step-2 step against the CPU and their decoder-only launches;
 (bf16 training) K2/K3's bf16 kernels against their plain bf16 versions at
 each channel count, bitwise reruns, the bf16 c and y shared with K1 bf16,
-the types the kernels refuse, and a bf16 training forward and backward.
+the types the kernels refuse, and a bf16 training forward and backward; K3
+bf16 at the edges of its tiles against float64 and the plain bf16 pair, and
+bitwise reruns there.
 Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -998,6 +1000,60 @@ def test_bf16_train_pairs_bitwise_repeatable(cuda, c):
     x, gy = _bf16_act(gen, 2, c, 9, 150, cuda), _bf16_act(gen, 2, c, 9, 150, cuda)
     first = (*T.fwd_pair(x, *args, 4), *T.bwd_pair(x, gy, *args, 4))
     second = (*T.fwd_pair(x, *args, 4), *T.bwd_pair(x, gy, *args, 4))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# K3 bf16's tiles: the conv launches take 128 / 256 / 512 pixels of a row (C = 128 / 64 / 16) per
+# tile and the weight gradients 64 / 64 / 128, the conv launches on a persistent grid of at most
+# as many CTAs as the card holds and the weight gradients on 32 / 128 / 128 walkers. Edges: W a
+# multiple of no tile and above one, H below the row taps' reach (both skipped on every row), d = 16
+# at H = 37 (gy's halo staged once, rows skipped at both ends), and fewer tiles than CTAs.
+K3_BF16_EDGES = [  # n, h, d and W per C
+    (2, 5, 1, {128: 300, 64: 300, 16: 600}),
+    (1, 3, 2, {128: 71, 64: 135, 16: 263}),
+    (1, 37, 16, {128: 83, 64: 83, 16: 83}),
+    (1, 9, 4, {128: 150, 64: 150, 16: 150}),
+]
+K3_BF16_EDGE_IDS = ["w_ragged", "h_below_taps", "d16_h37", "few_tiles"]
+
+
+def _k3_bf16_edge(edge, c, use_rap, use_pre, dev):
+    n, h, d, widths = edge
+    gen = torch.Generator().manual_seed(7 * c + h + d + 2 * use_rap + use_pre)
+    args = _bf16_pair_args(gen, c, use_rap, use_pre, dev)
+    w = widths[c]
+    return args, _bf16_act(gen, n, c, h, w, dev), _bf16_act(gen, n, c, h, w, dev), d
+
+
+@pytest.mark.parametrize("use_rap,use_pre", [(True, True), (False, False), (True, False),
+                                             (False, True)])
+@pytest.mark.parametrize("edge", K3_BF16_EDGES, ids=K3_BF16_EDGE_IDS)
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_bf16_bwd_pair_tile_edges(cuda, c, edge, use_rap, use_pre):
+    """du and the weight gradients of K3 bf16 at its tile edges against the
+    plain bf16 pair (TOL_BF16_PAIR) and against float64: within 2x the plain
+    bf16 pair's own error plus 1e-4."""
+    args, x, gy, d = _k3_bf16_edge(edge, c, use_rap, use_pre, cuda)
+    got = T.bwd_pair(x, gy, *args, d)
+    plain = T.bwd_pair_plain(x, gy, *args, d)
+    want = T.bwd_pair_plain(x.double(), gy.double(), *(_f64(a) for a in args), d)
+    for name, g, g_p, g64 in zip(("du", "dw31", "db31", "dw13", "drap"), got, plain, want):
+        if g64 is None:
+            assert g is None
+            continue
+        assert g.shape == g64.shape and g.dtype == g_p.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, g_p) <= TOL_BF16_PAIR, (name, _rel(g, g_p))
+        assert _rel(g, g64) <= 2 * _rel(g_p, g64) + 1e-4, (name, _rel(g, g64), _rel(g_p, g64))
+
+
+@pytest.mark.parametrize("edge", K3_BF16_EDGES, ids=K3_BF16_EDGE_IDS)
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_bf16_bwd_pair_tile_edges_bitwise_repeatable(cuda, c, edge):
+    args, x, gy, d = _k3_bf16_edge(edge, c, True, True, cuda)
+    first = T.bwd_pair(x, gy, *args, d)
+    second = T.bwd_pair(x, gy, *args, d)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

@@ -23,7 +23,9 @@ def _tool(name: str):
                      "narrow"}),
     ("k2_variants", {"as_built", "cuda_cores", "c_split", "ring3", "ring4", "tm_smaller",
                      "one_cta"}),
-    ("k3_variants", {"as_built", "one_level", "lo_truncated", "stages2", "stages4"}),
+    ("k3_variants", {"as_built", "one_level", "lo_truncated", "stages2", "stages4",
+                     "bf16_kc_pair", "bf16_conv_cta256", "bf16_dc_no_halo", "bf16_wgrad_no_halo",
+                     "bf16_wgrad_walkers_half", "bf16_wgrad_by_matrix"}),
 ])
 def test_every_variant_applies_to_the_committed_sources(tool, expected):
     mod = _tool(tool)
@@ -35,3 +37,6 @@ def test_every_variant_applies_to_the_committed_sources(tool, expected):
         assert name == "as_built" or files, name
         for fname, text in files.items():
             assert fname in committed and text != committed[fname], (name, fname)
+    order = getattr(mod, "ORDER", ())
+    runs = [n for o in order.values() for n in o] if isinstance(order, dict) else list(order)
+    assert set(runs) <= set(table), set(runs) - set(table)

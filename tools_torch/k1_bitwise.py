@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""K1's kernels (csrc/nb1d_infer.cu) of two checkouts of the port, bit for
-bit, on one NVIDIA card.
+"""K1's kernels (csrc/nb1d_infer.cu) and K2's bf16 kernel (csrc/nb1d_train.cu)
+of two checkouts of the port, bit for bit, on one NVIDIA card.
 
     python3 tools_torch/k1_bitwise.py ROOT_A ROOT_B [--seed 0]
 
-Builds `csrc/nb1d_infer.cu` of each root with that root's own `ops/_build.py`
-(tools_torch/sass_compare.py `build`), loads both libraries with ctypes and
-calls their C entry `nb1d_pair` on the same random inputs: one conv pair of
-each of the 7 nb1d block shapes of a 512x1024 forward at batch 1 and 6, in
-float32 and bfloat16, without and with the residual. Prints, per case,
-whether the two outputs are equal bit for bit, and exits 1 if any differs.
-Use it when a change moves K1's code without meaning to change its results
-(a refactor into a shared header).
+Builds `csrc/nb1d_infer.cu` and `csrc/nb1d_train.cu` of each root with that
+root's own `ops/_build.py` (tools_torch/sass_compare.py `build`), loads the
+libraries with ctypes and calls, on the same random inputs, K1's C entry
+`nb1d_pair` (one conv pair of each of the 7 nb1d block shapes of a 512x1024
+forward at batch 1 and 6, in float32 and bfloat16, without and with the
+residual) and K2's `nb1d_train_fwd_bf16` (the same shapes at batch 6, with and
+without the pre-stage: y and the [2, C] stats). Prints, per case, whether the
+two outputs are equal bit for bit, and exits 1 if any differs. Use it when a
+change moves K1's or K2's code, or a header they share, without meaning to
+change their results (a refactor into a shared header, a change to K3 beside
+them).
 """
 from __future__ import annotations
 
@@ -41,6 +44,55 @@ def load(path: Path) -> ctypes.CDLL:
     lib.nb1d_pair.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.nb1d_pair.restype = i
     return lib
+
+
+def load_train(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nb1d_train_fwd_bf16.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.nb1d_train_fwd_bf16.restype = i
+    lib.nb1d_train_fwd_bf16_scratch.argtypes = [i, i, i, i]
+    lib.nb1d_train_fwd_bf16_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+def k2_bf16_cases(libs, gen, dev) -> bool:
+    """K2 bf16's y and stats of both libraries, each block shape at batch 6,
+    with and without the pre-stage; True if every case is bit for bit equal."""
+    import torch
+
+    same = True
+    for name, c, d, rap, h, w in BLOCKS:
+        n = 6
+        for pre in (False, True):
+            def mk(*shape, scale=1.0, dtype=torch.bfloat16):
+                return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype).contiguous()
+
+            x = mk(n, h, w, c)  # NHWC
+            w31, w13 = mk(3 * c, c, scale=c ** -0.5), mk(3 * c, c, scale=c ** -0.5)
+            rapm = mk(c, c, scale=c ** -0.5) if rap else None
+            b31 = mk(c, dtype=torch.float32)
+            pa = (1.0 + 0.2 * mk(c, dtype=torch.float32)).abs() if pre else None
+            pb = 0.2 * mk(c, dtype=torch.float32) if pre else None
+            outs = []
+            for lib in libs:
+                y = torch.empty_like(x)
+                stats = torch.empty(2, c, device=dev)
+                scratch = torch.empty(lib.nb1d_train_fwd_bf16_scratch(c, n, h, w), device=dev)
+                ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+                rc = lib.nb1d_train_fwd_bf16(c, x.data_ptr(), w31.data_ptr(), b31.data_ptr(),
+                                             w13.data_ptr(), ptr(rapm), ptr(pa), ptr(pb),
+                                             y.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+                                             n, h, w, d, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                if rc != 0:
+                    raise RuntimeError(f"nb1d_train_fwd_bf16 returned {rc} for {name}")
+                outs.append((y, stats))
+            equal = all(torch.equal(a, b) for a, b in zip(*outs))
+            same &= equal
+            print(f"K2 bf16 {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage, "
+                  f"y and stats: " + ("bitwise equal" if equal else "differ"))
+    return same
 
 
 def main(argv=None) -> int:
@@ -84,6 +136,8 @@ def main(argv=None) -> int:
                           f"{'with' if res is not None else 'without'} residual: "
                           + ("bitwise equal" if equal else
                              f"{int((outs[0] != outs[1]).sum())} elements differ"))
+    roots = (args.root_a, args.root_b)
+    same &= k2_bf16_cases([load_train(build(r.resolve(), "nb1d_train")) for r in roots], gen, dev)
     return 0 if same else 1
 
 
