@@ -930,6 +930,18 @@ def pair_bound(n: int, c: int, h: int, w: int, rap: bool, kind: str, dt: str = "
     return out
 
 
+def student_pass_bound(kind: str, dt: str) -> dict:
+    """pair_bound of K2 ("fwd") or K3 ("bwd") summed over the 34 pair calls
+    (17 blocks x 2) of one student pass at TRAIN_BATCH x HEIGHT x WIDTH: the
+    calls' bounds, operation times and byte times."""
+    out = dict.fromkeys(("bound_ms", "ops_ms", "bytes_ms"), 0.0)
+    for _, c, _, rap, h, w, count in BLOCKS:
+        b = pair_bound(TRAIN_BATCH, c, h, w, rap, kind, dt)
+        for k in out:
+            out[k] += 2 * count * b[k]
+    return out
+
+
 def _bound(flops: int, nbytes: int, dt: str) -> dict:
     t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
     return {"ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3, "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -968,7 +980,7 @@ PAIR_KINDS = {("fwd", "f32"): K2_KINDS, ("bwd", "f32"): K3_KINDS,
               ("fwd", "bf16"): K2_BF16_KINDS, ("bwd", "bf16"): K3_BF16_KINDS}
 
 
-def device_ms_by_kind(fn, kinds: dict, iters: int = 3, tries: int = 5) -> dict:
+def device_ms_by_kind(fn, kinds: dict, iters: int = 3, tries: int = 10) -> dict:
     """Device ms per call of `fn` for each kind of kernel (name pattern; every
     kind launches once per call), from torch.profiler over `iters` calls
     after one warm-up call: the mean over the launches the traces hold. The
@@ -3018,6 +3030,16 @@ def phase_bf16(seed: int, dev: torch.device) -> dict:
           + ", ".join(f"{k} {fmt_ms(v['device_ms'])} (bound {v['bound_ms']:.4f}, "
                       f"{v['bound_by']})" if "bound_ms" in v else f"{k} {fmt_ms(v['device_ms'])}"
                       for k, v in rec["k3_by_kind"].items()))
+    rec["k2_per_forward"] = {
+        "device_ms": {k: None if any(r[f"fwd_{k}_ms"] is None for r in rec["times"])
+                      else sum(r["count"] * r[f"fwd_{k}_ms"] for r in rec["times"])
+                      for k in K2_BF16_KINDS},
+        **student_pass_bound("fwd", "bf16")}
+    k2 = rec["k2_per_forward"]
+    print(f"[bf16] K2 bf16 per student forward at {TRAIN_BATCH}x{HEIGHT}x{WIDTH}, device ms: "
+          + " + ".join(f"{k} {fmt_ms(v)}" for k, v in k2["device_ms"].items())
+          + f" (bound {k2['bound_ms']:.4f}: operations {k2['ops_ms']:.4f}, bytes "
+            f"{k2['bytes_ms']:.4f})")
     rec["glue_bound"] = glue_bound(item=2)
     rec["seconds"] = time.perf_counter() - t_phase
     print(f"[bf16] phase 16 in {rec['seconds']:.1f} s ("

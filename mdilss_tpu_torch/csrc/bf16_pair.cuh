@@ -1,16 +1,17 @@
 // The bf16 conv pair of the port's kernels on Hopper's tensor cores (mma.sync m16n8k16, bf16
-// operands, fp32 accumulators), shared by nb1d_infer.cu (K1's nb1d_pair_mma_kernel) and
-// nb1d_train.cu (K2's fwd_pair_bf16_kernel and K3's bf16 launches). sm_80 and later; built for
+// operands, fp32 accumulators): the pair mainloop of nb1d_infer.cu (K1's nb1d_pair_mma_kernel),
+// and the warp tiles and helpers of nb1d_train.cu's bf16 launches (K2's fwd_pair_bf16_kernel,
+// which repeats this mainloop's products in its order, and K3's). sm_80 and later; built for
 // sm_90a.
 //
-// The pair: with u = pa ? relu(pa * x + pb) : x (rows outside the image are zero padding),
+// The pair, with rows and columns of u outside the image zero padding:
 //   c = relu(rowconv_d(u, w31) + b31)   rounded to bf16
 //   y = colconv_d(c, w13) [+ u @ rap]    left in the fp32 accumulators
 // rowconv_d is the 3x1 conv with row dilation d, colconv_d the 1x3 conv with column dilation d,
 // both zero-padded "same" convs; weights are tap-stacked bf16 [3C][C] matrices (row k*C + ci,
-// column co); b31, pa, pb are fp32 [C]. Activations are bf16 NHWC, C in {16, 64, 128}.
-// `bf16_pair_mainloop` leaves each warp's fragments of y in registers; each kernel writes its own
-// epilogue (K1: relu(a * y + b [+ res]); K2: y and the CTA's partial [2][C] stats).
+// column co); b31 is fp32 [C]. Activations are bf16 NHWC, C in {16, 64, 128}.
+// `bf16_pair_mainloop` leaves each warp's fragments of y in registers for K1's epilogue
+// relu(a * y + b [+ res]).
 //
 // One CTA per (image, row, TM output columns) x all C channels:
 //   - u rows and weight chunks reach shared memory through 16-byte cp.async in a 3-deep ring
@@ -23,10 +24,6 @@
 //     d <= 16, a larger d takes more passes;
 //   - stage B reads its A fragments straight from c at the column shifts k*d; RAP is one more K
 //     block, taken from u's own row.
-// The pre-stage cannot ride on cp.async: after a chunk lands, each thread applies relu(a*v + b)
-// in fp32 (a product and a sum, each rounded to nearest, as the plain version computes it) to the
-// 16-byte groups it copied itself and rounds them to bf16, before the barrier that publishes the
-// chunk. A column outside the image stays 0 (zero padding, not relu(b)).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -135,7 +132,10 @@ __device__ __forceinline__ void zero_frags(float (&acc)[MT][NT][4]) {
 }
 
 // relu(a * v + b) on the 8 bf16 values at p (16-byte aligned), channels ch .. ch+7: in fp32, the
-// product and the sum each rounded to nearest, then rounded to bf16
+// product and the sum each rounded to nearest (as the plain version computes it), then rounded to
+// bf16. The training pairs' pre-stage cannot ride on cp.async: after a chunk lands, each thread
+// applies this to the 16-byte groups it copied itself, before the barrier that publishes the
+// chunk; a column outside the image stays 0 (zero padding, not relu(b)).
 __device__ __forceinline__ void pre8(bf16* p, const float* __restrict__ a,
                                      const float* __restrict__ b, int ch) {
   uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -165,21 +165,6 @@ __device__ __forceinline__ void fetch_rows(bf16* A, const bf16* src_row, int col
   }
 }
 
-// the pre-stage on the groups this thread copied with fetch_rows(A, ., col0, rows, W), whose
-// first input channel is ci0; nothing without one (pa null)
-template <int C>
-__device__ __forceinline__ void pre_rows(bf16* A, int col0, int rows, int W,
-                                         const float* __restrict__ pa,
-                                         const float* __restrict__ pb, int ci0) {
-  using K = Mma<C>;
-  constexpr int AV = K::KC / 8;
-  if (pa == nullptr) return;
-  for (int idx = threadIdx.x; idx < rows * AV; idx += K::THREADS) {
-    const int m = idx / AV, v = (idx % AV) * 8, col = col0 + m;
-    if (col >= 0 && col < W) pre8(A + m * K::LDA + v, pa, pb, ci0 + v);
-  }
-}
-
 // B chunk <- KC rows of a [rows][C] weight matrix from w
 template <int C>
 __device__ __forceinline__ void fetch_weights(bf16* B, const bf16* w) {
@@ -199,8 +184,7 @@ template <int C>
 __device__ __forceinline__ void bf16_pair_mainloop(
     bf16* smem, const bf16* __restrict__ u, const bf16* __restrict__ w31,
     const float* __restrict__ b31, const bf16* __restrict__ w13, const bf16* __restrict__ rap,
-    const float* __restrict__ pa, const float* __restrict__ pb, int H, int W, int d,
-    float (&acc)[Mma<C>::MT][Mma<C>::NT][4]) {
+    int H, int W, int d, float (&acc)[Mma<C>::MT][Mma<C>::NT][4]) {
   using K = Mma<C>;
   bf16* ring = smem;                      // kStages x (A chunk, B chunk)
   bf16* c_s = ring + kStages * K::STAGE;  // [TM + 2d][LDB]: c at columns w0-d ..
@@ -227,9 +211,7 @@ __device__ __forceinline__ void bf16_pair_mainloop(
                         W);
           fetch_weights<C>(A + K::B_OFF, w31 + (static_cast<size_t>(tap) * C + ci0) * C);
         },
-        [&](int s, int buf) {
-          pre_rows<C>(ring + buf * K::STAGE, w0 - d + p0, rows, W, pa, pb, (s % K::NCH) * K::KC);
-        },
+        [](int, int) {},
         [&](int, int buf) {
           const bf16* A = ring + buf * K::STAGE;
           warp_mma<K::KC, K::MTA, K::NT, K::LDA, K::LDB>(
@@ -271,10 +253,7 @@ __device__ __forceinline__ void bf16_pair_mainloop(
           fetch_weights<C>(A + K::B_OFF, rap + static_cast<size_t>(ci0) * C);
         }
       },
-      [&](int s, int buf) {
-        if (s >= kConv)
-          pre_rows<C>(ring + buf * K::STAGE, w0, K::TM, W, pa, pb, (s - kConv) * K::KC);
-      },
+      [](int, int) {},
       [&](int s, int buf) {
         const bf16* stage = ring + buf * K::STAGE;
         const bf16* B = stage + K::B_OFF + wn * K::NT * 8;

@@ -162,8 +162,7 @@ nb1d_pair_mma_kernel(const bf16* __restrict__ u, const bf16* __restrict__ w31,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
   float acc[K::MT][K::NT][4];
-  bf16_pair_mainloop<C>(reinterpret_cast<bf16*>(smem16), u, w31, b31, w13, rap, nullptr, nullptr,
-                        H, W, d, acc);
+  bf16_pair_mainloop<C>(reinterpret_cast<bf16*>(smem16), u, w31, b31, w13, rap, H, W, d, acc);
 
   // ---- epilogue: relu(a*y + b [+ res]) in fp32, written as bf16 ----
 #pragma unroll

@@ -526,74 +526,7 @@ cudaError_t bwd(const float* raw, const float* gy, const float* w31, const float
 }
 
 // ---- bfloat16: K2 and K3 on bf16 mma.sync with fp32 accumulators (bf16_pair.cuh) ----------
-
-// K2 in bf16: the bf16 pair mainloop (K1's, with the pre-stage), then y rounded to bf16 and the
-// CTA's [2][C] partial sum and sum of squares of the ROUNDED y (what the next pair and the BN glue
-// read, nb1d_train.py:162-165), over its columns inside the image: per thread, over the 8 lanes of
-// each channel pair (a fixed shuffle tree), then over the warp rows in order. Shared memory:
-// bf16_pair_smem_bytes.
-template <int C>
-__global__ void __launch_bounds__(Mma<C>::THREADS, 512 / Mma<C>::THREADS)  // <= 128 registers
-fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
-                     const float* __restrict__ b31, const bf16* __restrict__ w13,
-                     const bf16* __restrict__ rap, const float* __restrict__ pa,
-                     const float* __restrict__ pb, bf16* __restrict__ y,
-                     float* __restrict__ part, int H, int W, int d) {
-  using K = Mma<C>;
-  extern __shared__ uint4 smem16[];
-  bf16* smem = reinterpret_cast<bf16*>(smem16);
-  const int w0 = blockIdx.x * K::TM;
-  const size_t row_base = (static_cast<size_t>(blockIdx.z) * H + blockIdx.y) * W;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % K::WM, wn = warp / K::WM, g = lane >> 2, t = lane & 3;
-  float acc[K::MT][K::NT][4];
-  bf16_pair_mainloop<C>(smem, x, w31, b31, w13, rap, pa, pb, H, W, d, acc);
-
-  float s[K::NT][2], q[K::NT][2];
-#pragma unroll
-  for (int nt = 0; nt < K::NT; ++nt) s[nt][0] = s[nt][1] = q[nt][0] = q[nt][1] = 0.f;
-#pragma unroll
-  for (int i = 0; i < K::MT; ++i)
-#pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = w0 + wm * K::MT * 16 + i * 16 + g + 8 * h;
-        if (col >= W) continue;
-        const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
-        const __nv_bfloat162 v = __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(y + (row_base + col) * C + co) = v;
-        const float2 f = __bfloat1622float2(v);
-        s[nt][0] += f.x;
-        s[nt][1] += f.y;
-        q[nt][0] += f.x * f.x;
-        q[nt][1] += f.y * f.y;
-      }
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1)
-#pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] += __shfl_xor_sync(0xffffffffu, s[nt][e], off);
-        q[nt][e] += __shfl_xor_sync(0xffffffffu, q[nt][e], off);
-      }
-  float* red = reinterpret_cast<float*>(smem);  // [WM][2][C]; the ring is free after its last barrier
-  if (g == 0)
-#pragma unroll
-    for (int nt = 0; nt < K::NT; ++nt) {
-      const int co = wn * K::NT * 8 + nt * 8 + 2 * t;
-      st2(red + (wm * 2 + 0) * C + co, s[nt][0], s[nt][1]);
-      st2(red + (wm * 2 + 1) * C + co, q[nt][0], q[nt][1]);
-    }
-  __syncthreads();
-  float* out = part + cta_index() * 2 * C;
-  for (int i = threadIdx.x; i < 2 * C; i += K::THREADS) {
-    float sum = 0.f;
-    for (int k = 0; k < K::WM; ++k) sum += red[k * 2 * C + i];
-    out[i] = sum;
-  }
-}
+// K3 first: K2 (fwd_pair_bf16_kernel, after K3's kernels) walks K3's conv tiles.
 
 // ---- K3 in bf16 ------------------------------------------------------------------------------
 // Three launches and the fixed-order sum, as in fp32, redesigned for the H100:
@@ -694,11 +627,11 @@ __device__ __forceinline__ void conv_pre_rows(bf16* A, int col0, int W,
   }
 }
 
-// rows rows of a [rows][C] weight matrix from w into B (row stride LDB)
-template <int C>
+// rows rows of a [rows][C] weight matrix from w into B (row stride LDB), by THREADS threads
+template <int C, int THREADS = ConvTiles<C>::THREADS>
 __device__ __forceinline__ void conv_fetch_weights(bf16* B, const bf16* w, int rows) {
   constexpr int V = C / 8;
-  for (int e = threadIdx.x; e < rows * V; e += ConvTiles<C>::THREADS) {
+  for (int e = threadIdx.x; e < rows * V; e += THREADS) {
     const int row = e / V, c8 = (e % V) * 8;
     cp_async16(B + row * ConvTiles<C>::LDB + c8, w + static_cast<size_t>(row) * C + c8);
   }
@@ -1186,10 +1119,366 @@ k3_wgrad_bf16_kernel(const bf16* __restrict__ raw, const float* __restrict__ pa,
   }
 }
 
+// ---- K2 in bf16 ------------------------------------------------------------------------------
+// The forward pair for the H100 on persistent CTAs (walkers) over K3's conv tiles (ConvTiles: TM
+// pixels of one image row, a whole row at every nb1d block shape of the model at 512x1024). It
+// computes u = pre(x) rounded to bf16 (zero outside the image), c = bf16(relu(rowconv_d(u) +
+// b31)), y = bf16(colconv_d(c) [+ u @ rap]), and the float32 sum and sum of squares of the
+// ROUNDED y (what the next pair and the BN glue read, nb1d_train.py:162-165). Walker b takes the
+// tiles b, b + gridDim.x, ... as one stream of ring stages (tile, c pass, row tap, chunk of KC
+// input channels; then at C = 128 RAP's chunks), so the loads of the next stages overlap the
+// products and the epilogue of this one. The weights stay resident in shared memory for the
+// whole walk (at C = 128 w13 only: w31 and rap stream a chunk per stage beside the u chunk), so
+// each CTA reads them once, not once per tile. Per tile:
+//   - c in one pass of stages over the row taps inside the image, for the tile's columns, into
+//     shared memory (c_s); where a row has more than one tile, a second pass for the 16 columns
+//     on each side (the halo, d <= 16); elsewhere the halo is zero padding, written once. An m16
+//     tile wholly outside the image is not multiplied; c outside the image is 0;
+//   - stage B in the pass's last stage, from c_s and the resident w13: no loads, no barrier per
+//     chunk; then RAP: at C <= 64 in the same stage, from u_row, a copy of the centre row tap's
+//     u chunk (u's own row, the pre-stage applied) that its stage made, and the resident rap; at
+//     C = 128, where u_row does not fit, RAP's stages stream rap beside u's row staged again;
+//   - y through shared memory into 16-byte rows (a store from the fragments fills half a 32-byte
+//     sector); each thread adds the rounded y of its fixed 8 channels to its running sums.
+// For d > 16 a tile is T3 columns, and its one c pass computes the three windows of T3 columns
+// w0 + (k-1)d .. that column tap k reads.
+// Orders: c keeps the pair mainloop's k16 steps per element (row taps k0 .. k1, input channels
+// ascending), so it is K3's recomputed c bit for bit (card test
+// test_bf16_fwd_and_bwd_compute_the_same_c); y keeps its stage B's (column taps 0, 1, 2 over the
+// channels ascending, then RAP), so it is K1 bf16's bit for bit
+// (test_k1_bf16_and_k2_bf16_compute_the_same_y). The chunk width and the warp tiling change no
+// k16 step. The stats: each walker sums its tiles in order and its threads in a fixed tree, and
+// writes one [2][C] partial; the walker count is fixed by the shape (at most WALKERS), not by
+// the card, and reduce_kernel sums the partials in a fixed order: reruns are bitwise equal.
+// Shared memory: the resident weights, c_s [TM + 2 DPAD][LDB], b31, pa and pb (read where a stage
+// ends, so from shared memory rather than through the L2 the ring keeps busy), at C <= 64 u_row
+// [TM][LDU], then DEPTH ring stages of an A chunk [TM][LDA] (and at C = 128 a weight chunk
+// [KC][LDB]).
 template <int C>
-size_t fwd_bf16_partials(int n, int h, int w) {
-  const dim3 g = bf16_pair_grid<C>(n, h, w);
-  return static_cast<size_t>(g.x) * g.y * g.z;
+struct FwdRing {
+  using T = ConvTiles<C>;  // K3's conv tiles: a tile's pixels, the chunk width, the row strides
+  static constexpr int THREADS = 512, MT = Mma<C>::MT;  // m16 tiles per warp
+  static constexpr int NT = Mma<C>::NT, WN = Mma<C>::WN;  // n8 tiles per warp, warps on channels
+  static constexpr int WM = THREADS / 32 / WN, TM = WM * MT * 16;  // warps on pixels, pixels
+  static constexpr int KC = T::KC, NCH = T::NCH, LDA = T::LDA, LDB = T::LDB;
+  static constexpr bool W_RESIDENT = C <= 64;     // w31 and rap resident too (C = 128: streamed)
+  static constexpr int DPAD = 16;                 // c_s rows before the tile's first column
+  static constexpr int T3 = TM / 48 * 16;         // columns of a tile for d > DPAD: 32, 80, 160
+  static constexpr int WRES = (W_RESIDENT ? 7 : 3) * C * LDB;  // [w31 |] w13 [| rap]
+  static constexpr int CROWS = TM + 2 * DPAD;     // c at columns w0 - DPAD ..
+  static constexpr int B_OFF = TM * LDA;          // a stage: A chunk, then a weight chunk
+  static constexpr int STAGE = B_OFF + (W_RESIDENT ? 0 : KC * LDB);
+  static constexpr int PARAMS = 3 * C * 2;        // b31, pa, pb as fp32 [C] each (bf16 units)
+  static constexpr int LDU = C + 8, UROW = W_RESIDENT ? TM * LDU : 0;  // u's own row for RAP
+  // as many stages as the H100's 227 KB per block holds beside the weights, c and the
+  // per-channel parameters (and u's row), at most MAX_DEPTH: 2, 2, 6 at C = 128, 64, 16 (221.2,
+  // 217.3, 203.7 KB)
+  static constexpr int FIXED = WRES + CROWS * LDB + PARAMS + UROW, MAX_DEPTH = 6;
+  static constexpr int FIT = (232448 / static_cast<int>(sizeof(bf16)) - FIXED) / STAGE;
+  static constexpr int DEPTH = FIT < MAX_DEPTH ? FIT : MAX_DEPTH;
+  static constexpr int WALKERS = 128;
+  static constexpr size_t BYTES = sizeof(bf16) * (FIXED + DEPTH * STAGE);
+  static_assert(DEPTH >= 2, "a ring of two stages fits");
+  static_assert(TM == T::TM && 2 * DPAD <= TM && 3 * T3 <= TM, "a conv tile; c_s and y tiles");
+  static_assert(WM * WN * 32 == THREADS && THREADS % (KC / 8) == 0 && THREADS % (C / 8) == 0,
+                "each thread's channels fixed in the staging and the epilogue");
+  static_assert(sizeof(float) * (THREADS / 32) * 2 * C <= sizeof(bf16) * DEPTH * STAGE,
+                "the stats' sum reuses the ring");
+};
+
+// A K2 walker's position: tile t (tw columns w0 .. of image row `row` = n*H + r; the row taps
+// k0 .. k0+n0-1 are inside the image), phase 0 (c of the tile's columns), 1 (c of the halo) or 2
+// (RAP), tap j < n0 of a c pass, chunk ch. next() steps to the following stage.
+struct FwdWalk {
+  int t, row, r, w0, k0, n0, phase, j, ch;
+  int stride, tpr, tw, H, d, nch;
+  bool halo, rap;  // rap: RAP's stages (C = 128)
+  __device__ void tile(int t_) {
+    t = t_;
+    row = t / tpr;
+    r = row % H;
+    w0 = (t - row * tpr) * tw;
+    k0 = r - d < 0 ? 1 : 0;
+    n0 = (r + d >= H ? 1 : 2) - k0 + 1;
+    phase = j = ch = 0;
+  }
+  __device__ bool pass_end() const { return phase < 2 && j == n0 - 1 && ch == nch - 1; }
+  __device__ bool c_end() const { return pass_end() && (phase == 1 || !halo); }
+  __device__ bool tile_end() const { return rap ? phase == 2 && ch == nch - 1 : c_end(); }
+  __device__ void next() {
+    if (++ch < nch) return;
+    ch = 0;
+    if (phase < 2 && ++j < n0) return;
+    j = 0;
+    if (phase == 0 && halo) phase = 1;
+    else if (phase < 2 && rap) phase = 2;
+    else tile(t + stride);
+  }
+  // the stages of the walk from tile blockIdx.x on
+  __device__ int stages(int ntiles) const {
+    FwdWalk w = *this;
+    int s = 0;
+    for (int u = static_cast<int>(blockIdx.x); u < ntiles; u += stride) {
+      w.tile(u);
+      s += ((halo ? 2 : 1) * w.n0 + (rap ? 1 : 0)) * nch;
+    }
+    return s;
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(FwdRing<C>::THREADS, 1)
+fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
+                     const float* __restrict__ b31, const bf16* __restrict__ w13,
+                     const bf16* __restrict__ rap, const float* __restrict__ pa,
+                     const float* __restrict__ pb, bf16* __restrict__ y,
+                     float* __restrict__ part, int ntiles, int H, int W, int d) {
+  using R = FwdRing<C>;
+  constexpr int TM = R::TM, KC = R::KC, LDA = R::LDA, LDB = R::LDB, MT = R::MT, NT = R::NT;
+  constexpr int THREADS = R::THREADS, AV = KC / 8, V = C / 8, DPAD = R::DPAD;
+  extern __shared__ uint4 smem16[];
+  bf16* wres = reinterpret_cast<bf16*>(smem16);
+  bf16* w13_s = wres + (R::W_RESIDENT ? 3 * C * LDB : 0);
+  bf16* c_s = wres + R::WRES;
+  float* prm = reinterpret_cast<float*>(c_s + R::CROWS * LDB);  // b31, then pa and pb
+  bf16* u_row = c_s + R::CROWS * LDB + R::PARAMS;
+  bf16* ring = u_row + R::UROW;
+  conv_fetch_weights<C, THREADS>(w13_s, w13, 3 * C);
+  if (R::W_RESIDENT) {
+    conv_fetch_weights<C, THREADS>(wres, w31, 3 * C);
+    if (rap != nullptr) conv_fetch_weights<C, THREADS>(wres + 6 * C * LDB, rap, C);
+  }
+  cp_async_commit();  // complete before the ring's first stage
+  for (int i = threadIdx.x; i < C; i += THREADS) {
+    prm[i] = b31[i];
+    if (pa != nullptr) {
+      prm[C + i] = pa[i];
+      prm[2 * C + i] = pb[i];
+    }
+  }
+
+  const bool wide = d > DPAD;
+  FwdWalk fw{};  // fetch runs ahead; fixup and compute of a stage share mw
+  fw.stride = static_cast<int>(gridDim.x);
+  fw.tw = wide ? R::T3 : TM;
+  fw.tpr = (W + fw.tw - 1) / fw.tw;
+  fw.H = H;
+  fw.d = d;
+  fw.nch = R::NCH;
+  fw.halo = !wide && fw.tpr > 1;  // every tile of a row of two or more tiles has a halo
+  fw.rap = rap != nullptr && !R::W_RESIDENT;
+  const bool rap_row = rap != nullptr && R::W_RESIDENT;  // RAP from u_row
+  fw.tile(static_cast<int>(blockIdx.x));
+  FwdWalk mw = fw;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  if (!fw.halo)  // the halo rows of c_s stay zero padding for the whole walk
+    for (int idx = threadIdx.x; idx < 2 * DPAD * V; idx += THREADS) {
+      const int m = idx / V;
+      *reinterpret_cast<uint4*>(c_s + (m < DPAD ? m : TM + m) * LDB + (idx % V) * 8) = zero;
+    }
+  __syncthreads();  // the parameters and the halo's zeros before the first stage's pre-stage
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % R::WM, wn = warp / R::WM, g = lane >> 2, t4 = lane & 3;
+  // the image column of row m of a stage's A chunk, -1 for none: phase 0 the tile's columns (for
+  // d > DPAD the three windows), 1 the DPAD columns before the tile then the DPAD after it, 2 the
+  // tile's columns
+  auto a_col = [&](const FwdWalk& p, int m) {
+    if (p.phase == 1) return m < DPAD ? p.w0 - DPAD + m : p.w0 + TM - DPAD + m;
+    if (p.phase == 2 || !wide) return p.w0 + m;
+    const int k = m / R::T3;
+    return k < 3 ? p.w0 + (k - 1) * d + m - k * R::T3 : -1;
+  };
+  // the tile's output columns, rounded up to m16 tiles
+  auto out_rows = [&](const FwdWalk& p) { return (min(p.tw, W - p.w0) + 15) / 16 * 16; };
+  // the rows of a stage's A chunk that live m16 tiles read
+  auto a_rows = [&](const FwdWalk& p) {
+    return p.phase == 1 ? 2 * DPAD : p.phase == 0 && wide ? 3 * R::T3 : out_rows(p);
+  };
+  // this warp's m16 tiles among the first `rows` rows
+  auto live = [&](int rows) { return max(0, min(MT, (rows - wm * MT * 16) / 16)); };
+
+  auto fetch = [&](int, int buf) {
+    bf16* A = ring + buf * R::STAGE;
+    const int ci0 = fw.ch * KC;
+    const int src_row = fw.phase < 2 ? fw.row + (fw.k0 + fw.j - 1) * d : fw.row;
+    const bf16* src = x + static_cast<size_t>(src_row) * W * C + ci0;
+    const int rows = a_rows(fw);
+    for (int idx = threadIdx.x; idx < rows * AV; idx += THREADS) {
+      const int m = idx / AV, v = (idx % AV) * 8, col = a_col(fw, m);
+      bf16* dst = A + m * LDA + v;
+      if (col >= 0 && col < W) cp_async16(dst, src + static_cast<size_t>(col) * C + v);
+      else *reinterpret_cast<uint4*>(dst) = zero;
+    }
+    if (!R::W_RESIDENT)
+      conv_fetch_weights<C, THREADS>(
+          A + R::B_OFF,
+          fw.phase < 2 ? w31 + (static_cast<size_t>(fw.k0 + fw.j) * C + ci0) * C
+                       : rap + static_cast<size_t>(ci0) * C,
+          KC);
+    fw.next();
+  };
+  // the pre-stage on this thread's own copies, its 8 channels' a and b in registers; then, at
+  // the centre row tap, its copies of u's own row (for d > DPAD the middle window) to u_row, at
+  // the chunk's channels
+  auto fixup = [&](int, int buf) {
+    bf16* A = ring + buf * R::STAGE;
+    const int v = (threadIdx.x % AV) * 8, rows = a_rows(mw);
+    if (pa != nullptr) {
+      const float* a = prm + C + mw.ch * KC + v;
+      const float4 a0 = ld4(a), a1 = ld4(a + 4), b0 = ld4(a + C), b1 = ld4(a + C + 4);
+      const float a8[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b8[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int idx = threadIdx.x; idx < rows * AV; idx += THREADS) {
+        const int m = idx / AV, col = a_col(mw, m);
+        if (col >= 0 && col < W) pre8_regs(A + m * LDA + v, a8, b8);
+      }
+    }
+    if (rap_row && mw.phase == 0 && mw.k0 + mw.j == 1) {
+      const int skip = wide ? R::T3 : 0;
+      for (int idx = threadIdx.x; idx < rows * AV; idx += THREADS) {
+        const int m = idx / AV - skip;
+        if (m >= 0 && m < (wide ? R::T3 : TM))
+          *reinterpret_cast<uint4*>(u_row + m * R::LDU + mw.ch * KC + v) =
+              *reinterpret_cast<const uint4*>(A + (m + skip) * LDA + v);
+      }
+    }
+  };
+
+  float acc[MT][NT][4];
+  zero_frags(acc);
+  float s8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, q8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f,
+                                                                    0.f, 0.f};
+  // c = relu(acc + b31) rounded to bf16, 0 outside the image, into c_s: phase 0 at rows DPAD + m,
+  // phase 1 (warp rows 0 and 1, one m16 tile each) at the halo's rows
+  auto store_c = [&](const FwdWalk& p) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (p.phase == 1 && (i > 0 || wm >= 2)) continue;
+          const int m = (p.phase == 1 ? wm * 16 : wm * MT * 16 + i * 16) + g + 8 * h;
+          const int col = a_col(p, m), co = wn * NT * 8 + nt * 8 + 2 * t4;
+          const int row = p.phase == 1 ? (m < DPAD ? m : TM + m) : DPAD + m;
+          float2 v = make_float2(0.f, 0.f);
+          if (col >= 0 && col < W) {
+            const float2 bias = *reinterpret_cast<const float2*>(prm + co);
+            v.x = fmaxf(acc[i][nt][2 * h] + bias.x, 0.f);
+            v.y = fmaxf(acc[i][nt][2 * h + 1] + bias.y, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(c_s + row * LDB + co) =
+              __floats2bfloat162_rn(v.x, v.y);
+        }
+  };
+  // stage B: acc = colconv_d(c), column taps 0, 1, 2, each over the channels ascending
+  auto stage_b = [&](const FwdWalk& p) {
+    const int lb = live(out_rows(p));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int off = wide ? DPAD + k * R::T3 : DPAD + (k - 1) * d;
+      warp_mma<C, MT, NT, LDB, LDB>(acc, c_s + (off + wm * MT * 16) * LDB, 16, lb,
+                                    w13_s + k * C * LDB + wn * NT * 8);
+    }
+  };
+  // y rounded to bf16 through c_s's rows DPAD .. (the halo rows keep their zeros) to the tile's
+  // columns inside the image as 16-byte rows; this thread's channels v .. v+7 of each row it
+  // stores go into its running sums
+  auto store_y = [&](const FwdWalk& p) {
+    bf16* ys = c_s + DPAD * LDB;
+    __syncthreads();  // every warp is done with c_s
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(ys + (wm * MT * 16 + i * 16 + g + 8 * h) * LDB +
+                                             wn * NT * 8 + nt * 8 + 2 * t4) =
+              __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
+    __syncthreads();
+    const int n_out = min(p.tw, W - p.w0), v = (threadIdx.x % V) * 8;
+    bf16* out = y + (static_cast<size_t>(p.row) * W + p.w0) * C + v;
+    for (int m = threadIdx.x / V; m < n_out; m += THREADS / V) {
+      const uint4 raw8 = *reinterpret_cast<const uint4*>(ys + m * LDB + v);
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * C) = raw8;
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        s8[2 * e] += f.x;
+        s8[2 * e + 1] += f.y;
+        q8[2 * e] += f.x * f.x;
+        q8[2 * e + 1] += f.y * f.y;
+      }
+    }
+  };
+  auto compute = [&](int, int buf) {
+    const bf16* stage = ring + buf * R::STAGE;
+    const int ci0 = mw.ch * KC;
+    if (mw.phase < 2) {  // c += u at row tap k0 + j @ w31[k0 + j], this chunk's channels
+      const bf16* B = (R::W_RESIDENT ? wres + ((mw.k0 + mw.j) * C + ci0) * LDB
+                                     : stage + R::B_OFF) + wn * NT * 8;
+      if (mw.phase == 0)
+        warp_mma<KC, MT, NT, LDA, LDB>(acc, stage + wm * MT * 16 * LDA, 16, live(a_rows(mw)), B);
+      else
+        warp_mma<KC, MT, NT, LDA, LDB>(acc, stage + wm * 16 * LDA, 16, wm < 2 ? 1 : 0, B);
+      if (mw.pass_end()) {
+        store_c(mw);
+        zero_frags(acc);
+        if (mw.c_end()) {
+          __syncthreads();  // c_s is complete
+          stage_b(mw);
+          if (rap_row)  // y += u @ rap, the channels ascending
+            warp_mma<C, MT, NT, R::LDU, LDB>(acc, u_row + wm * MT * 16 * R::LDU, 16,
+                                             live(out_rows(mw)), wres + 6 * C * LDB + wn * NT * 8);
+        }
+      }
+    } else {  // y += u @ rap, this chunk's channels
+      warp_mma<KC, MT, NT, LDA, LDB>(
+          acc, stage + wm * MT * 16 * LDA, 16, live(out_rows(mw)),
+          (R::W_RESIDENT ? wres + (6 * C + ci0) * LDB : stage + R::B_OFF) + wn * NT * 8);
+    }
+    if (mw.tile_end()) {
+      store_y(mw);
+      zero_frags(acc);
+    }
+    mw.next();
+  };
+  pipeline<R::DEPTH>(fw.stages(ntiles), fetch, fixup, compute);
+
+  // the walker's [2][C] partial: over the lanes of each channel group (a fixed shuffle tree), then
+  // over the warps in order (the ring is free after the pipeline's last barrier)
+#pragma unroll
+  for (int off = V; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s8[e] += __shfl_xor_sync(0xffffffffu, s8[e], off);
+      q8[e] += __shfl_xor_sync(0xffffffffu, q8[e], off);
+    }
+  float* red = reinterpret_cast<float*>(ring);  // [warps][2][C]
+  if (lane < V)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red[warp * 2 * C + lane * 8 + e] = s8[e];
+      red[(warp * 2 + 1) * C + lane * 8 + e] = q8[e];
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C; i += THREADS) {
+    float sum = 0.f;
+    for (int k = 0; k < THREADS / 32; ++k) sum += red[k * 2 * C + i];
+    part[static_cast<size_t>(blockIdx.x) * 2 * C + i] = sum;
+  }
+}
+
+// K2 bf16's walkers: one per tile up to WALKERS, fixed by the shape
+template <int C>
+int fwd_bf16_walkers(int n, int h, int w, int d) {
+  using R = FwdRing<C>;
+  const long long ntiles =
+      static_cast<long long>(n) * h * row_tiles(w, d > R::DPAD ? R::T3 : R::TM);
+  return static_cast<int>(ntiles < R::WALKERS ? ntiles : R::WALKERS);
 }
 
 template <int C>
@@ -1224,15 +1513,17 @@ template <int C>
 cudaError_t fwd_bf16(const bf16* x, const bf16* w31, const float* b31, const bf16* w13,
                      const bf16* rap, const float* pa, const float* pb, bf16* y, float* stats,
                      float* scratch, int n, int h, int w, int d, cudaStream_t s) {
-  // shared memory: the ring and c (a halo too wide for a block fails at the attribute)
-  const size_t smem = bf16_pair_smem_bytes<C>(d);
-  if (smem > INT_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(fwd_pair_bf16_kernel<C>, smem);
+  using R = FwdRing<C>;
+  // the kernel indexes pixels and tiles with int
+  if (static_cast<long long>(n) * h * w > INT_MAX) return cudaErrorInvalidValue;
+  const int ntiles = n * h * row_tiles(w, d > R::DPAD ? R::T3 : R::TM);
+  const int walkers = fwd_bf16_walkers<C>(n, h, w, d);
+  cudaError_t err = set_smem(fwd_pair_bf16_kernel<C>, R::BYTES);
   if (err != cudaSuccess) return err;
-  fwd_pair_bf16_kernel<C><<<bf16_pair_grid<C>(n, h, w), Mma<C>::THREADS, smem, s>>>(
-      x, w31, b31, w13, rap, pa, pb, y, scratch, h, w, d);
+  fwd_pair_bf16_kernel<C><<<walkers, R::THREADS, R::BYTES, s>>>(x, w31, b31, w13, rap, pa, pb, y,
+                                                                scratch, ntiles, h, w, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_reduce(scratch, static_cast<int>(fwd_bf16_partials<C>(n, h, w)), 2 * C, stats, s);
+  return launch_reduce(scratch, walkers, 2 * C, stats, s);
 }
 
 template <int C>
@@ -1387,12 +1678,13 @@ extern "C" const char* nb1d_train_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Floats of scratch nb1d_train_fwd_bf16 needs (the per-CTA partial stats); -1 for an unsupported C.
+// Floats of scratch nb1d_train_fwd_bf16 needs (the walkers' partial stats, at most as many walkers
+// as at any dilation); -1 for an unsupported C.
 extern "C" long long nb1d_train_fwd_bf16_scratch(int channels, int n, int h, int w) {
   switch (channels) {
-    case 16: return static_cast<long long>(fwd_bf16_partials<16>(n, h, w)) * 2 * 16;
-    case 64: return static_cast<long long>(fwd_bf16_partials<64>(n, h, w)) * 2 * 64;
-    case 128: return static_cast<long long>(fwd_bf16_partials<128>(n, h, w)) * 2 * 128;
+    case 16: return static_cast<long long>(fwd_bf16_walkers<16>(n, h, w, INT_MAX)) * 2 * 16;
+    case 64: return static_cast<long long>(fwd_bf16_walkers<64>(n, h, w, INT_MAX)) * 2 * 64;
+    case 128: return static_cast<long long>(fwd_bf16_walkers<128>(n, h, w, INT_MAX)) * 2 * 128;
     default: return -1;
   }
 }

@@ -8,8 +8,9 @@ ablation models' step-2 step against the CPU and their decoder-only launches;
 (bf16 training) K2/K3's bf16 kernels against their plain bf16 versions at
 each channel count, bitwise reruns, the bf16 c and y shared with K1 bf16,
 the types the kernels refuse, and a bf16 training forward and backward; K3
-bf16 at the edges of its tiles against float64 and the plain bf16 pair, and
-bitwise reruns there.
+bf16 and K2 bf16 at the edges of their tiles against float64 and the plain
+bf16 pair, bitwise reruns there, and K2 bf16's c and y against K3's and K1's
+there.
 Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -1058,13 +1059,70 @@ def test_bf16_bwd_pair_tile_edges_bitwise_repeatable(cuda, c, edge):
         assert torch.equal(a, b)
 
 
-def test_bf16_fwd_and_bwd_compute_the_same_c(cuda):
-    """K2's bf16 stage A and K3's bwd_dc_bf16_kernel compute c in the same
+# K2 bf16's tiles are K3's conv tiles (a row of 128 / 256 / 512 pixels at C = 128 / 64 / 16, a halo
+# pass of 16 columns on each side where a row has two or more tiles), walked by at most 128
+# walkers; for d > 16 a tile is 32 / 80 / 160 columns and computes c in three windows. Edges: K3's,
+# and d = 40 (windows apart) and d = 20 (windows overlapping).
+K2_BF16_EDGES = K3_BF16_EDGES + [
+    (1, 5, 40, {128: 90, 64: 100, 16: 90}),
+    (2, 6, 20, {128: 70, 64: 130, 16: 200}),
+]
+K2_BF16_EDGE_IDS = K3_BF16_EDGE_IDS + ["d40_windows", "d20_windows"]
+K2_BF16_EDGE_SHAPES = [(c, d, n, h, ws[c]) for c in (16, 64, 128) for n, h, d, ws in K2_BF16_EDGES]
+K2_BF16_EDGE_SHAPE_IDS = [f"c{c}-{e}" for c in (16, 64, 128) for e in K2_BF16_EDGE_IDS]
+
+
+def _k2_bf16_edge(edge, c, use_rap, use_pre, dev):
+    n, h, d, widths = edge
+    gen = torch.Generator().manual_seed(5 * c + h + d + 2 * use_rap + use_pre)
+    args = _bf16_pair_args(gen, c, use_rap, use_pre, dev)
+    return args, _bf16_act(gen, n, c, h, widths[c], dev), d
+
+
+def _two_pass(y):
+    """The float64 [2, C] sum and sum of squares of y."""
+    y = y.double()
+    return torch.stack([y.sum((0, 2, 3)), y.square().sum((0, 2, 3))])
+
+
+@pytest.mark.parametrize("use_rap,use_pre", [(True, True), (False, False), (True, False),
+                                             (False, True)])
+@pytest.mark.parametrize("edge", K2_BF16_EDGES, ids=K2_BF16_EDGE_IDS)
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_bf16_fwd_pair_tile_edges(cuda, c, edge, use_rap, use_pre):
+    """y and the stats of K2 bf16 at its tile edges against the plain bf16
+    pair (TOL_BF16_PAIR) and against float64: within 2x the plain bf16 pair's
+    own error plus 1e-4; the stats against a float64 two-pass over the
+    returned y (they sum the rounded y in float32)."""
+    args, x, d = _k2_bf16_edge(edge, c, use_rap, use_pre, cuda)
+    y, st = T.fwd_pair(x, *args, d)
+    y_p, st_p = T.fwd_pair_plain(x, *args, d)
+    y64, st64 = T.fwd_pair_plain(x.double(), *(_f64(a) for a in args), d)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    for got, plain, want in ((y, y_p, y64), (st, st_p, st64)):
+        assert _rel(got, plain) <= TOL_BF16_PAIR, _rel(got, plain)
+        assert _rel(got, want) <= 2 * _rel(plain, want) + 1e-4, (_rel(got, want), _rel(plain, want))
+    assert _rel(st, _two_pass(y)) <= 1e-5, _rel(st, _two_pass(y))
+
+
+@pytest.mark.parametrize("edge", K2_BF16_EDGES, ids=K2_BF16_EDGE_IDS)
+@pytest.mark.parametrize("c", [16, 64, 128])
+def test_bf16_fwd_pair_tile_edges_bitwise_repeatable(cuda, c, edge):
+    args, x, d = _k2_bf16_edge(edge, c, True, True, cuda)
+    first, second = T.fwd_pair(x, *args, d), T.fwd_pair(x, *args, d)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c,d,n,h,w", [(64, 2, 2, 9, 150)] + K2_BF16_EDGE_SHAPES,
+                         ids=["base"] + K2_BF16_EDGE_SHAPE_IDS)
+def test_bf16_fwd_and_bwd_compute_the_same_c(cuda, c, d, n, h, w):
+    """K2's bf16 c passes and K3's k3_c_dc_bf16_kernel compute c in the same
     order. With w13 the identity at its centre tap and no RAP, K2's y is the
     bf16 c times 1 summed in float32, c itself; so y must equal the bf16 c
-    that K3 writes to its scratch, bit for bit."""
-    c, d, n, h, w = 64, 2, 2, 9, 150
-    gen = torch.Generator().manual_seed(12)
+    that K3 writes to its scratch, bit for bit; at K2's tile edges too."""
+    gen = torch.Generator().manual_seed(12 + c + d + h)
     w31, b31, _, _, pre = _bf16_pair_args(gen, c, False, True, cuda)
     w13 = torch.zeros(c, c, 1, 3, device=cuda)
     w13[:, :, 0, 1] = torch.eye(c, device=cuda)
@@ -1089,20 +1147,24 @@ def test_bf16_fwd_and_bwd_compute_the_same_c(cuda):
     assert torch.equal(got, c_k3), int((got != c_k3).sum())
 
 
+@pytest.mark.parametrize("edge", [(2, 9, 8, dict.fromkeys((16, 64, 128), 300))] + K2_BF16_EDGES,
+                         ids=["base"] + K2_BF16_EDGE_IDS)
 @pytest.mark.parametrize("rap", [True, False], ids=["rap", "plain"])
 @pytest.mark.parametrize("c", [16, 64, 128])
-def test_k1_bf16_and_k2_bf16_compute_the_same_y(cuda, c, rap):
-    """K1's bf16 kernel and K2's bf16 kernel run the same mainloop
-    (csrc/bf16_pair.cuh). One K1 pair with a = 1, b = 0 and no residual
-    writes bf16(relu(fma(1, y, 0))), which must equal relu of K2's bf16 y."""
-    gen = torch.Generator().manual_seed(9 * c + rap)
+def test_k1_bf16_and_k2_bf16_compute_the_same_y(cuda, c, rap, edge):
+    """K1's bf16 kernel and K2's bf16 kernel multiply in the same order
+    (stage B's column taps 0, 1, 2 over the channels ascending, then RAP). One
+    K1 pair with a = 1, b = 0 and no residual writes bf16(relu(fma(1, y, 0))),
+    which must equal relu of K2's bf16 y; at K2's tile edges too."""
+    n, h, d, widths = edge
+    gen = torch.Generator().manual_seed(9 * c + rap + h + d)
     w31, b31, w13, rapw, _ = _bf16_pair_args(gen, c, rap, False, cuda)
-    x = _bf16_act(gen, 2, c, 9, 300, cuda)
-    y, _ = T.fwd_pair(x, w31, b31, w13, rapw, None, 8)
+    x = _bf16_act(gen, n, c, h, widths[c], cuda)
+    y, _ = T.fwd_pair(x, w31, b31, w13, rapw, None, d)
     w31s, b31v, w13s, rapm, _, _ = T._kernel_operands(x, w31, b31, w13, rapw, None)
     ones = torch.ones(c, device=cuda)
     before = K.LAUNCHES_BF16
-    got = K._launch_pair(x, w31s, b31v, w13s, rapm, ones, torch.zeros_like(ones), None, 8)
+    got = K._launch_pair(x, w31s, b31v, w13s, rapm, ones, torch.zeros_like(ones), None, d)
     torch.cuda.synchronize()
     assert K.LAUNCHES_BF16 == before + 1
     assert int((y > 0).sum()) > 0 and int((y < 0).sum()) > 0

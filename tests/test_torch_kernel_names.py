@@ -4,7 +4,8 @@ with no nvcc: a renamed kernel then fails here, not as "not measured" or as a
 kernel placed in the wrong family on the card. Also K3's bound split by launch
 kind (`chip_smoke.k3_kind_bounds`): its FLOPs sum to the whole call's, and at
 6x512x1024 in bf16 the kinds' operation bounds over one student backward are
-dc 0.303, du 0.194 and wgrad 0.345 ms."""
+dc 0.303, du 0.194 and wgrad 0.345 ms; K2's bound over one student forward
+in bf16 is 0.453 ms."""
 import importlib.util
 import re
 from pathlib import Path
@@ -118,3 +119,13 @@ def test_k3_kind_bounds_over_one_student_backward(smoke):
         for k, v in smoke.k3_kind_bounds(smoke.TRAIN_BATCH, c, h, w, rap, "bf16").items():
             ops[k] += 2 * count * v["ops_ms"]
     assert {k: round(v, 3) for k, v in ops.items()} == {"dc": 0.303, "du": 0.194, "wgrad": 0.345}
+
+
+def test_k2_bf16_bound_over_one_student_forward(smoke):
+    """pair_bound summed over the 34 pair calls of one student forward at
+    6x512x1024 bf16: 0.453 ms (operations 0.345, bytes 0.392), the yardstick
+    phase 16 prints beside K2 bf16's device ms."""
+    assert smoke.TRAIN_BATCH == 6 and (smoke.HEIGHT, smoke.WIDTH) == (512, 1024)
+    got = smoke.student_pass_bound("fwd", "bf16")
+    assert {k: round(v, 3) for k, v in got.items()} == {
+        "bound_ms": 0.453, "ops_ms": 0.345, "bytes_ms": 0.392}

@@ -22,7 +22,10 @@ def _tool(name: str):
     ("k1_variants", {"as_built", "cuda_cores", "one_cta", "presplit_w", "stages4", "kc64",
                      "narrow"}),
     ("k2_variants", {"as_built", "cuda_cores", "c_split", "ring3", "ring4", "tm_smaller",
-                     "one_cta"}),
+                     "one_cta", "bf16_ring2", "bf16_ring3", "bf16_w_streamed", "bf16_kc32", "bf16_walkers_132",
+                     "bf16_walkers_half", "bf16_cta_per_tile", "bf16_rap_stages",
+                     "bf16_params_global", "bf16_cta256_mt4", "diag_no_products",
+                     "diag_no_y_stores", "diag_no_u_loads", "diag_no_pre"}),
     ("k3_variants", {"as_built", "one_level", "lo_truncated", "stages2", "stages4",
                      "bf16_kc_pair", "bf16_conv_cta256", "bf16_dc_no_halo", "bf16_wgrad_no_halo",
                      "bf16_wgrad_walkers_half", "bf16_wgrad_by_matrix"}),

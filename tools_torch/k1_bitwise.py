@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K1's kernels (csrc/nb1d_infer.cu) and K2's bf16 kernel (csrc/nb1d_train.cu)
-of two checkouts of the port, bit for bit, on one NVIDIA card.
+"""K1's kernels (csrc/nb1d_infer.cu) and K2's and K3's bf16 kernels
+(csrc/nb1d_train.cu) of two checkouts of the port, bit for bit, on one NVIDIA
+card.
 
     python3 tools_torch/k1_bitwise.py ROOT_A ROOT_B [--seed 0]
 
@@ -10,11 +11,15 @@ libraries with ctypes and calls, on the same random inputs, K1's C entry
 `nb1d_pair` (one conv pair of each of the 7 nb1d block shapes of a 512x1024
 forward at batch 1 and 6, in float32 and bfloat16, without and with the
 residual) and K2's `nb1d_train_fwd_bf16` (the same shapes at batch 6, with and
-without the pre-stage: y and the [2, C] stats). Prints, per case, whether the
-two outputs are equal bit for bit, and exits 1 if any differs. Use it when a
-change moves K1's or K2's code, or a header they share, without meaning to
-change their results (a refactor into a shared header, a change to K3 beside
-them).
+without the pre-stage: y and the [2, C] stats) and K3's
+`nb1d_train_bwd_bf16` on the same inputs (du and the weight gradients).
+Prints, per case, whether the two outputs are equal bit for bit, and exits 1
+if any K1 output, K2 y or K3 output differs. K2's stats are float32 sums
+whose order is the design's (a partial per walker since the walker design of
+K2 bf16), so for them it prints the largest difference from the other
+checkout's relative to the largest value of each row (sum, sum of squares)
+and does not fail. Use it when a change moves K1's, K2's or K3's code, or a
+header they share, without meaning to change their results.
 """
 from __future__ import annotations
 
@@ -53,12 +58,19 @@ def load_train(path: Path) -> ctypes.CDLL:
     lib.nb1d_train_fwd_bf16.restype = i
     lib.nb1d_train_fwd_bf16_scratch.argtypes = [i, i, i, i]
     lib.nb1d_train_fwd_bf16_scratch.restype = ctypes.c_longlong
+    lib.nb1d_train_bwd_bf16.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.nb1d_train_bwd_bf16.restype = i
+    lib.nb1d_train_bwd_bf16_scratch.argtypes = [i, i, i, i, i]
+    lib.nb1d_train_bwd_bf16_scratch.restype = ctypes.c_longlong
+    lib.nb1d_train_grad_len.argtypes = [i, i]
+    lib.nb1d_train_grad_len.restype = ctypes.c_longlong
     return lib
 
 
-def k2_bf16_cases(libs, gen, dev) -> bool:
-    """K2 bf16's y and stats of both libraries, each block shape at batch 6,
-    with and without the pre-stage; True if every case is bit for bit equal."""
+def train_bf16_cases(libs, gen, dev) -> bool:
+    """K2 bf16's y and stats and K3 bf16's du and weight gradients of both
+    libraries, each block shape at batch 6, with and without the pre-stage;
+    True if every y and K3 output is bit for bit equal."""
     import torch
 
     same = True
@@ -68,30 +80,53 @@ def k2_bf16_cases(libs, gen, dev) -> bool:
             def mk(*shape, scale=1.0, dtype=torch.bfloat16):
                 return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype).contiguous()
 
-            x = mk(n, h, w, c)  # NHWC
+            x, gy = mk(n, h, w, c), mk(n, h, w, c)  # NHWC
             w31, w13 = mk(3 * c, c, scale=c ** -0.5), mk(3 * c, c, scale=c ** -0.5)
+            w31t, w13t = mk(3 * c, c, scale=c ** -0.5), mk(3 * c, c, scale=c ** -0.5)
             rapm = mk(c, c, scale=c ** -0.5) if rap else None
             b31 = mk(c, dtype=torch.float32)
             pa = (1.0 + 0.2 * mk(c, dtype=torch.float32)).abs() if pre else None
             pb = 0.2 * mk(c, dtype=torch.float32) if pre else None
-            outs = []
+            outs, bwd = [], []
+            stream = torch.cuda.current_stream().cuda_stream
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
             for lib in libs:
                 y = torch.empty_like(x)
                 stats = torch.empty(2, c, device=dev)
                 scratch = torch.empty(lib.nb1d_train_fwd_bf16_scratch(c, n, h, w), device=dev)
-                ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
                 rc = lib.nb1d_train_fwd_bf16(c, x.data_ptr(), w31.data_ptr(), b31.data_ptr(),
                                              w13.data_ptr(), ptr(rapm), ptr(pa), ptr(pb),
                                              y.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-                                             n, h, w, d, torch.cuda.current_stream().cuda_stream)
+                                             n, h, w, d, stream)
                 torch.cuda.synchronize()
                 if rc != 0:
                     raise RuntimeError(f"nb1d_train_fwd_bf16 returned {rc} for {name}")
                 outs.append((y, stats))
-            equal = all(torch.equal(a, b) for a, b in zip(*outs))
-            same &= equal
-            print(f"K2 bf16 {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage, "
-                  f"y and stats: " + ("bitwise equal" if equal else "differ"))
+                du = torch.empty_like(x)
+                grads = torch.empty(lib.nb1d_train_grad_len(c, int(rap)), device=dev)
+                scratch = torch.empty(lib.nb1d_train_bwd_bf16_scratch(c, n, h, w, int(rap)),
+                                      device=dev)
+                rc = lib.nb1d_train_bwd_bf16(c, x.data_ptr(), gy.data_ptr(), w31.data_ptr(),
+                                             b31.data_ptr(), w13t.data_ptr(), w31t.data_ptr(),
+                                             ptr(rapm), ptr(pa), ptr(pb), du.data_ptr(),
+                                             grads.data_ptr(), scratch.data_ptr(), n, h, w, d,
+                                             stream)
+                torch.cuda.synchronize()
+                if rc != 0:
+                    raise RuntimeError(f"nb1d_train_bwd_bf16 returned {rc} for {name}")
+                bwd.append((du, grads))
+            (ya, sa), (yb, sb) = outs
+            equal = torch.equal(ya, yb)
+            k3_equal = all(torch.equal(a, b) for a, b in zip(*bwd))
+            same &= equal and k3_equal
+            print(f"K3 bf16 {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage, "
+                  f"du and weight gradients: " + ("bitwise equal" if k3_equal else "differ"))
+            rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(sa, sb)]
+            print(f"K2 bf16 {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage: "
+                  f"y " + ("bitwise equal" if equal else
+                           f"{int((ya != yb).sum())} elements differ")
+                  + f"; stats largest relative difference: sum {rel[0]:.2e}, "
+                    f"sum of squares {rel[1]:.2e}")
     return same
 
 
@@ -137,7 +172,8 @@ def main(argv=None) -> int:
                           + ("bitwise equal" if equal else
                              f"{int((outs[0] != outs[1]).sum())} elements differ"))
     roots = (args.root_a, args.root_b)
-    same &= k2_bf16_cases([load_train(build(r.resolve(), "nb1d_train")) for r in roots], gen, dev)
+    same &= train_bf16_cases([load_train(build(r.resolve(), "nb1d_train")) for r in roots], gen,
+                             dev)
     return 0 if same else 1
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """K2 (the training conv pair's forward, csrc/nb1d_train.cu) against variants of
 its own source, on one NVIDIA card: device time per student forward and
-accuracy against float64.
+accuracy.
 
-    python3 tools_torch/k2_variants.py [--out build/k2_variants.json] [--only NAME ...]
+    python3 tools_torch/k2_variants.py [--dtype f32|bf16] [--only NAME ...]
+                                       [--against ROOT] [--out build/k2_variants_<dtype>.json]
 
 Variants, each a text substitution of the committed sources (csrc/nb1d_train.cu
 and csrc/tf32_pair.cuh, which holds the pair mainloop K2 shares with K1's fp32
-kernel) built into build/k2_variants/<name>/ and run in its own process:
+kernel) built into build/k2_variants/<name>/ and run in its own process.
+float32 (`--dtype f32`):
   as_built    the source as it is (run first and last);
   cuda_cores  the CUDA-core kernel K2 had before it moved to the tensor cores
               (fp32 FMAs, each thread a 4-pixel x 8-channel tile; kept here
@@ -23,12 +25,44 @@ kernel) built into build/k2_variants/<name>/ and run in its own process:
               stage A);
   one_cta     one CTA per SM (up to 255 registers a thread) instead of two
               (at most 128).
+bfloat16 (`--dtype bf16`, the knobs of K2 bf16's walkers, FwdRing):
+  as_built             as above;
+  bf16_ring2, bf16_ring3   a ring at most 2 or 3 stages deep instead of 6 (as
+                       deep as shared memory holds: 2 / 3 / 6 at C = 128 / 64 /
+                       16);
+  bf16_w_streamed      at C = 64 w31 and rap streamed a chunk per stage beside
+                       the u chunk, as at C = 128, instead of resident;
+  bf16_kc32            chunks of 32 input channels (the pair mainloop's) instead
+                       of 64: twice the stages per tile, half as large, so the
+                       ring holds 4 / 6 at C = 128 / 64. ConvTiles' KC, which
+                       K3 bf16's conv launches share;
+  bf16_walkers_132     132 walkers at most (the H100's SMs) instead of 128;
+  bf16_walkers_half    64 walkers at most: half the SMs, fewer partials;
+  bf16_cta_per_tile    a CTA per tile (walkers unbounded): per-tile partials,
+                       the weights loaded by every CTA;
+  bf16_rap_stages      RAP at C <= 64 in stages of its own, u's row staged again
+                       (as at C = 128), instead of from the copy of the centre
+                       row tap's chunk;
+  bf16_params_global   b31, pa and pb read from global memory where a stage
+                       ends instead of from shared memory;
+  bf16_cta256_mt4      walkers of 256 threads, each warp 4 m16 tiles (64
+                       pixels x 8NT channels: a quarter fewer ldmatrix bytes
+                       per product) instead of 512 threads with 2 tiles a warp;
+  diag_no_products, diag_no_y_stores, diag_no_u_loads, diag_no_pre
+                       diagnostics, each K2 bf16 without one part (its
+                       products, y's global stores, the u chunks' copies (zero
+                       filled instead), the pre-stage): wrong outputs, read
+                       for the time that part takes.
+`--against ROOT` also measures another checkout (a parent's `git archive`)
+as "parent", first and last, so both trees are timed in one call.
 Times: CUDA events over fwd_pair for the two pairs of each of the 7 block
 shapes at 6x512x1024 (chip_smoke's inputs and timing), summed over the blocks
 of one student forward; device ms of the pair kernel and of the partials' sum
-from torch.profiler. Accuracy: y against the plain pair in float64 (relative
-L2), the batch mean and variance from the stats against a float64 two-pass
-over y, at the 7 shapes and the ragged one, RAP and pre-stage on.
+from torch.profiler, also per block. Accuracy, at the 7 shapes and the ragged
+one, RAP and pre-stage on: float32: y against the plain pair in float64
+(relative L2), the batch mean and variance from the stats against a float64
+two-pass over y; bfloat16: y and the stats against the plain bf16 version,
+the stats against a float64 two-pass over the returned y.
 """
 from __future__ import annotations
 
@@ -42,12 +76,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "mdilss_tpu_torch"
 WORK = ROOT / "build" / "k2_variants"
-ORDER = ("as_built", "cuda_cores", "c_split", "ring3", "ring4", "tm_smaller", "one_cta",
-         "as_built")
+ORDER = {"f32": ("as_built", "cuda_cores", "c_split", "ring3", "ring4", "tm_smaller", "one_cta",
+                 "as_built"),
+         "bf16": ("as_built", "bf16_ring2", "bf16_ring3", "bf16_w_streamed", "bf16_kc32", "bf16_walkers_132",
+                  "bf16_walkers_half", "bf16_cta_per_tile", "bf16_rap_stages",
+                  "bf16_params_global", "bf16_cta256_mt4", "diag_no_products",
+                  "diag_no_y_stores", "diag_no_u_loads", "diag_no_pre", "as_built")}
 # the files a variant may change, relative to the package
 SOURCE, PAIR = "csrc/nb1d_train.cu", "csrc/tf32_pair.cuh"
 FILES = (SOURCE, PAIR)
-# device time by kernel name: the pair kernel (either design) and the fixed-order sum
+# device time by kernel name: the pair kernel (any design, either type) and the fixed-order sum
 KINDS = {"pair": "fwd_pair", "sum": "namespace)::reduce_kernel("}
 
 # The CUDA-core K2 kernel and its helpers, as K2 had them before the tensor cores: one CTA per
@@ -424,6 +462,7 @@ def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
     small = _sub(small, "Warps<C>::WM * 48 >= K2B<C>::TM", "Warps<C>::WM * 32 >= K2B<C>::TM")
 
     occ = "constexpr int K2_CTAS = 2, K2_DEPTH = 2;"
+    walkers = "  static constexpr int WALKERS = 128;"
     return {
         "as_built": {},
         "cuda_cores": {SOURCE: cores},
@@ -432,10 +471,42 @@ def variants(files: dict[str, str]) -> dict[str, dict[str, str]]:
         "ring4": {PAIR: _sub(pair, occ, "constexpr int K2_CTAS = 2, K2_DEPTH = 4;")},
         "tm_smaller": {PAIR: small},
         "one_cta": {PAIR: _sub(pair, occ, "constexpr int K2_CTAS = 1, K2_DEPTH = 2;")},
+        "bf16_ring2": {SOURCE: _sub(src, "MAX_DEPTH = 6;", "MAX_DEPTH = 2;")},
+        "bf16_ring3": {SOURCE: _sub(src, "MAX_DEPTH = 6;", "MAX_DEPTH = 3;")},
+        "bf16_w_streamed": {SOURCE: _sub(src, "W_RESIDENT = C <= 64;", "W_RESIDENT = C <= 16;")},
+        "bf16_kc32": {SOURCE: _sub(src, "  static constexpr int KC = C >= 64 ? 64 : C;",
+                                   "  static constexpr int KC = C >= 32 ? 32 : C;")},
+        "bf16_walkers_132": {SOURCE: _sub(src, walkers, walkers.replace("128", "132"))},
+        "bf16_walkers_half": {SOURCE: _sub(src, walkers, walkers.replace("128", "64"))},
+        "bf16_cta_per_tile": {SOURCE: _sub(src, walkers, walkers.replace("128", "INT_MAX"))},
+        "bf16_rap_stages": {SOURCE: _sub(
+            _sub(src, "fw.rap = rap != nullptr && !R::W_RESIDENT;", "fw.rap = rap != nullptr;"),
+            "const bool rap_row = rap != nullptr && R::W_RESIDENT;", "const bool rap_row = false;")},
+        "bf16_params_global": {SOURCE: _sub(_sub(
+            src, "const float* a = prm + C + mw.ch * KC + v;\n      const float4 a0 = ld4(a), "
+                 "a1 = ld4(a + 4), b0 = ld4(a + C), b1 = ld4(a + C + 4);",
+            "const float* a = pa + mw.ch * KC + v;\n      const float* b = pb + mw.ch * KC + v;\n"
+            "      const float4 a0 = ld4(a), a1 = ld4(a + 4), b0 = ld4(b), b1 = ld4(b + 4);"),
+            "const float2 bias = *reinterpret_cast<const float2*>(prm + co);",
+            "const float2 bias = *reinterpret_cast<const float2*>(b31 + co);")},
+        "bf16_cta256_mt4": {SOURCE: _sub(
+            src, "static constexpr int THREADS = 512, MT = Mma<C>::MT;",
+            "static constexpr int THREADS = 256, MT = 2 * Mma<C>::MT;")},
+        "diag_no_products": {SOURCE: _sub(_sub(
+            _sub(src, "warp_mma<KC, MT, NT, LDA, LDB>(", "if (0) warp_mma<KC, MT, NT, LDA, LDB>(", 3),
+            "warp_mma<C, MT, NT, LDB, LDB>(", "if (0) warp_mma<C, MT, NT, LDB, LDB>("),
+            "warp_mma<C, MT, NT, R::LDU, LDB>(", "if (0) warp_mma<C, MT, NT, R::LDU, LDB>(")},
+        "diag_no_y_stores": {SOURCE: _sub(
+            src, "      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * C) = raw8;\n", "")},
+        "diag_no_u_loads": {SOURCE: _sub(
+            src, "if (col >= 0 && col < W) cp_async16(dst, src + static_cast<size_t>(col) * C + v);",
+            "if (0) cp_async16(dst, src + static_cast<size_t>(col) * C + v);")},
+        "diag_no_pre": {SOURCE: _sub(src, "    if (pa != nullptr) {\n      const float* a = prm",
+                                     "    if (0) {\n      const float* a = prm")},
     }
 
 
-def measure(root: Path, name: str) -> dict:
+def measure(root: Path, name: str, dt: str) -> dict:
     sys.path[:0] = [str(root), str(ROOT)]
     import torch
 
@@ -446,12 +517,13 @@ def measure(root: Path, name: str) -> dict:
         raise RuntimeError(f"imported {T.__file__}, not the variant under {root}")
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = cs.DTYPES[dt]
     n = cs.TRAIN_BATCH
     total = {"ms": 0.0, **dict.fromkeys(KINDS, 0.0)}
     blocks = {}
     for i, (bname, c, d, rap, h, w, count) in enumerate(cs.BLOCKS):
         gen = torch.Generator().manual_seed(100 * i)
-        x = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        x = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev, dtype))
         row = {"ms": 0.0}
         for dd, pre in ((1, False), (d, True)):
             args = cs.pair_args(gen, c, rap, pre, dev)
@@ -465,25 +537,35 @@ def measure(root: Path, name: str) -> dict:
         blocks[bname] = row
         for k in total:
             total[k] = cs.add_ms(total[k], None if row[k] is None else count * row[k])
-    worst = {"y": 0.0, "mean": 0.0, "var": 0.0}
+    worst: dict[str, float] = {}
     for i, (_, c, d, _, h, w, _) in enumerate(cs.BLOCKS + (cs.RAGGED,)):
         gen = torch.Generator().manual_seed(7 + i)
         args = cs.pair_args(gen, c, True, True, dev)
-        x = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev))
+        x = cs.cl(torch.randn(n, c, h, w, generator=gen).to(dev, dtype))
         y, st = T.fwd_pair(x, *args, d)
-        y64, _ = T.fwd_pair_plain(x.double(), *(cs.as_f64(a) for a in args), d)
         yd = y.double()
-        m64 = yd.mean((0, 2, 3))
-        v64 = (yd - m64.view(1, -1, 1, 1)).square().mean((0, 2, 3))
-        mu = st[0].double() / (n * h * w)
-        var = torch.clamp(st[1].double() / (n * h * w) - mu * mu, min=0.0)
-        errs = {"y": cs.rel_l2(y, y64), "mean": float((mu - m64).norm() / v64.sqrt().norm()),
-                "var": float((var - v64).norm() / v64.norm())}
+        if dt == "f32":
+            y64, _ = T.fwd_pair_plain(x.double(), *(cs.as_f64(a) for a in args), d)
+            m64 = yd.mean((0, 2, 3))
+            v64 = (yd - m64.view(1, -1, 1, 1)).square().mean((0, 2, 3))
+            mu = st[0].double() / (n * h * w)
+            var = torch.clamp(st[1].double() / (n * h * w) - mu * mu, min=0.0)
+            errs = {"y": cs.rel_l2(y, y64),
+                    "mean": float((mu - m64).norm() / v64.sqrt().norm()),
+                    "var": float((var - v64).norm() / v64.norm())}
+            del y64
+        else:
+            y_p, st_p = T.fwd_pair_plain(x, *args, d)
+            two = torch.stack([yd.sum((0, 2, 3)), yd.square().sum((0, 2, 3))])
+            errs = {"y": cs.rel_l2(y, y_p), "stats": cs.rel_l2(st, st_p),
+                    "stats_vs_f64_two_pass": cs.rel_l2(st, two)}
+            del y_p
         for k, v in errs.items():
-            worst[k] = max(worst[k], v)
-        del y, y64, yd
-    return {"variant": name, "card": cs.card_line(), "k2_ms_per_forward": total,
-            "blocks": blocks, "worst_vs_f64": worst}
+            worst[k] = max(worst.get(k, 0.0), v)
+        del y, yd
+    return {"variant": name, "dtype": dt, "card": cs.card_line(), "k2_ms_per_forward": total,
+            "blocks": blocks, "worst": worst,
+            "against": "float64" if dt == "f32" else "the plain bf16 version"}
 
 
 def committed() -> dict[str, str]:
@@ -492,15 +574,18 @@ def committed() -> dict[str, str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="build/k2_variants.json")
-    ap.add_argument("--only", nargs="+", help="run these variants only (each once)")
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    ap.add_argument("--only", nargs="+", metavar="NAME", help="run these variants (and as_built)")
+    ap.add_argument("--against", type=Path, metavar="ROOT",
+                    help="also measure this checkout, as 'parent', first and last")
+    ap.add_argument("--out", default=None)
     ap.add_argument("--measure", nargs=2, metavar=("ROOT", "NAME"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure:
-        print(json.dumps(measure(Path(args.measure[0]), args.measure[1])))
+        print(json.dumps(measure(Path(args.measure[0]), args.measure[1], args.dtype)))
         return 0
+    order = [v for v in ORDER[args.dtype] if v == "as_built" or not args.only or v in args.only]
     table = variants(committed())
-    order = args.only or ORDER
     for name in dict.fromkeys(order):
         root = WORK / name
         shutil.rmtree(root, ignore_errors=True)
@@ -508,22 +593,33 @@ def main(argv=None) -> int:
                         ignore=shutil.ignore_patterns("__pycache__"))
         for fname, text in table[name].items():
             (root / PACKAGE.name / fname).write_text(text)
+    roots = {name: WORK / name for name in order}
+    if args.against:
+        roots["parent"] = args.against.resolve()
+        order = ["parent", *order, "parent"]
     results = []
     for name in order:
-        proc = subprocess.run([sys.executable, __file__, "--measure", str(WORK / name), name],
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, __file__, "--dtype", args.dtype, "--measure",
+                               str(roots[name]), name], capture_output=True, text=True,
+                              timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
         results.append(rec)
-        t, e = rec["k2_ms_per_forward"], rec["worst_vs_f64"]
-        print(f"{name:11s} K2 {t['ms']:.3f} ms per forward (device "
+        t, e = rec["k2_ms_per_forward"], rec["worst"]
+        print(f"{name:18s} K2 {args.dtype} {t['ms']:.3f} ms per forward (device "
               + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured"
                           for k, v in t.items() if k != "ms")
-              + "); worst vs float64 " + ", ".join(f"{k} {v:.2e}" for k, v in e.items()))
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(results, indent=1))
+              + f"); worst vs {rec['against']} " + ", ".join(f"{k} {v:.2e}" for k, v in e.items()),
+              flush=True)
+        for block, row in rec["blocks"].items():
+            print(f"{'':18s}   {block:16s} "
+                  + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} not measured"
+                              for k, v in row.items()), flush=True)
+    out = Path(args.out or f"build/k2_variants_{args.dtype}.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
     print(results[0]["card"])
     return 0
 

@@ -17,10 +17,12 @@ build/k3_variants/<name>/ and run in its own process. float32 (`--dtype f32`):
   stages2, stages4   a cp.async ring 2 or 4 deep instead of 3.
 bfloat16 (`--dtype bf16`, the knobs of K3 bf16's launches):
   as_built           as above;
-  bf16_ring2, bf16_ring4   the conv launches' ring (ConvRing) 2 or 4 stages
-                     deep instead of 3;
   bf16_kc_pair       the conv launches' chunk of input channels as the pair's
                      (32 at C >= 64) instead of 64: twice the stages per tile;
+  bf16_dc_no_halo    launch 1's gy taken as three shifted tiles, a stage per
+                     column tap, instead of once with its +-d halo;
+  bf16_wgrad_no_halo the weight gradients' gy taken as three shifted tiles
+                     instead of once with its halo;
   bf16_wgrad_walkers_half  half the weight-gradient walkers (16 at C = 128,
                      64 at C = 16 / 64): fewer partials, fewer CTAs;
   bf16_conv_cta256   conv CTAs of 256 threads (the pair's warps, half the
@@ -28,6 +30,9 @@ bfloat16 (`--dtype bf16`, the knobs of K3 bf16's launches):
   bf16_wgrad_by_matrix  the weight gradients' A fragments of u and c loaded
                      again before each of the 6 products of a k16 step instead
                      of once for all (the staging stays shared).
+K2 bf16 walks the same conv tiles (ConvTiles), so bf16_kc_pair and
+bf16_conv_cta256 change K2 bf16 too (tools_torch/k2_variants.py measures K2's
+knobs); this tool times K3 only.
 Times: CUDA events over bwd_pair for the two pairs of each of the 7 block
 shapes at 6x512x1024 (chip_smoke's inputs and timing), summed over the blocks
 of one student backward; device ms per launch kind from torch.profiler, also
