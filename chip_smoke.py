@@ -166,12 +166,27 @@ Phases, each fatal on failure (non-zero exit):
      epoch): exact bf16 launches per stage, LR-0 parameters bitwise, each
      best evaluated by `eval` in float32; K2/K3 bf16 per block shape (ms,
      plain ms, bf16 bound, device ms by kind, K3's weight-gradient products as
-     bf16 torch.matmul).
+     bf16 torch.matmul);
+ 17. remat (cuDNN on its deterministic algorithms): the step-2 step and the
+     step-3 batch of phases 7 and 10 at 6x512x1024, float32 and bfloat16, once
+     without and once with remat=True, remat_prev=True from the same weights,
+     batch and masks, each with its counts zeroed just before: exactly 34 / 68
+     / 68 and 0 / 170 / 102 without and 34 / 170 / 68 and 0 / 340 / 102 with
+     (K2 reruns in the backward: each region's replay, and each previous-task
+     forward's replay as a whole), all bf16 in bf16, no call into
+     torch.utils.checkpoint without remat and 34 / 57 with; the losses,
+     confusion matrix, every student parameter, running statistic and Adam
+     tensor bitwise equal with and without, the teacher unchanged; each
+     call's peak memory (reset just before) and one profiled call's device
+     busy ms and idle share; then `step1 --remat` -> `step2 --remat` through
+     cli.main (6 images per domain and subset, one epoch): exact launches per
+     stage, step 2's LR-0 parameters bitwise step1/best's.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven, K1's through the exported heads
 and parity-check too, `launches_ablation_*` on phase 15's and
-`launches_bf16_*` on phase 16's; K2's and K3's a `bf16` block with their
+`launches_bf16_*` on phase 16's, `launches_remat_*` on phase 17's; K2's and
+K3's a `bf16` block with their
 bf16 launches, times, bound and errors) and, as the last line,
 {"ok": true, "device": {...}}. The full record goes to --out.
 Without a CUDA card it exits 2 and prints no result.
@@ -209,7 +224,9 @@ from mdilss_tpu_torch.metrics import confusion_matrix
 from mdilss_tpu_torch.models import ERFNet, ERFNetAblation, ERFNetRAP
 from mdilss_tpu_torch.models.blocks import NonBottleneck1d, NonBottleneck1dRAP
 from mdilss_tpu_torch.models.erfnet_ablations import REFERENCE_NAMES
-from mdilss_tpu_torch.models.topology import DECODER_PLAN, make_dropout_masks
+from mdilss_tpu_torch.models import topology
+from mdilss_tpu_torch.models.topology import (DECODER_PLAN, DECODER_REGIONS, ENCODER_REGIONS,
+                                              make_dropout_masks)
 from mdilss_tpu_torch.ops import _build
 from mdilss_tpu_torch.ops import nb1d_infer as K
 from mdilss_tpu_torch.ops import nb1d_train as T
@@ -792,12 +809,13 @@ def train_setup(seed: int, dev, n: int, h: int, w: int):
     return student, teacher, images, labels, masks
 
 
-def make_step(student, compute_dtype: str = "float32"):
+def make_step(student, compute_dtype: str = "float32", **remat):
+    """(LR dict, the step-2 step); `remat`: the maker's remat / remat_prev."""
     lr = rap_lr_tree(student, current_task=CURRENT_TASK, shared_lr=SHARED_LR, ds_lr=DS_LR)
     step = steps.make_distill_step(current_task=CURRENT_TASK, prev_tasks=PREV_TASKS,
                                    class_weight=CLASS_WEIGHTS["BDD"], lr_tree=lr,
                                    num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, **remat)
     return lr, step
 
 
@@ -1326,12 +1344,13 @@ def step3_setup(seed: int, dev, n: int, h: int, w: int):
     return student, teacher, images, labels, masks
 
 
-def make_step3(student, compute_dtype: str = "float32"):
+def make_step3(student, compute_dtype: str = "float32", **remat):
+    """(LR dict, the two-phase step-3 step); `remat` as make_step's."""
     lr = rap_lr_tree(student, current_task=STEP3_CURRENT, shared_lr=SHARED_LR, ds_lr=DS_LR)
     step = steps.make_two_phase_distill_step(
         current_task=STEP3_CURRENT, prev_tasks=STEP3_PREV, class_weight=CLASS_WEIGHTS["IDD"],
         lr_tree=lr, num_epochs=NUM_EPOCHS, lambda_c=LAMBDA_C, iou_train=True,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, **remat)
     return lr, step
 
 
@@ -3047,6 +3066,198 @@ def phase_bf16(seed: int, dev: torch.device) -> dict:
     return rec
 
 
+# ---- phase 17: remat ------------------------------------------------------------------------
+# a remat forward makes one region per group64 block, group128 chain and decoder nb1d block;
+# remat_prev makes each previous-task forward one region as well, whose replay runs its
+# regions' forwards again (11 more regions made) before they replay in their turn
+REGIONS_PER_FORWARD = len(ENCODER_REGIONS) + len(DECODER_REGIONS)  # 5 + 2 + 4
+REGIONS_PER_PREV = 1 + 2 * REGIONS_PER_FORWARD
+# launches per call with remat and remat_prev: each student forward's regions replay once
+# (+34 K2), each previous-task forward replays once more as a whole (+34 K2); K1, K3 as without
+REMAT_CELLS = {  # kind: (setup, make, launches without remat, with, previous tasks)
+    "step2": (train_setup, make_step, STEP_LAUNCHES,
+              {"K1": 34, "K2": 68 + 34 * 2 + 34 * len(PREV_TASKS), "K3": 68}, PREV_TASKS),
+    "step3": (step3_setup, make_step3, STEP3_LAUNCHES,
+              {"K1": 0, "K2": 170 + 34 * 3 + 34 * len(STEP3_PREV), "K3": 102}, STEP3_PREV),
+}
+REMAT_CHAIN = {"step1": ({"K1": 0, "K2": 68, "K3": 34}, 1),  # per train step, validation batches
+               "step2": (REMAT_CELLS["step2"][3], 2)}
+
+
+@contextlib.contextmanager
+def checkpoint_calls():
+    """Counts the calls into torch.utils.checkpoint.checkpoint, by the name the
+    port's regions call it (models/topology.py) and its own."""
+    import torch.utils.checkpoint as tc
+
+    calls = []
+    orig = topology.checkpoint
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return orig(*args, **kw)
+
+    topology.checkpoint = tc.checkpoint = counting
+    try:
+        yield calls
+    finally:
+        topology.checkpoint = tc.checkpoint = orig
+
+
+def remat_cell(kind: str, dt: str, seed: int, dev: torch.device) -> dict:
+    """One step-2 step or step-3 batch at 6x512x1024 in `dt`, without and with
+    remat (remat=True, remat_prev=True), from the same weights, batch and
+    masks, each with its counts zeroed and its peak reset just before: exact
+    launches (all bf16 in bf16) and calls into torch.utils.checkpoint (none
+    without remat); the losses and confusion matrix, every student parameter,
+    running statistic and Adam tensor after the call bitwise equal; the
+    teacher unchanged; peak memory; then one profiled call of each (device
+    busy ms, idle share)."""
+    setup, make, plain_want, remat_want, prev = REMAT_CELLS[kind]
+    student, teacher, images, labels, masks = setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    images, labels = images.to(dev), labels.to(dev)
+    s_state, t_state = state_copy(student), state_copy(teacher)
+    rec, after = {}, {}
+    for remat in (False, True):
+        tag = f"remat-{kind}-{dt}-{'on' if remat else 'off'}"
+        student.load_state_dict(s_state)
+        _, step = make(student, dt, remat=remat, remat_prev=remat)
+        ts = steps.init_train_state(student)
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with checkpoint_calls() as calls:
+            ts, m = step(ts, teacher, images, labels, masks, 1)
+            sync(dev)
+        secs = time.perf_counter() - t0
+        r = rec["remat" if remat else "plain"] = {
+            "launches": launch_counts(), "launches_bf16": bf16_launch_counts(),
+            "checkpoint_calls": len(calls), "seconds": secs,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "losses": {k: float(v) for k, v in m.items() if k != "cm"}}
+        after[remat] = ({k: v.detach().cpu() for k, v in m.items()},
+                        {**{k: v.cpu() for k, v in state_copy(student).items()},
+                         "opt.m": ts.opt.m.cpu(), "opt.v": ts.opt.v.cpu()})
+        r["teacher_changed"] = changed(teacher, t_state)
+        want = remat_want if remat else plain_want
+        want_calls = REGIONS_PER_FORWARD + len(prev) * REGIONS_PER_PREV if remat else 0
+        print(f"[{tag}] launches {r['launches']} (expected {want}), bf16 {r['launches_bf16']}; "
+              f"{r['checkpoint_calls']} checkpoint calls (expected {want_calls}); peak "
+              f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; loss {r['losses']['loss']:.6f}; "
+              f"{secs:.3f} s")
+        check(r["launches"] == want, f"{tag}: launched {r['launches']}, expected {want}")
+        check(r["launches_bf16"] == (want if dt == "bfloat16" else {k: 0 for k in want}),
+              f"{tag}: bf16 launches {r['launches_bf16']}")
+        check(r["checkpoint_calls"] == want_calls,
+              f"{tag}: {r['checkpoint_calls']} calls into torch.utils.checkpoint, "
+              f"expected {want_calls}")
+        check(not r["teacher_changed"], f"{tag}: the teacher changed {r['teacher_changed'][:5]}")
+        state = {"ts": ts}
+
+        def one():
+            state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+        r["profile"] = profile_once(one, tag, f"one {kind} call")
+        del state, one, ts, m  # nothing of this call in the next one's peak
+    (m_a, s_a), (m_b, s_b) = after[False], after[True]
+    rec["unequal_metrics"] = [k for k in m_a if not torch.equal(m_a[k], m_b[k])]
+    rec["unequal_state"] = [k for k in s_a if not torch.equal(s_a[k], s_b[k])]
+    rec["max_rel_diff"] = max((float((s_a[k].double() - s_b[k].double()).abs().max()
+                                     / s_a[k].double().abs().max().clamp_min(1e-30))
+                               for k in rec["unequal_state"]), default=0.0)
+    pa, pr = rec["plain"], rec["remat"]
+    print(f"[remat-{kind}-{dt}] remat vs not, bitwise: metrics unequal {rec['unequal_metrics']}, "
+          f"{len(rec['unequal_state'])} of {len(s_a)} student tensors (parameters, running "
+          f"statistics, Adam) unequal (largest relative difference {rec['max_rel_diff']:.3e}); "
+          f"peak {pa['peak_memory_bytes'] / 2**30:.3f} -> {pr['peak_memory_bytes'] / 2**30:.3f} "
+          f"GiB; busy {pa['profile']['device_ms']:.3f} -> {pr['profile']['device_ms']:.3f} ms, "
+          f"idle share {pa['profile']['idle_share']:.3f} -> {pr['profile']['idle_share']:.3f}")
+    check(not rec["unequal_metrics"] and not rec["unequal_state"],
+          f"remat {kind} {dt}: not bitwise: {rec['unequal_metrics']} {rec['unequal_state'][:5]}")
+    return rec
+
+
+def remat_cli_chain(seed: int) -> dict:
+    """`step1 --remat` -> `step2 --remat` through cli.main at 6x512x1024 (6
+    synthetic images per domain and subset, one epoch), the counts zeroed
+    just before each stage: exactly its train step's remat launches plus 34
+    K1 per validation batch; every LR-0 parameter of step2/best bitwise as in
+    step1/best."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "remat_chain")
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--synthetic", "--synthetic-size", str(TRAIN_BATCH), "--num-epochs", "1",
+              "--batch-size", str(TRAIN_BATCH), "--height", str(HEIGHT), "--width",
+              str(WIDTH), "--seed", str(seed), "--remat"]
+    best = {s: os.path.join(root, s, "best") for s in REMAT_CHAIN}
+    rec: dict = {}
+    try:
+        for stage, prev in (("step1", None), ("step2", "step1")):
+            argv = [stage, "--savedir", os.path.dirname(best[stage]), *common]
+            argv += [] if prev is None else ["--state", best[prev]]
+            per_step, n_val = REMAT_CHAIN[stage]
+            want = {k: v + n_val * EVAL_LAUNCHES[k] for k, v in per_step.items()}
+            zero_launch_counts()
+            text, secs = run_cli(argv)
+            got = launch_counts()
+            row = json.loads(text.strip().splitlines()[-1])
+            r = rec[stage] = {"launches": got, "expected": want, "seconds": secs,
+                              "train_loss": row["train_loss"]}
+            print(f"[remat-chain] {stage} --remat: {secs:.3f} s; launches {got} (expected "
+                  f"{want}); loss {row['train_loss']:.6f}")
+            check(got == want and np.isfinite(row["train_loss"]), f"remat chain {stage}: {r}")
+        a = keep_tasks(torch_io.load_state(best["step1"], "rap"), 1)
+        b = torch_io.load_state(best["step2"], "rap")
+        lr = rap_lr_tree(ERFNetRAP(STUDENT_CLASSES, len(STUDENT_CLASSES), device="cpu"),
+                         current_task=CURRENT_TASK, shared_lr=SHARED_LR, ds_lr=DS_LR)
+        frozen = [k for k, v in lr.items() if v == 0.0]
+        rec["frozen"] = len(frozen)
+        rec["frozen_moved"] = [k for k in frozen if not torch.equal(a[k], b[k])]
+        print(f"[remat-chain] step2/best vs step1/best: {len(frozen)} parameters at LR 0, "
+              f"{len(rec['frozen_moved'])} moved")
+        check(frozen and not rec["frozen_moved"], f"remat chain: {rec['frozen_moved'][:5]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["launches"] = {k: sum(rec[s]["launches"][k] for s in REMAT_CHAIN) for k in ("K1", "K2", "K3")}
+    return rec
+
+
+def phase_remat(seed: int, dev: torch.device) -> dict:
+    """Phase 17: remat, cuDNN on its deterministic algorithms. The step-2 step
+    and the step-3 batch at 6x512x1024 in float32 and bfloat16 with and
+    without remat (`remat_cell`), then the CLI with --remat
+    (`remat_cli_chain`)."""
+    t_phase = time.perf_counter()
+    rec: dict = {"cells": {}}
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for i, (kind, dt) in enumerate((k, d) for k in REMAT_CELLS
+                                       for d in ("float32", "bfloat16")):
+            rec["cells"][f"{kind}_{dt}"] = remat_cell(kind, dt, seed + 600 + i, dev)
+        rec["cli_chain"] = remat_cli_chain(seed)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    print(f"[remat] {TRAIN_BATCH}x{HEIGHT}x{WIDTH}, per call without -> with remat: peak GiB, "
+          f"device busy ms, idle share")
+    for name, c in rec["cells"].items():
+        pa, pr = c["plain"], c["remat"]
+        print(f"[remat]   {name}: {pa['peak_memory_bytes'] / 2**30:.3f} -> "
+              f"{pr['peak_memory_bytes'] / 2**30:.3f} GiB, {pa['profile']['device_ms']:.3f} -> "
+              f"{pr['profile']['device_ms']:.3f} ms, {pa['profile']['idle_share']:.3f} -> "
+              f"{pr['profile']['idle_share']:.3f}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[remat] phase 17 in {rec['seconds']:.1f} s")
+    return rec
+
+
+def remat_launches(rec: dict, k: str) -> dict:
+    """The kernels-line keys of kernel `k` ("K1" / "K2" / "K3") on phase 17's paths."""
+    out = {f"launches_remat_{name}": c["remat"]["launches"][k] for name, c in rec["cells"].items()}
+    out["launches_remat_cli_chain"] = rec["cli_chain"]["launches"][k]
+    return out
+
+
 def k3_kind_totals(blocks: list[dict]) -> dict:
     """K3's device ms per launch kind summed over the 34 pair calls of one
     student backward (None if a kind was not measured), with each kind's
@@ -3182,6 +3393,7 @@ def main(argv=None) -> int:
     slice10 = phase_slice10(args.seed, dev, chain_root)
     ablations = phase_ablations(args.seed, dev, chain_root)
     bf16 = phase_bf16(args.seed, dev)
+    remat = phase_remat(args.seed, dev)
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -3211,6 +3423,7 @@ def main(argv=None) -> int:
         "launches_bf16_step2": bf16["step2"]["launches_bf16"]["K1"],
         "launches_bf16_step3": bf16["step3"]["launches_bf16"]["K1"],
         "launches_bf16_cli_chain": bf16["cli_chain"]["launches_bf16"]["K1"],
+        **remat_launches(remat, "K1"),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -3231,6 +3444,7 @@ def main(argv=None) -> int:
                     launches_cli_chain=cli_chain["launches"]["K2"],
                     launches_ablation_chain=ablations["chain_launches"]["K2"],
                     launches_ablation_steps=ablations["step_launches"]["K2"],
+                    **remat_launches(remat, "K2"),
                     bf16=bf16_entry(bf16, "fwd")),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
@@ -3242,6 +3456,7 @@ def main(argv=None) -> int:
                      launches_cli_chain=cli_chain["launches"]["K3"],
                      launches_ablation_chain=ablations["chain_launches"]["K3"],
                      launches_ablation_steps=ablations["step_launches"]["K3"],
+                     **remat_launches(remat, "K3"),
                      bf16=bf16_entry(bf16, "bwd"))]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
@@ -3249,7 +3464,7 @@ def main(argv=None) -> int:
               "train_kernel_cases": train_cases, "train_blocks": train_blocks,
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
               "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
-              "slice10": slice10, "ablations": ablations, "bf16": bf16,
+              "slice10": slice10, "ablations": ablations, "bf16": bf16, "remat": remat,
               "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

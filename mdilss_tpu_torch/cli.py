@@ -82,7 +82,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--iou-train", action="store_true",
                    help="compute train IoU in the train step (reference --iouTrain)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--remat", action="store_true", help="not ported: raises")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the training forwards' activations in the backward instead "
+                        "of keeping them: less device memory, more compute, the same result")
     p.add_argument("--fused-train", action="store_true",
                    help="accepted: the training blocks always run the fused kernels on the card")
     p.add_argument("--no-device-cache", action="store_true",

@@ -72,18 +72,19 @@ class ERFNetMultiHead(nn.Module):
             getattr(self, name) for name in self.head_prefixes]
 
     def forward(self, x_nhwc: torch.Tensor, task: int, drop_masks: dict | None = None,
-                return_features: bool = False):
+                return_features: bool = False, remat: bool = False):
         """x [N, H, W, 3] -> logits [N, H, W, num_classes[task]] in x's type;
-        `drop_masks` and `return_features` as ERFNetRAP.forward's."""
+        `drop_masks`, `return_features` and `remat` as ERFNetRAP.forward's."""
         heads = self.heads
         if not 0 <= task < len(heads):
             raise IndexError(f"task {task} out of range for {len(heads)} heads")
         if self.training:
-            return self._forward(x_nhwc, heads[task], drop_masks, return_features)
+            return self._forward(x_nhwc, heads[task], drop_masks, return_features, remat)
         with grad_off():
             return self._forward(x_nhwc, heads[task], None, return_features)
 
     def _forward(self, x_nhwc: torch.Tensor, head: nn.Module, drop_masks: dict | None,
-                 return_features: bool):
+                 return_features: bool, remat: bool = False):
         x = x_nhwc.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return head_output(head, self.encoder(x, None, drop_masks), return_features)
+        return head_output(head, self.encoder(x, None, drop_masks, remat), return_features,
+                           remat)

@@ -9,10 +9,16 @@ mdilss_tpu/models/topology.py).
 The RAP encoder's blocks carry per-task adapters and BN; the plain encoder's
 share one BN each (the multi-head and single-task models); an ablation
 encoder (`variant`) has that variant's blocks and, except onlyrap, per-task
-downsampler BN. The layers are a flat ModuleList in reference order (the JAX
-package's scan groups are a compile-time device and are not ported), and the
+downsampler BN. The layers are a flat ModuleList in reference order, and the
 decoder returns spatial logits (the JAX package's packed head is a TPU
-layout trick).
+layout trick). The JAX package's scan groups exist here as the remat regions
+of a `remat=True` training forward (`ENCODER_REGIONS`, `DECODER_REGIONS`):
+each group64 block and each group128 chain of four blocks of the encoder,
+each nb1d block of the decoder, checkpointed by `_ckpt` as JAX's `_ckpt`
+checkpoints them (mdilss_tpu/models/topology.py:39-51, :244-274, :311-324),
+saving nothing inside a region and replaying it in the backward. The
+downsamplers, the upsamplers and the output conv stay outside every region.
+The outputs and gradients are those of the forward without regions.
 
 Training-mode dropout takes host keep-masks drawn by `make_dropout_masks`,
 with the JAX package's shapes and numpy draws, so one np.random.Generator
@@ -20,10 +26,14 @@ gives both packages the same masks.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.norm import replaying
 from .blocks import (PER_TASK_BN_VARIANTS, DownsamplerBlock, NonBottleneck1d,
                      NonBottleneck1dAblation, NonBottleneck1dRAP, UpsamplerBlock)
 
@@ -45,6 +55,12 @@ DECODER_PLAN: tuple = (
 )
 
 GROUP128_DILATIONS = (2, 4, 8, 16)
+# remat regions: (first layer, layer count) over Encoder.layers, each group64
+# block and each group128 chain (mdilss_tpu/models/topology.py:244-249, :262-274);
+# the index of each nb1d block of Decoder.layers (:311-324)
+ENCODER_REGIONS = tuple((1 + i, 1) for i in range(5)) + tuple(
+    (7 + 4 * rep, len(GROUP128_DILATIONS)) for rep in range(2))
+DECODER_REGIONS = tuple(i for i, spec in enumerate(DECODER_PLAN) if spec[0] == "nb")
 KEEP64, KEEP128 = 1 - 0.03, 1 - 0.3  # keep probabilities of the two encoder groups
 
 
@@ -78,6 +94,22 @@ def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
     return out
 
 
+def _ckpt(fn, *args):
+    """fn(*args) as a remat region (the counterpart of JAX's `_ckpt` with its
+    save-nothing policy): the forward keeps only the region's inputs, and the
+    backward replays fn on them under `ops.norm.replaying`, so the running
+    statistics are updated once. The forward draws no random numbers (dropout
+    comes from host masks, passed in `args`), so no RNG state is kept."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replaying()))
+
+
+def _regions_on(module: nn.Module, remat: bool) -> bool:
+    """Whether a forward of `module` runs its remat regions: `remat`, in training
+    mode, with grad enabled (a no_grad forward, the teacher's, saves nothing)."""
+    return remat and module.training and torch.is_grad_enabled()
+
+
 class Encoder(nn.Module):
     """`nb_tasks` an int: the RAP encoder, every BN per-task (`bn_ini` /
     `bns_*`) beside per-task adapters. None: the plain ERFNet encoder
@@ -107,19 +139,30 @@ class Encoder(nn.Module):
             for spec in ENCODER_PLAN
         ])
 
-    def forward(self, x: torch.Tensor, task: int | None, drop_masks: dict | None = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, task: int | None, drop_masks: dict | None = None,
+                remat: bool = False) -> torch.Tensor:
         """`task` selects the RAP encoder's slices (the plain encoder ignores
         it). `drop_masks` (training only): `make_dropout_masks` output, or
-        None for no dropout."""
+        None for no dropout. `remat` (training with grad only): each of
+        `ENCODER_REGIONS` a remat region, its blocks' keep-masks its inputs."""
         masks = {} if drop_masks is None or not self.training else layer_drop_masks(
             drop_masks, x.device)
+        span = lambda a, b: [masks.get(i) for i in range(a, b)]  # noqa: E731
         x = self.initial_block(x, task)
-        for i, layer in enumerate(self.layers):
-            if isinstance(layer, DownsamplerBlock):
-                x = layer(x, task)
-            else:
-                x = layer(x, task, masks.get(i))
+        if not _regions_on(self, remat):
+            return self._span(x, task, 0, *span(0, len(self.layers)))
+        done = 0
+        for first, count in ENCODER_REGIONS:
+            x = self._span(x, task, done, *span(done, first))  # the downsampler before it
+            x = _ckpt(self._span, x, task, first, *span(first, first + count))
+            done = first + count
+        return self._span(x, task, done, *span(done, len(self.layers)))
+
+    def _span(self, x: torch.Tensor, task: int | None, first: int, *masks) -> torch.Tensor:
+        """Layers first, first + 1, ... on x, one per keep-mask (or None) in `masks`."""
+        for i, mask in enumerate(masks, first):
+            layer = self.layers[i]
+            x = layer(x, task) if isinstance(layer, DownsamplerBlock) else layer(x, task, mask)
         return x
 
 
@@ -135,12 +178,14 @@ class Decoder(nn.Module):
         ])
         self.output_conv = nn.ConvTranspose2d(16, num_classes, 2, stride=2)
 
-    def forward(self, x: torch.Tensor, return_penultimate: bool = False):
+    def forward(self, x: torch.Tensor, return_penultimate: bool = False, remat: bool = False):
         """Logits [N, num_classes, 2H', 2W']; with `return_penultimate`, also the
         16-channel features entering `output_conv` (mdilss_tpu/models/topology.py
-        `decoder_apply(return_penultimate=True)`)."""
-        for layer in self.layers:
-            x = layer(x)
+        `decoder_apply(return_penultimate=True)`). `remat` (training with grad
+        only): each nb1d block a remat region (`DECODER_REGIONS`)."""
+        regions = DECODER_REGIONS if _regions_on(self, remat) else ()
+        for i, layer in enumerate(self.layers):
+            x = _ckpt(layer, x) if i in regions else layer(x)
         dt = x.dtype
         out = nn.functional.conv_transpose2d(
             x, self.output_conv.weight.to(dt), self.output_conv.bias.to(dt), stride=2

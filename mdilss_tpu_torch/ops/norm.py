@@ -6,9 +6,14 @@ in at least float32 whatever the activation type, then rounded back to it, as
 `mdilss_tpu.ops.norm.batch_norm_apply(training=False)` does; bf16 serving
 therefore rounds once per BN, not per arithmetic step. Training normalises
 with the biased batch variance and updates the running statistics in place
-with the unbiased one.
+with the unbiased one, once per forward: while a rematerialised region
+replays its forward in the backward (`replaying`, entered by
+`models.topology._ckpt`), `update_running_stats` does nothing.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
@@ -41,11 +46,34 @@ def fold_bn(scale, bias, mean, var, pre_bias, eps: float = BN_EPS, dtype=torch.f
 BN_MOMENTUM = 0.1  # reference momentum on every BN (torch's default)
 
 
+class _Replay(threading.local):
+    depth = 0  # rematerialised regions replaying their forward in this thread
+
+
+_REPLAY = _Replay()
+
+
+@contextlib.contextmanager
+def replaying():
+    """The recompute context of a rematerialised region: while it is entered
+    (it nests, as the regions of a previous-task forward replay inside that
+    forward's own replay), the running statistics stay as the forward left
+    them. Per thread: the replay runs in the thread that enters it."""
+    _REPLAY.depth += 1
+    try:
+        yield
+    finally:
+        _REPLAY.depth -= 1
+
+
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
                          count: int) -> None:
     """In place: running = (1 - m) * running + m * batch, with the unbiased
-    batch variance `var * count / (count - 1)` (mdilss_tpu/ops/norm.py:58-63)."""
+    batch variance `var * count / (count - 1)` (mdilss_tpu/ops/norm.py:58-63);
+    nothing while a region replays (`replaying`)."""
+    if _REPLAY.depth:
+        return
     unbiased = var.detach() * (count / max(count - 1, 1))
     bn.running_mean.copy_((1.0 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean.detach())
     bn.running_var.copy_((1.0 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased)

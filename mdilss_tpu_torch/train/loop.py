@@ -38,8 +38,14 @@ confusion matrices are int64 on the device and summed there; checkpoints
 are torch files (`ckpt/torch_io.py`); a model that does not fit the protocol
 raises, and so does `fused_train` with an ablation model (the JAX package's
 fused paths cover the RAP and plain encoders only,
-mdilss_tpu/models/topology.py:197-200). Spatial sharding and remat raise
-NotImplementedError.
+mdilss_tpu/models/topology.py:197-200). Spatial sharding raises
+NotImplementedError. `remat=True` gives every step maker `remat` and
+`remat_prev` (JAX's Trainer rematerialises the previous-task forwards
+whatever `remat` is); the trained state is the same either way.
+
+A dataset cache that cannot be built (the card's memory full, say) is
+skipped as JAX skips it: the Trainer prints why, streams that dataset and
+charges nothing to the budget.
 
 `compute_dtype="bfloat16"` trains as the JAX package's bf16 Trainer does:
 augment writes bf16 images, and every train and eval forward (student,
@@ -112,10 +118,6 @@ def check_supported(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             f"spatial_shards={cfg.spatial_shards}: the port trains on one device; "
             "sharding waits for ROADMAP A10")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True: the port's training blocks keep their activations; "
-            "rematerialisation is not ported (ROADMAP 'remat')")
 
 
 def task_stacked_model(model: str, num_classes) -> torch.nn.Module:
@@ -238,7 +240,9 @@ class Trainer:
 
     def _cache_for(self, dataset: str, subset: str):
         """Device cache for (dataset, subset) if caching is on and at least a
-        batch of it fits; the budget is claimed greedily, streaming otherwise."""
+        batch of it fits; the budget is claimed greedily, streaming otherwise,
+        and streaming too where building the cache raises (JAX's fallback,
+        mdilss_tpu/train/loop.py:206-222)."""
         caches = self._train_caches if subset == "train" else self._val_caches
         if dataset in caches:
             return caches[dataset]
@@ -251,13 +255,18 @@ class Trainer:
         if mode == "stream":
             caches[dataset] = None
             return None
-        if mode == "full":
-            cache = DeviceCache(ld, device=self.device)
-        else:
-            print(f"device cache for {dataset}/{subset}: partial — {rows}/{len(ld.source)} "
-                  f"rows cached ({100 * rows // len(ld.source)}%), remainder streams")
-            cache = HybridCache(ld, rows, device=self.device)
-        self._cache_budget -= cache_bytes(rows, ld.height, ld.width)
+        try:
+            if mode == "full":
+                cache = DeviceCache(ld, device=self.device)
+            else:
+                print(f"device cache for {dataset}/{subset}: partial — {rows}/{len(ld.source)} "
+                      f"rows cached ({100 * rows // len(ld.source)}%), remainder streams")
+                cache = HybridCache(ld, rows, device=self.device)
+        except Exception as e:  # e.g. the card's memory: stream this dataset
+            print(f"device cache for {dataset}/{subset} disabled: {e}")
+            cache = None
+        if cache is not None:
+            self._cache_budget -= cache_bytes(rows, ld.height, ld.width)
         caches[dataset] = cache
         return cache
 
@@ -297,10 +306,10 @@ class Trainer:
         cur_ds = cfg.datasets[cur]
         common = dict(lr_tree=self._lr_tree(), num_epochs=cfg.num_epochs,
                       weight_decay=cfg.weight_decay, iou_train=cfg.iou_train,
-                      compute_dtype=cfg.compute_dtype)
+                      compute_dtype=cfg.compute_dtype, remat=cfg.remat)
         prev = tuple(range(cur - 1, -1, -1))  # newest to oldest, the reference's order
         distill = dict(current_task=cur, prev_tasks=prev, class_weight=self._weight(cur_ds),
-                       lambda_c=cfg.lambda_c, kld_fn=kld_fn, **common)
+                       lambda_c=cfg.lambda_c, kld_fn=kld_fn, remat_prev=cfg.remat, **common)
         # one train step per trained domain: the current one, or every domain (multitask)
         if cfg.protocol == "multitask":
             self.train_steps = {

@@ -24,12 +24,21 @@ task, newest first as the trainer passes them, so its BN running statistics
 update in that order. The teacher runs under no_grad; after each step its
 buffers are bitwise what they were (a training-mode forward writes its BN
 running statistics, which the JAX package discards) and its mode is
-restored. The previous-task forwards are not recomputed in the backward (the
-JAX package's `remat_prev` saves memory on the TPU; a recompute here would
-update the BN running statistics twice). `iou_train` adds the batch's
-confusion matrix ("cm") from the current-task logits of the step. Every
-step runs its float32 convs and matmuls with TF32 off (`ops.precision.no_tf32`),
-whatever the process's flags are.
+restored. `iou_train` adds the batch's confusion matrix ("cm") from the
+current-task logits of the step. Every step runs its float32 convs and
+matmuls with TF32 off (`ops.precision.no_tf32`), whatever the process's
+flags are.
+
+`remat=True` runs every student forward with its remat regions
+(`models.topology._ckpt` over each group64 block, each group128 chain and
+each decoder nb1d block), as the JAX package's Trainer passes `remat` to
+`apply_fn`; `remat_prev=True` (the distillation makers) also makes each
+previous-task student forward one region as a whole, as JAX's `remat_prev`
+(mdilss_tpu/train/steps.py:189-190, :286), so its nested regions replay
+again inside its own replay. Both trade the activations kept for the
+backward against recomputing them: the losses, gradients and running
+statistics are those of the step without them (a replay updates no running
+statistic). Both default to False; JAX's `remat_prev` defaults to True.
 
 `compute_dtype` ("float32", the default, or "bfloat16"): every forward of a
 step, the student's and the teacher's, casts its images to it, as the JAX
@@ -41,6 +50,7 @@ losses upcast the logits).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -49,6 +59,7 @@ from torch import nn
 
 from ..losses import kld_faithful, weighted_cross_entropy
 from ..metrics import confusion_matrix
+from ..models import topology
 from ..ops.precision import no_tf32
 from . import optim
 from .optim import AdamState
@@ -125,14 +136,20 @@ def _teacher_mode(teacher: nn.Module, training: bool):
 
 def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
              prev_tasks: Sequence[int], kld_fn: Callable, teacher_training: bool,
-             teacher_masks=None) -> torch.Tensor:
+             teacher_masks=None, remat: bool = False, remat_prev: bool = False
+             ) -> torch.Tensor:
     """sum over `prev_tasks` of kld_fn(student, teacher): one student training
-    forward (mask dict `masks[i]`) and one no_grad teacher forward (train or
-    eval mode; `teacher_masks[i]` or no dropout) per task."""
+    forward (mask dict `masks[i]`; its remat regions with `remat`, itself one
+    region with `remat_prev`) and one no_grad teacher forward (train or eval
+    mode; `teacher_masks[i]` or no dropout) per task."""
     kld = torch.zeros((), dtype=torch.float32, device=images.device)
+    student = functools.partial(model, remat=remat)
     with _teacher_mode(teacher, teacher_training):
         for i, t in enumerate(prev_tasks):
-            s_logits = model(images, t, masks[i])
+            if remat_prev:
+                s_logits = topology._ckpt(student, images, t, masks[i])
+            else:
+                s_logits = student(images, t, masks[i])
             with torch.no_grad():
                 t_logits = teacher(images, t, None if teacher_masks is None else teacher_masks[i])
             kld = kld + kld_fn(s_logits, t_logits)
@@ -140,13 +157,13 @@ def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
 
 
 def ce_loss_and_grads(model: nn.Module, images: torch.Tensor, labels: torch.Tensor, masks, *,
-                      task: int, class_weight: torch.Tensor):
-    """Weighted CE of head `task` and its gradient; one training forward, which
-    updates the student's BN running statistics. `masks`: one
-    `make_dropout_masks` dict or None (no dropout). Returns (ce, logits
-    detached, {parameter name: grad or None})."""
+                      task: int, class_weight: torch.Tensor, remat: bool = False):
+    """Weighted CE of head `task` and its gradient; one training forward (with
+    its remat regions under `remat`), which updates the student's BN running
+    statistics. `masks`: one `make_dropout_masks` dict or None (no dropout).
+    Returns (ce, logits detached, {parameter name: grad or None})."""
     model.train()
-    logits = model(images, task, masks)
+    logits = model(images, task, masks, remat=remat)
     ce = weighted_cross_entropy(logits, labels, class_weight)
     return ce.detach(), logits.detach(), _grads(model, ce)
 
@@ -154,14 +171,15 @@ def ce_loss_and_grads(model: nn.Module, images: torch.Tensor, labels: torch.Tens
 def kd_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks, *,
                       prev_tasks: Sequence[int], lambda_c: float = 0.1,
                       kld_fn: Callable = kld_faithful, teacher_training: bool = True,
-                      teacher_masks=None):
+                      teacher_masks=None, remat: bool = False, remat_prev: bool = False):
     """Step 3's second phase: lambda_c * sum KLD over `prev_tasks` and its
     gradient. `masks` holds one dropout-mask dict per student forward,
-    `teacher_masks` one per teacher forward or None. The current head gets
-    no gradient (None). Returns (lambda_c * kld, kld, grads)."""
+    `teacher_masks` one per teacher forward or None; `remat`, `remat_prev` as
+    `_kld_sum`'s. The current head gets no gradient (None). Returns
+    (lambda_c * kld, kld, grads)."""
     model.train()
     kld = _kld_sum(model, teacher, images, masks, prev_tasks, kld_fn, teacher_training,
-                   teacher_masks)
+                   teacher_masks, remat, remat_prev)
     kd = lambda_c * kld
     return kd.detach(), kld.detach(), _grads(model, kd)
 
@@ -169,37 +187,38 @@ def kd_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor
 def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor,
                            labels: torch.Tensor, masks, *, current_task: int,
                            prev_tasks: Sequence[int], class_weight: torch.Tensor,
-                           lambda_c: float = 0.1, kld_fn: Callable = kld_faithful):
+                           lambda_c: float = 0.1, kld_fn: Callable = kld_faithful,
+                           remat: bool = False, remat_prev: bool = False):
     """The step-2 loss CE + lambda_c * sum KLD and its gradient; updates the
     student's BN running statistics. images [N,H,W,3] and labels [N,H,W] on
     the model's device; `masks` is one `make_dropout_masks` dict per student
     forward (current task first), one dict reused by every forward, or None
-    (no dropout). Returns (loss, ce, kld, {parameter name: grad or None},
-    current-task logits detached)."""
+    (no dropout); `remat`, `remat_prev` as `_kld_sum`'s. Returns (loss, ce,
+    kld, {parameter name: grad or None}, current-task logits detached)."""
     mask_list = _mask_list(masks, 1 + len(prev_tasks))
     model.train()
-    logits = model(images, current_task, mask_list[0])
+    logits = model(images, current_task, mask_list[0], remat=remat)
     ce = weighted_cross_entropy(logits, labels, class_weight)
     kld = _kld_sum(model, teacher, images, mask_list[1:], prev_tasks, kld_fn,
-                   teacher_training=False)
+                   teacher_training=False, remat=remat, remat_prev=remat_prev)
     total = ce + lambda_c * kld
     return total.detach(), ce.detach(), kld.detach(), _grads(model, total), logits.detach()
 
 
 def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epochs: int,
                  weight_decay: float = 1e-4, iou_train: bool = False,
-                 compute_dtype="float32"):
+                 compute_dtype="float32", remat: bool = False):
     """step(ts, images, labels, masks, epoch) -> (ts', metrics): weighted CE on
     head `task`, one Adam step. `masks`: one `make_dropout_masks` dict or
     None. metrics {"loss", "ce"} (+ "cm" [C, C] int64 with `iou_train`) as
-    tensors on the device."""
+    tensors on the device. `remat`: the student forward's remat regions."""
     weight = _class_weight(class_weight)
     dt = compute_dtype_of(compute_dtype)
 
     @no_tf32()
     def step(ts: TrainState, images, labels, masks, epoch: int):
         ce, logits, grads = ce_loss_and_grads(ts.model, images.to(dt), labels, masks, task=task,
-                                              class_weight=weight)
+                                              class_weight=weight, remat=remat)
         metrics = {"loss": ce, "ce": ce}
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
@@ -215,10 +234,13 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
 def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_weight,
                       lr_tree: dict[str, float], num_epochs: int, lambda_c: float = 0.1,
                       kld_fn: Callable = kld_faithful, weight_decay: float = 1e-4,
-                      iou_train: bool = False, compute_dtype="float32"):
+                      iou_train: bool = False, compute_dtype="float32",
+                      remat: bool = False, remat_prev: bool = False):
     """step(ts, teacher, images, labels, masks, epoch) -> (ts', metrics), with
     metrics {"loss", "ce", "kld"} (+ "cm" with `iou_train`) as tensors on the
-    device (reading them waits for the step)."""
+    device (reading them waits for the step). `remat`: every student
+    forward's remat regions; `remat_prev`: each previous-task student forward
+    one region as well (the module docstring)."""
     weight = _class_weight(class_weight)
     dt = compute_dtype_of(compute_dtype)
 
@@ -227,6 +249,7 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
         total, ce, kld, grads, logits = distill_loss_and_grads(
             ts.model, teacher, images.to(dt), labels, masks, current_task=current_task,
             prev_tasks=prev_tasks, class_weight=weight, lambda_c=lambda_c, kld_fn=kld_fn,
+            remat=remat, remat_prev=remat_prev,
         )
         metrics = {"loss": total, "ce": ce, "kld": kld}
         if iou_train:
@@ -245,7 +268,8 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
                                 lambda_c: float = 0.1, kld_fn: Callable = kld_faithful,
                                 weight_decay: float = 1e-4, iou_train: bool = False,
                                 teacher_training: bool = True, teacher_dropout: bool = False,
-                                compute_dtype="float32"):
+                                compute_dtype="float32", remat: bool = False,
+                                remat_prev: bool = False):
     """Step 3 (train_new_task_step3.py:317-356): a CE backward and Adam step,
     then lambda_c * sum KLD against the updated weights, its backward and a
     second Adam step with the same schedule factor; `ts.opt.count` grows by 2.
@@ -260,7 +284,9 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     dropout; `masks` must then be a list of 1 + 2 * len(prev_tasks) dicts, the
     student's forwards first, then one per teacher forward. Otherwise `masks`
     is a list of 1 + len(prev_tasks) dicts or one dict (or None) reused by
-    every student forward."""
+    every student forward. `remat`, `remat_prev` as `make_distill_step`'s
+    (JAX's KD phase always makes each previous-task forward a region,
+    mdilss_tpu/train/steps.py:286)."""
     if teacher_dropout and not teacher_training:
         raise ValueError("teacher_dropout=True requires teacher_training=True (dropout is a "
                          "train-mode behaviour; the eval-mode teacher has none)")
@@ -276,7 +302,8 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
         lr_scale = optim.poly_lr_factor(epoch, num_epochs)
         params = dict(ts.model.named_parameters())
         ce, logits, grads = ce_loss_and_grads(ts.model, images, labels, mask_list[0],
-                                              task=current_task, class_weight=weight)
+                                              task=current_task, class_weight=weight,
+                                              remat=remat)
         cm = _train_cm(logits, labels, len(weight)) if iou_train else None
         del logits
         opt = optim.apply_updates(params, grads, ts.opt, lr_tree, lr_scale=lr_scale,
@@ -286,6 +313,7 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
             ts.model, teacher, images, mask_list[1:1 + n_prev], prev_tasks=prev_tasks,
             lambda_c=lambda_c, kld_fn=kld_fn, teacher_training=teacher_training,
             teacher_masks=mask_list[1 + n_prev:] if teacher_dropout else None,
+            remat=remat, remat_prev=remat_prev,
         )
         opt = optim.apply_updates(params, grads, opt, lr_tree, lr_scale=lr_scale,
                                   weight_decay=weight_decay)

@@ -10,7 +10,9 @@ each channel count, bitwise reruns, the bf16 c and y shared with K1 bf16,
 the types the kernels refuse, and a bf16 training forward and backward; K3
 bf16 and K2 bf16 at the edges of their tiles against float64 and the plain
 bf16 pair, bitwise reruns there, and K2 bf16's c and y against K3's and K1's
-there.
+there; (remat) a block, a model's training forward and backward and the
+step-2 and step-3 steps with their remat regions, K2 rerun in the backward,
+bit for bit as without regions, the running statistics updated once.
 Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -1244,3 +1246,148 @@ def test_bf16_training_forward_and_backward_stay_bf16(cuda):
     got16 = tuple(a - b for a, b in zip(
         (K.LAUNCHES_BF16, T.LAUNCHES_FWD_BF16, T.LAUNCHES_BWD_BF16), before16))
     assert got == got16 == (0, 34, 34)
+
+
+# ---- remat: regions that replay in the backward, K2 rerun there ---------------------------------
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN on its deterministic algorithms (its transposed convs are not
+    bit-reproducible between runs otherwise)."""
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,d,rap", [(64, 1, True), (128, 16, True), (16, 1, False)])
+def test_remat_block_on_the_kernels_is_bitwise(cuda, c, d, rap, dtype):
+    """A training block as a remat region (`topology._ckpt`) against the same
+    block without one: the output, dx, every gradient and the running
+    statistics bit for bit. Its forward launches K2 twice (two pairs); its
+    backward reruns both (K2 again, twice) before K3's two launches; the
+    replay leaves the running statistics as the forward left them."""
+    from mdilss_tpu_torch.models.topology import _ckpt
+
+    gen = torch.Generator().manual_seed(c * 10 + d + 2)
+    torch.manual_seed(c + d + 2)
+    blocks = [NonBottleneck1dRAP(c, d, 2, 0.3) if rap else NonBottleneck1d(c, d) for _ in range(2)]
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    for blk in blocks:
+        blk.to(cuda).train()
+    x = torch.randn(2, c, 16, 40, generator=gen).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)
+    mask = (torch.rand(2, c, generator=gen) < 0.7).to(cuda) if rap else None
+    cot = torch.randn(2, c, 16, 40, generator=gen).to(cuda)
+    task = 1 if rap else None
+    results = []
+    for blk, remat in zip(blocks, (False, True)):
+        xi = x.clone().requires_grad_()
+        before = T.LAUNCHES_FWD, T.LAUNCHES_BWD
+        out = _ckpt(blk, xi, task, mask) if remat else blk(xi, task, mask)
+        after_fwd = [b.clone() for b in blk.buffers()]
+        fwd = (T.LAUNCHES_FWD - before[0], T.LAUNCHES_BWD - before[1])
+        grads = torch.autograd.grad((out.float() * cot).sum(), [xi] + list(blk.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        total = (T.LAUNCHES_FWD - before[0], T.LAUNCHES_BWD - before[1])
+        assert fwd == (2, 0) and total == ((4, 2) if remat else (2, 2))
+        assert all(torch.equal(a, b) for a, b in zip(after_fwd, blk.buffers()))
+        results.append((out, grads, after_fwd))
+    (out_a, g_a, b_a), (out_b, g_b, b_b) = results
+    assert torch.equal(out_a, out_b)
+    for a, b in zip(g_a, g_b):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(b_a, b_b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_remat_model_reruns_k2_in_the_backward(cuda, deterministic_cudnn, dtype):
+    """An ERFNet-RAP training forward with remat=True launches K2 34 times,
+    and its backward 34 more (the 11 regions' replays) with K3's 34; the
+    logits, every gradient and every running statistic bit for bit those of
+    remat=False, and the backward leaves the statistics as the forward did."""
+    import copy
+
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+
+    torch.manual_seed(4)
+    model = ERFNetRAP([5, 5], 2, device=cuda).train()
+    _randomize_bn(model, torch.Generator().manual_seed(5))
+    twin = copy.deepcopy(model)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.random((2, 64, 128, 3), dtype=np.float32)).to(cuda, dtype)
+    masks = make_dropout_masks(rng, 2)
+    out = []
+    for m, remat in ((model, False), (twin, True)):
+        before = _launches()
+        logits = m(x, 1, masks, remat=remat)
+        stats = [b.clone() for b in m.buffers()]
+        fwd = tuple(a - b for a, b in zip(_launches(), before))
+        grads = torch.autograd.grad(logits.float().square().mean(), list(m.parameters()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        total = tuple(a - b for a, b in zip(_launches(), before))
+        assert fwd == (0, 34, 0) and total == ((0, 68, 34) if remat else (0, 34, 34))
+        assert all(torch.equal(a, b) for a, b in zip(stats, m.buffers()))
+        out.append((logits, grads, stats))
+    (l_a, g_a, s_a), (l_b, g_b, s_b) = out
+    assert torch.equal(l_a, l_b)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g_a, g_b))
+    assert all(torch.equal(a, b) for a, b in zip(s_a, s_b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["step2", "step3"])
+def test_remat_steps_on_the_kernels_are_bitwise(cuda, deterministic_cudnn, kind, dtype):
+    """A step-2 step and a two-phase step-3 batch at 2x64x128 with remat=True
+    and remat_prev=True against the same without: the losses, the confusion
+    matrix, every parameter and running statistic and Adam's moments bit for
+    bit, the teacher unchanged; the launches (K1, K2, K3) exactly
+    (34, 170, 68) and (0, 340, 102) against (34, 68, 68) and (0, 170, 102)."""
+    import copy
+
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    if kind == "step3":
+        student, teacher, x, y, masks = _step3_setup(cuda, seed=6)
+        masks = masks[:3]
+        make = lambda s, **kw: _step3(s, compute_dtype=dtype, **kw)  # noqa: E731
+        want = {False: (0, 170, 102), True: (0, 340, 102)}
+    else:
+        torch.manual_seed(6)
+        student, teacher = ERFNetRAP([5, 5], 2, device=cuda), ERFNetRAP([5], 1, device=cuda)
+        gen = torch.Generator().manual_seed(7)
+        _randomize_bn(student, gen)
+        _randomize_bn(teacher, gen)
+        rng = np.random.default_rng(6)
+        x = torch.from_numpy(rng.random((2, 64, 128, 3), dtype=np.float32)).to(cuda)
+        y = torch.from_numpy(rng.integers(0, 5, (2, 64, 128))).to(cuda)
+        masks = [make_dropout_masks(rng, 2) for _ in range(2)]
+
+        def make(s, **kw):
+            lr = rap_lr_tree(s, current_task=1, shared_lr=5e-6, ds_lr=5e-4)
+            return steps.make_distill_step(current_task=1, prev_tasks=(0,),
+                                           class_weight=np.ones(5, np.float32), lr_tree=lr,
+                                           num_epochs=150, iou_train=True, compute_dtype=dtype,
+                                           **kw)
+        want = {False: (34, 68, 68), True: (34, 170, 68)}
+    t_before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    twin = copy.deepcopy(student)
+    out = []
+    for s, remat in ((student, False), (twin, True)):
+        before = _launches()
+        ts, m = make(s, remat=remat, remat_prev=remat)(steps.init_train_state(s), teacher, x, y,
+                                                       masks, 1)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_launches(), before)) == want[remat]
+        assert all(torch.equal(v, t_before[k]) for k, v in teacher.state_dict().items())
+        out.append((m, s.state_dict(), ts.opt))
+    (m_a, s_a, o_a), (m_b, s_b, o_b) = out
+    for k in ("loss", "ce", "kld", "cm"):
+        assert torch.equal(m_a[k], m_b[k]), k
+    assert all(torch.equal(s_a[k], s_b[k]) for k in s_a)
+    assert torch.equal(o_a.m, o_b.m) and torch.equal(o_a.v, o_b.v) and o_a.count == o_b.count

@@ -1,9 +1,10 @@
 """The port's Trainer on its own, on the CPU at the TINY size (synthetic, 4
 images, batch 2, 32x64): run artifacts, the checkpoint files, bit-exact
 resume, cached = hybrid = streaming trajectories, the best-epoch rule, the
-train-IoU column, the profiler trace, the cache budget, and the options that
-wait for later slices or that it refuses (the multi-head protocols are
-tested in test_torch_multihead.py and test_torch_protocols.py)."""
+train-IoU column, the profiler trace, the cache budget, a cache that cannot
+be built, remat against no remat, and the options that wait for later
+slices or that it refuses (the multi-head protocols are tested in
+test_torch_multihead.py and test_torch_protocols.py)."""
 import json
 import os
 
@@ -13,8 +14,8 @@ import torch
 
 from mdilss_tpu_torch import config as C
 from mdilss_tpu_torch.ckpt import torch_io
-from mdilss_tpu_torch.models import ERFNetRAP
-from mdilss_tpu_torch.train import steps
+from mdilss_tpu_torch.models import ERFNetRAP, topology
+from mdilss_tpu_torch.train import loop, steps
 from mdilss_tpu_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
@@ -202,12 +203,97 @@ def test_device_cache_budget(tmp_path):
     ("step3", dict(model="erfnet_RCM", spatial_shards=2), NotImplementedError, "A10"),
     ("step1", dict(compute_dtype="float64"), ValueError, "float32 or bfloat16"),
     ("step1", dict(spatial_shards=2), NotImplementedError, "A10"),
-    ("step1", dict(remat=True), NotImplementedError, "remat"),
+    ("step2", dict(remat=True, spatial_shards=2), NotImplementedError, "A10"),
 ])
 def test_what_waits_raises(tmp_path, make, kw, error, match):
     cfg = getattr(C, make)(savedir=str(tmp_path / "run"), **TINY, **kw)
     with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
+
+
+def _teacher(protocol: str):
+    """The step-2 / step-3 teacher of the TINY runs, from a fixed seed."""
+    if protocol == "step1":
+        return None
+    torch.manual_seed(5)
+    classes = [20] if protocol == "step2" else [20, 20]
+    return ERFNetRAP(classes, len(classes), device="cpu")
+
+
+def _run(tmp_path, name: str, protocol: str, **kw):
+    """A TINY fit of `protocol` (2 epochs, train IoU); (Trainer, final metrics,
+    its metrics.jsonl rows without their timing, its automated_log.txt)."""
+    cfg = getattr(C, protocol)(num_epochs=2, iou_train=True, savedir=str(tmp_path / name),
+                               **{**TINY, **kw})
+    tr = Trainer(cfg, teacher=_teacher(protocol), device="cpu")
+    final = tr.fit()
+    rows = _rows(tmp_path / name / "metrics.jsonl")
+    for r in rows:
+        del r["epoch_seconds"]
+    return tr, final, rows, (tmp_path / name / "automated_log.txt").read_text()
+
+
+@pytest.mark.parametrize("protocol,kw", [
+    ("step1", {}), ("step2", {}), ("step3", {}), ("step2", dict(compute_dtype="bfloat16")),
+])
+def test_remat_trainer_equals_no_remat(tmp_path, protocol, kw):
+    """remat=True (every student forward's regions, and each previous-task
+    forward one region) trains the same run as remat=False, bit for bit:
+    every parameter, running statistic and Adam tensor, the saved checkpoint
+    and best checkpoint, metrics.jsonl (but its timing) and
+    automated_log.txt."""
+    a, fa, rows_a, log_a = _run(tmp_path, "plain", protocol, **kw)
+    b, fb, rows_b, log_b = _run(tmp_path, "remat", protocol, remat=True, **kw)
+    _assert_states_equal(_state(a), _state(b))
+    assert rows_a == rows_b and log_a == log_b
+    for sub in ("ckpt", "best"):  # the files: the latest and the best checkpoint
+        restored = []
+        for name, tr in (("plain", a), ("remat", b)):
+            tr.ts, epoch, best, aug = torch_io.restore(str(tmp_path / name / sub), tr.ts)
+            restored.append((_state(tr), epoch, best, aug))
+        (sa, *ma), (sb, *mb) = restored
+        _assert_states_equal(sa, sb)
+        assert ma[:2] == mb[:2] and torch.equal(ma[2], mb[2])
+
+
+def test_remat_false_never_reaches_checkpoint(tmp_path, monkeypatch):
+    """The default, remat=False, makes no remat region: a step-2 fit runs with
+    torch.utils.checkpoint replaced by a function that raises."""
+    def refuse(*args, **kw):
+        raise AssertionError("torch.utils.checkpoint called without remat")
+
+    monkeypatch.setattr(topology, "checkpoint", refuse)
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", refuse)
+    _, final, _, _ = _run(tmp_path, "run", "step2")
+    assert np.isfinite(final["train_loss"])
+
+
+@pytest.mark.parametrize("cache,budget", [("DeviceCache", "auto"),
+                                          ("HybridCache", str(3 * 32 * 64 * 4))])
+def test_a_cache_that_fails_to_build_streams(tmp_path, capsys, monkeypatch, cache, budget):
+    """A DeviceCache / HybridCache whose construction raises (the card's memory
+    full: torch.OutOfMemoryError) is skipped as JAX skips it
+    (mdilss_tpu/train/loop.py:206-222): the "disabled" line, the dataset
+    streamed, no budget charged, and the run's state, metrics and log bitwise
+    those of a device_cache="off" run."""
+    def fail(*args, **kw):
+        raise torch.OutOfMemoryError("CUDA out of memory (a test's)")
+
+    kw = dict(synthetic_size=6, batch_size=3)
+    ref, f_ref, rows_ref, log_ref = _run(tmp_path, "off", "step1", device_cache="off", **kw)
+    capsys.readouterr()
+    monkeypatch.setattr(loop, cache, fail)
+    tr, final, rows, log = _run(tmp_path, "failed", "step1", device_cache=budget, **kw)
+    out = capsys.readouterr().out
+    assert "device cache for cityscapes/train disabled: CUDA out of memory (a test's)" in out
+    if cache == "DeviceCache":  # the validation set fails to build too
+        assert "device cache for cityscapes/val disabled: CUDA out of memory" in out
+    assert all(c is None for c in tr._train_caches.values())
+    budget0 = Trainer(C.step1(savedir=str(tmp_path / "b0"), device_cache=budget,
+                              **{**TINY, **kw}), device="cpu")._cache_budget
+    assert tr._cache_budget == budget0
+    _assert_states_equal(_state(ref), _state(tr))
+    assert rows == rows_ref and log == log_ref
 
 
 def test_distillation_needs_a_teacher_and_fused_train_is_accepted(tmp_path):
