@@ -180,12 +180,30 @@ Phases, each fatal on failure (non-zero exit):
      call's peak memory (reset just before) and one profiled call's device
      busy ms and idle share; then `step1 --remat` -> `step2 --remat` through
      cli.main (6 images per domain and subset, one epoch): exact launches per
-     stage, step 2's LR-0 parameters bitwise step1/best's.
+     stage, step 2's LR-0 parameters bitwise step1/best's;
+ 18. data-parallel training (mdilss_tpu_torch/parallel; cuDNN deterministic):
+     (a) a process group of one rank under NCCL, made in-process from a
+     FileStore: the step-2 step and the step-3 batch of phase 17 in float32
+     and bfloat16 through make_*_step(mesh=), each bitwise the call without a
+     mesh (outputs, parameters, running statistics, Adam) with phase 17's
+     launches without remat, and the fp32 step-2 step's wall and busy ms with
+     and without the one-rank collectives; (b) two processes on the one card
+     (`--dp-worker`, LOCAL_RANK 0 for both): whether NCCL takes two ranks on
+     one device (what it said is recorded), then gloo: each rank's fp32
+     step-2 step on its 3 of the 6 images against this process's 6-image
+     step (the loss to 1e-5 relative; tests/test_multichip.py's criterion on
+     the parameters; the running statistics to 1e-4; the ranks bitwise
+     equal), each rank's launches exactly a step's, its wall and busy ms and
+     peak, and one step-2 Trainer epoch at full width with device_cache=
+     "auto" (the cache's mesh arm, exact launches per rank); (c) `python -m
+     torch.distributed.run --standalone --nproc_per_node 1 -m mdilss_tpu_torch
+     step1` at 6x512x1024 for one epoch.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven, K1's through the exported heads
 and parity-check too, `launches_ablation_*` on phase 15's and
-`launches_bf16_*` on phase 16's, `launches_remat_*` on phase 17's; K2's and
+`launches_bf16_*` on phase 16's, `launches_remat_*` on phase 17's,
+`launches_sharded_*` on phase 18's (per rank at world 2); K2's and
 K3's a `bf16` block with their
 bf16 launches, times, bound and errors) and, as the last line,
 {"ok": true, "device": {...}}. The full record goes to --out.
@@ -3258,6 +3276,409 @@ def remat_launches(rec: dict, k: str) -> dict:
     return out
 
 
+# ---- phase 18: data-parallel training ------------------------------------------------------
+DP_CELLS = {"step2": (train_setup, make_step, STEP_LAUNCHES),
+            "step3": (step3_setup, make_step3, STEP3_LAUNCHES)}
+DP_WORLD = 2  # processes on the one card, gloo
+DP_TRAINER_IMAGES = 12  # per domain and subset: 2 global batches of 6, 3 rows per rank
+# per rank, the Trainer epoch at world 2: 2 steps, then 2 validation batches of each domain
+DP_TRAINER_LAUNCHES = {k: 2 * v + 2 * 2 * EVAL_LAUNCHES[k] for k, v in STEP_LAUNCHES.items()}
+DP_TIMEOUT = 300  # seconds for the world-2 processes
+
+
+def dp_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "data_parallel")
+
+
+def dp_state(student, ts) -> dict:
+    """The student's parameters, buffers and Adam tensors on the CPU."""
+    return {**{k: v.cpu() for k, v in state_copy(student).items()},
+            "opt.m": ts.opt.m.cpu(), "opt.v": ts.opt.v.cpu()}
+
+
+def dp_world1_cell(kind: str, dt: str, seed: int, dev: torch.device, mesh) -> dict:
+    """One step-2 step or step-3 batch at 6x512x1024 in `dt`, without and with
+    `mesh` (one NCCL rank) from the same weights, batch and masks, each with
+    its counts zeroed just before: the launches exactly phase 17's without
+    remat in both, and every output, parameter, running statistic and Adam
+    tensor bitwise equal; the peak of each call."""
+    setup, make, want = DP_CELLS[kind]
+    student, teacher, images, labels, masks = setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    images, labels = images.to(dev), labels.to(dev)
+    s_state = state_copy(student)
+    rec, after = {}, {}
+    for m in (None, mesh):
+        tag = f"dp-world1-{kind}-{dt}-{'nccl' if m is not None else 'no-mesh'}"
+        student.load_state_dict(s_state)
+        _, step = make(student, dt, mesh=m)
+        ts = steps.init_train_state(student)
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        ts, metrics = step(ts, teacher, images, labels, masks, 1)
+        sync(dev)
+        r = rec["mesh" if m is not None else "plain"] = {
+            "launches": launch_counts(), "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "loss": float(metrics["loss"])}
+        after[m is not None] = ({k: v.detach().cpu() for k, v in metrics.items()},
+                                dp_state(student, ts))
+        print(f"[{tag}] launches {r['launches']} (expected {want}); peak "
+              f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; loss {r['loss']:.6f}")
+        check(r["launches"] == want, f"{tag}: launched {r['launches']}, expected {want}")
+        del ts, metrics
+    (m_a, s_a), (m_b, s_b) = after[False], after[True]
+    rec["unequal"] = ([k for k in m_a if not torch.equal(m_a[k], m_b[k])]
+                      + [k for k in s_a if not torch.equal(s_a[k], s_b[k])])
+    print(f"[dp-world1-{kind}-{dt}] one NCCL rank vs no mesh, bitwise: {len(rec['unequal'])} of "
+          f"{len(m_a) + len(s_a)} outputs and student tensors unequal")
+    check(not rec["unequal"], f"world 1 {kind} {dt}: not bitwise: {rec['unequal'][:5]}")
+    return rec
+
+
+def dp_world1_times(seed: int, dev: torch.device, mesh) -> dict:
+    """The fp32 step-2 step at 6x512x1024 without and with the one-rank mesh:
+    wall ms per step (CUDA events over 5 steps) and one profiled step's
+    device busy ms and idle share."""
+    student, teacher, images, labels, masks = train_setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    images, labels = images.to(dev), labels.to(dev)
+    rec = {}
+    for name, m in (("no_mesh", None), ("nccl_world1", mesh)):
+        _, step = make_step(student, mesh=m)
+        state = {"ts": steps.init_train_state(student)}
+
+        def one():
+            state["ts"], _ = step(state["ts"], teacher, images, labels, masks, 1)
+
+        rec[name] = {"wall_ms": time_ms(one, iters=5, warmup=1),
+                     "profile": profile_once(one, f"dp-world1-{name}", "one fp32 step-2 step")}
+        del state, one
+    return rec
+
+
+def phase_dp_world1(seed: int, dev: torch.device) -> dict:
+    """Phase 18 (a): a process group of one rank under NCCL, made in-process
+    from a FileStore, and the port's mesh over it (`make_mesh`): the step-2
+    step and the step-3 batch in fp32 and bf16 through `make_*_step(mesh=)`,
+    each bitwise the step without a mesh (`dp_world1_cell`), and the fp32
+    step-2 step's times with and without the collectives."""
+    import torch.distributed as dist
+
+    from mdilss_tpu_torch.parallel import make_mesh
+
+    os.makedirs(dp_root(), exist_ok=True)
+    store = os.path.join(dp_root(), "world1_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    rec: dict = {"cells": {}}
+    try:
+        mesh = make_mesh(TRAIN_BATCH, device=dev)
+        check(mesh.active and mesh.data == 1 and dist.get_backend() == "nccl",
+              f"world-1 mesh {mesh}")
+        for i, (kind, dt) in enumerate((k, d) for k in DP_CELLS for d in ("float32", "bfloat16")):
+            rec["cells"][f"{kind}_{dt}"] = dp_world1_cell(kind, dt, seed + 700 + i, dev, mesh)
+        rec["times"] = dp_world1_times(seed + 710, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_spawn(kind: str, seed: int, timeout: float, probe: bool = False) -> list[dict]:
+    """Start DP_WORLD processes of `chip_smoke.py --dp-worker kind`, every rank
+    on the one card (LOCAL_RANK 0), and wait for them -> each rank's record
+    (its JSON file); a rank that fails or outlasts `timeout` fails the phase,
+    unless `probe`: then its record says how it ended."""
+    root = os.path.join(dp_root(), kind)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(DP_WORLD), "LOCAL_RANK": "0"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--dp-worker", kind, "--out", root],
+                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    outs, deadline = [], time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                check(probe, f"--dp-worker {kind} outlasted {timeout} s")
+                p.kill()
+                outs.append(p.communicate()[0] + f"\n(killed after {timeout} s)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-40:]:
+            print(f"[dp-{kind} rank {r}] {line[:300]}")
+        path = os.path.join(root, f"rank{r}.json")
+        if probe and not os.path.exists(path):
+            recs.append({"rank": r, "error": f"exit code {p.returncode}: "
+                                             + " | ".join(out.strip().splitlines()[-3:])})
+            continue
+        check(p.returncode == 0, f"--dp-worker {kind} rank {r} exited {p.returncode}")
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def dp_worker(kind: str, seed: int, root: str) -> int:
+    """One rank of phase 18 (b), under the environment `dp_spawn` sets.
+
+    "nccl": joins an NCCL group on cuda:0 beside the other rank on the same
+    card and all-reduces one number; records what NCCL said.
+    "step": joins the gloo group (`make_mesh(backend="gloo")`), takes its 3
+    rows of the 6 images, dropout masks and all, and takes the fp32 step-2
+    step through `make_step(mesh=)`, its counts zeroed just before (its
+    state saved for the parent); then 3 more steps timed (wall ms, CUDA
+    events) and one profiled, and one epoch of the step-2 Trainer on
+    synthetic data at full width with device_cache="auto" (the cache's mesh
+    arm), counted per train epoch and validation."""
+    import torch.distributed as dist
+
+    from mdilss_tpu_torch.parallel import make_mesh, shard_rows
+    from mdilss_tpu_torch.models.topology import shard_dropout_masks
+
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", 0)
+    rec: dict = {"rank": rank}
+    if kind == "nccl":
+        try:
+            make_mesh(TRAIN_BATCH, device=dev, backend="nccl")
+            t = torch.ones(1, device=dev)
+            dist.all_reduce(t)
+            torch.cuda.synchronize(dev)
+            rec["error"] = None
+            rec["sum"] = float(t)
+        except Exception as e:  # what NCCL says of two ranks on one device
+            rec["error"] = f"{type(e).__name__}: {e}"[:2000]
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        os._exit(0)  # a group that failed to form can hang at exit
+    else:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        mesh = make_mesh(TRAIN_BATCH, device=dev, backend="gloo")
+        check(mesh.data == DP_WORLD and dist.get_backend() == "gloo", f"mesh {mesh}")
+        student, teacher, images, labels, masks = train_setup(seed, dev, TRAIN_BATCH, HEIGHT,
+                                                              WIDTH)
+        x, y = shard_rows(images, mesh).to(dev), shard_rows(labels, mesh).to(dev)
+        masks = [shard_dropout_masks(m, mesh) for m in masks]
+        _, step = make_step(student, mesh=mesh)
+        ts = steps.init_train_state(student)
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launch_counts()
+        ts, m = step(ts, teacher, x, y, masks, 1)
+        sync(dev)
+        rec.update(rows=int(x.shape[0]), launches=launch_counts(),
+                   metrics={k: float(v) for k, v in m.items()},
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+        torch.save(dp_state(student, ts), os.path.join(root, f"rank{rank}.pt"))
+        state = {"ts": ts}
+
+        def one():
+            state["ts"], _ = step(state["ts"], teacher, x, y, masks, 1)
+
+        rec["wall_ms"] = time_ms(one, iters=3, warmup=1)
+        rec["profile"] = profile_once(one, f"dp-world2-rank{rank}", "one fp32 step-2 step")
+        del state, one, ts, m
+        rec["trainer"] = dp_trainer_epoch(seed, dev, root, rank)
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+    return 0
+
+
+def dp_trainer_epoch(seed: int, dev: torch.device, root: str, rank: int) -> dict:
+    """One epoch of the step-2 Trainer at world 2 (synthetic, 6x512x1024,
+    DP_TRAINER_IMAGES per domain and subset, device_cache="auto"): each train
+    epoch and validation counted; the caches must be the mesh arm's."""
+    torch.manual_seed(seed + 20)
+    teacher = ERFNetRAP(TEACHER_CLASSES, len(TEACHER_CLASSES), device=dev)
+    randomize_bn(teacher, torch.Generator().manual_seed(seed + 21))
+    cfg = PC.step2(num_epochs=1, eval_every=1, eval_old_every=1, synthetic=True,
+                   synthetic_size=DP_TRAINER_IMAGES, batch_size=TRAIN_BATCH, height=HEIGHT,
+                   width=WIDTH, device_cache="auto", seed=seed,
+                   savedir=os.path.join(root, "trainer"))
+    tr = Trainer(cfg, teacher=teacher, device=dev)
+    calls: list[dict] = []
+    count_calls(tr, calls, dev)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    hist = tr.fit()
+    secs = time.perf_counter() - t0
+    caches = [(type(c).__name__, getattr(c, "mesh", None) is not None)
+              for c in (*tr._train_caches.values(), *tr._val_caches.values())]
+    rec = {"launches": launch_counts(), "calls": calls, "seconds": secs, "caches": caches,
+           "train_loss": hist["train_loss"], "peak_memory_bytes":
+           torch.cuda.max_memory_allocated(dev),
+           "files": sorted(os.listdir(cfg.savedir)) if rank == 0 else None}
+    return rec
+
+
+def dp_world2(seed: int, dev: torch.device) -> dict:
+    """Phase 18 (b): two processes on the one card. First whether NCCL takes
+    two ranks on one device (`dp_worker("nccl")`: what it said is recorded);
+    then gloo (`dp_worker("step")`): each rank's fp32 step-2 step on 3 of the
+    6 images against this process's 6-image step from the same weights and
+    data (the loss to 1e-5 relative; every parameter within 1.1e-3 and at
+    most 1% beyond 2e-5, tests/test_multichip.py:62-71; the running
+    statistics to 1e-4 relative; the two ranks bitwise equal), each rank's
+    K1/K2/K3 launches exactly a step's, and its Trainer epoch with the
+    cache's mesh arm."""
+    rec: dict = {}
+    nccl = dp_spawn("nccl", seed, 90, probe=True)
+    rec["nccl_two_ranks_one_card"] = [r["error"] for r in nccl]
+    print(f"[dp-world2] NCCL with two ranks on one card: "
+          + ("; ".join(f"rank {r['rank']}: {r['error'] or 'no error, sum ' + str(r.get('sum'))}"
+                       for r in nccl)))
+    ranks = dp_spawn("step", seed + 720, DP_TIMEOUT)
+    rec["ranks"] = ranks
+    # the single process: the same weights, the 6 images, the same masks
+    student, teacher, images, labels, masks = train_setup(seed + 720, dev, TRAIN_BATCH, HEIGHT,
+                                                          WIDTH)
+    _, step = make_step(student)
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ts, m = step(steps.init_train_state(student), teacher, images.to(dev), labels.to(dev),
+                     masks, 1)
+        sync(dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    one = dp_state(student, ts)
+    two = [torch.load(os.path.join(dp_root(), "step", f"rank{r}.pt")) for r in range(DP_WORLD)]
+    rec["ranks_unequal"] = [k for k in two[0] if not torch.equal(two[0][k], two[1][k])]
+    params = [k for k, _ in student.named_parameters()]
+    d = torch.cat([(two[0][k] - one[k]).abs().flatten() for k in params])
+    running = {k: float((two[0][k].double() - one[k].double()).norm()
+                        / one[k].double().norm().clamp_min(1e-30))
+               for k in one if "running" in k}
+    rec.update(max_abs_param_diff=float(d.max()), frac_beyond_2e5=float((d > 2e-5).float().mean()),
+               max_running_rel=max(running.values()), loss_one=float(m["loss"]),
+               loss_two=ranks[0]["metrics"]["loss"])
+    rel_loss = abs(rec["loss_two"] - rec["loss_one"]) / abs(rec["loss_one"])
+    print(f"[dp-world2] gloo, 2 ranks x 3 images vs one process x 6: loss {rec['loss_two']:.6f} "
+          f"vs {rec['loss_one']:.6f} (rel {rel_loss:.2e}); parameters max |diff| "
+          f"{rec['max_abs_param_diff']:.3e}, {100 * rec['frac_beyond_2e5']:.3f}% beyond 2e-5; "
+          f"running statistics max rel {rec['max_running_rel']:.2e}; ranks unequal "
+          f"{len(rec['ranks_unequal'])}")
+    check(rel_loss <= 1e-5, f"world 2 loss {rec['loss_two']} vs {rec['loss_one']}")
+    check(rec["max_abs_param_diff"] <= 1.1e-3 and rec["frac_beyond_2e5"] <= 0.01,
+          f"world 2 parameters: {rec['max_abs_param_diff']}, {rec['frac_beyond_2e5']}")
+    check(rec["max_running_rel"] <= 1e-4, f"world 2 running statistics {rec['max_running_rel']}")
+    check(not rec["ranks_unequal"], f"the ranks differ: {rec['ranks_unequal'][:5]}")
+    for r in ranks:
+        t = r["trainer"]
+        print(f"[dp-world2] rank {r['rank']}: {r['rows']} rows; step launches {r['launches']} "
+              f"(expected {STEP_LAUNCHES}); peak {r['peak_memory_bytes'] / 2**30:.3f} GiB; "
+              f"step wall {r['wall_ms']:.3f} ms, busy {r['profile']['device_ms']:.3f} ms, idle "
+              f"share {r['profile']['idle_share']:.3f}; Trainer epoch {t['seconds']:.3f} s, "
+              f"launches {t['launches']} (expected {DP_TRAINER_LAUNCHES}), caches {t['caches']}, "
+              f"loss {t['train_loss']:.6f}, peak {t['peak_memory_bytes'] / 2**30:.3f} GiB")
+        check(r["rows"] == TRAIN_BATCH // DP_WORLD and r["launches"] == STEP_LAUNCHES,
+              f"rank {r['rank']}: {r['rows']} rows, launches {r['launches']}")
+        check(t["launches"] == DP_TRAINER_LAUNCHES, f"rank {r['rank']} Trainer: {t['launches']}")
+        check([c["kind"] for c in t["calls"]] == ["train", "val", "val"],
+              f"rank {r['rank']} Trainer calls {t['calls']}")
+        check(t["caches"] == [["DeviceCache", True]] * 3,
+              f"rank {r['rank']} caches {t['caches']}: expected the mesh arm's three")
+        check(np.isfinite(t["train_loss"]), f"rank {r['rank']} Trainer loss {t['train_loss']}")
+    check(ranks[0]["trainer"]["train_loss"] == ranks[1]["trainer"]["train_loss"],
+          "the ranks' Trainer results differ")
+    check(ranks[0]["trainer"]["files"] and "automated_log.txt" in ranks[0]["trainer"]["files"],
+          f"rank 0 wrote {ranks[0]['trainer']['files']}")
+    return rec
+
+
+def dp_cli(seed: int) -> dict:
+    """Phase 18 (c): `python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m mdilss_tpu_torch step1 ...` at 6x512x1024, 6
+    synthetic images per domain and subset, one epoch (NCCL, one rank)."""
+    root = os.path.join(dp_root(), "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            "1", "-m", "mdilss_tpu_torch", "step1", "--synthetic", "--synthetic-size",
+            str(TRAIN_BATCH), "--num-epochs", "1", "--batch-size", str(TRAIN_BATCH), "--height",
+            str(HEIGHT), "--width", str(WIDTH), "--seed", str(seed), "--savedir", root]
+    t0 = time.perf_counter()
+    p = subprocess.run(argv, capture_output=True, text=True, timeout=DP_TIMEOUT,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    for line in (p.stdout + p.stderr).strip().splitlines()[-6:]:
+        print(f"[dp-cli] | {line[:300]}")
+    check(p.returncode == 0, f"torchrun step1 exited {p.returncode}")
+    rows = [json.loads(line) for line in p.stdout.splitlines() if line.startswith("{")]
+    check(len(rows) == 1 and np.isfinite(rows[0]["train_loss"]), f"torchrun step1 printed {rows}")
+    files = sorted(os.listdir(root))
+    check("automated_log.txt" in files and "best" in files, f"torchrun step1 wrote {files}")
+    print(f"[dp-cli] torchrun --nproc_per_node 1 step1: {secs:.3f} s, loss "
+          f"{rows[0]['train_loss']:.6f}, files {files}")
+    return {"seconds": secs, "train_loss": rows[0]["train_loss"], "files": files}
+
+
+def phase_data_parallel(seed: int, dev: torch.device) -> dict:
+    """Phase 18: data-parallel training (ROADMAP A10), cuDNN on its
+    deterministic algorithms: (a) one NCCL rank, bitwise the unsharded
+    steps; (b) two gloo ranks on the one card against one process, and a
+    Trainer epoch with the cache's mesh arm; (c) the CLI under torchrun."""
+    t_phase = time.perf_counter()
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rec = {"world1": phase_dp_world1(seed, dev)}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    rec["world2"] = dp_world2(seed, dev)
+    rec["cli"] = dp_cli(seed)
+    shutil.rmtree(dp_root(), ignore_errors=True)
+    card = card_line()
+    w1 = rec["world1"]["times"]
+    print(f"[dp] {card}: fp32 step-2 step at {TRAIN_BATCH}x{HEIGHT}x{WIDTH}: no mesh wall "
+          f"{w1['no_mesh']['wall_ms']:.3f} ms, busy {w1['no_mesh']['profile']['device_ms']:.3f} "
+          f"ms; one NCCL rank wall {w1['nccl_world1']['wall_ms']:.3f} ms, busy "
+          f"{w1['nccl_world1']['profile']['device_ms']:.3f} ms")
+    for r in rec["world2"]["ranks"]:
+        print(f"[dp] {card}: world 2 (gloo, both on this card) rank {r['rank']}: step wall "
+              f"{r['wall_ms']:.3f} ms, busy {r['profile']['device_ms']:.3f} ms, peak "
+              f"{r['peak_memory_bytes'] / 2**30:.3f} GiB")
+    for name, c in rec["world1"]["cells"].items():
+        print(f"[dp] {card}: world 1 {name}: peak {c['plain']['peak_memory_bytes'] / 2**30:.3f} "
+              f"-> {c['mesh']['peak_memory_bytes'] / 2**30:.3f} GiB with the mesh")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[dp] phase 18 in {rec['seconds']:.1f} s")
+    return rec
+
+
+def dp_launches(rec: dict, k: str) -> dict:
+    """The kernels-line keys of kernel `k` on phase 18's paths."""
+    out = {f"launches_sharded_world1_{name}": c["mesh"]["launches"][k]
+           for name, c in rec["world1"]["cells"].items()}
+    for r in rec["world2"]["ranks"]:
+        out[f"launches_sharded_world2_step2_rank{r['rank']}"] = r["launches"][k]
+        out[f"launches_sharded_trainer_rank{r['rank']}"] = r["trainer"]["launches"][k]
+    return out
+
+
 def k3_kind_totals(blocks: list[dict]) -> dict:
     """K3's device ms per launch kind summed over the 34 pair calls of one
     student backward (None if a kind was not measured), with each kind's
@@ -3360,10 +3781,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/chip_smoke.json")
+    ap.add_argument("--dp-worker", choices=("nccl", "step"), default=None,
+                    help="(phase 18 starts these) one rank of the two on the card; --out is "
+                         "its directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if args.dp_worker:
+        return dp_worker(args.dp_worker, args.seed, args.out)
     dev = torch.device("cuda")
     # the plain versions and cuDNN run fp32 convs in full fp32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -3394,6 +3820,7 @@ def main(argv=None) -> int:
     ablations = phase_ablations(args.seed, dev, chain_root)
     bf16 = phase_bf16(args.seed, dev)
     remat = phase_remat(args.seed, dev)
+    dp = phase_data_parallel(args.seed, dev)
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -3424,6 +3851,7 @@ def main(argv=None) -> int:
         "launches_bf16_step3": bf16["step3"]["launches_bf16"]["K1"],
         "launches_bf16_cli_chain": bf16["cli_chain"]["launches_bf16"]["K1"],
         **remat_launches(remat, "K1"),
+        **dp_launches(dp, "K1"),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -3445,6 +3873,7 @@ def main(argv=None) -> int:
                     launches_ablation_chain=ablations["chain_launches"]["K2"],
                     launches_ablation_steps=ablations["step_launches"]["K2"],
                     **remat_launches(remat, "K2"),
+                    **dp_launches(dp, "K2"),
                     bf16=bf16_entry(bf16, "fwd")),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
@@ -3457,6 +3886,7 @@ def main(argv=None) -> int:
                      launches_ablation_chain=ablations["chain_launches"]["K3"],
                      launches_ablation_steps=ablations["step_launches"]["K3"],
                      **remat_launches(remat, "K3"),
+                     **dp_launches(dp, "K3"),
                      bf16=bf16_entry(bf16, "bwd"))]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
@@ -3465,6 +3895,7 @@ def main(argv=None) -> int:
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
               "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
               "slice10": slice10, "ablations": ablations, "bf16": bf16, "remat": remat,
+              "data_parallel": dp,
               "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -27,6 +27,16 @@ and cpu (a torch.export program is traced on one device) and defaults to
 cuda. `bench` waits for ROADMAP A2: it parses and exits non-zero. An ablation
 `--kind` reads the port's checkpoint directories only (those models have no
 torch grammar), and exits naming that for anything else.
+
+Data-parallel training: the JAX package's single process takes every
+visible device (its mesh); the port takes one process per card, launched by
+torchrun, e.g. `python -m torch.distributed.run --standalone --nproc_per_node
+8 -m mdilss_tpu_torch step2 ...`. The training commands and `pipeline` then
+build the mesh from the environment (`parallel.make_mesh`: NCCL on
+cuda:LOCAL_RANK, or gloo with `--device cpu`); rank 0 writes the run's files
+and prints the result line, and every rank trains the same weights. A plain
+`python -m mdilss_tpu_torch` trains on one card. `--spatial-shards` other
+than 1 waits for ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -90,7 +100,7 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--no-device-cache", action="store_true",
                    help="disable the device-resident uint8 dataset cache")
     p.add_argument("--spatial-shards", type=int, default=1,
-                   help="one device only: anything but 1 raises (ROADMAP A10)")
+                   help="the port shards the batch only: anything but 1 raises (ROADMAP A11)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute type of the forwards (bfloat16: bf16 activations and "
                         "kernels; parameters, optimizer state and losses stay float32)")
@@ -464,8 +474,12 @@ def main(argv=None):
     if args.cmd == "convert":
         return _convert(args)
 
+    import torch.distributed as dist
+
     from .train.protocols import build_trainer
 
+    # the process group a run under torchrun makes (the Trainer's mesh) is left at its end
+    joined = dist.is_initialized()
     kw = _common_kwargs(args)
     if args.cmd == "pipeline":
         from .train.pipeline import run_pipeline
@@ -477,10 +491,8 @@ def main(argv=None):
             pretrained_encoder=args.pretrained_encoder, with_baselines=args.with_baselines,
             stages=tuple(args.stages), device=args.device,
         )
-        print(json.dumps({
-            stage: {k: v for k, v in row.items() if isinstance(v, (int, float))}
-            for stage, row in results.items()
-        }))
+        _result({stage: {k: v for k, v in row.items() if isinstance(v, (int, float))}
+                 for stage, row in results.items()}, leave=not joined)
         return
     if args.cmd == "step1":
         cfg = C.step1(pretrained_encoder=args.pretrained_encoder, model=args.model, **kw)
@@ -503,7 +515,18 @@ def main(argv=None):
     else:
         raise SystemExit(f"unknown command {args.cmd}")
     final = build_trainer(cfg, device=args.device).fit()
-    print(json.dumps({k: v for k, v in final.items() if isinstance(v, (int, float))}))
+    _result({k: v for k, v in final.items() if isinstance(v, (int, float))}, leave=not joined)
+
+
+def _result(row: dict, leave: bool) -> None:
+    """Print the run's result line (rank 0 only under torchrun); `leave`: the
+    run made the process group, and leaves it."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(row))
+    if leave and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

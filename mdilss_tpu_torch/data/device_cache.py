@@ -1,5 +1,5 @@
 """Device-resident dataset cache: upload once, gather each batch on the card
-(port of mdilss_tpu/data/device_cache.py, single device).
+(port of mdilss_tpu/data/device_cache.py).
 
 The reference re-reads and re-decodes every image every epoch. Here each
 (image, label) pair is decoded once through the loader, assembled in one
@@ -10,8 +10,18 @@ traffic drops from ~12.6 MB (6x512x1024 uint8) to the batch indices.
 Epoch semantics are those of the streaming Loader by construction: all
 batch through `loader.batch_indices` (same permutation, drop-last and
 padding rule), so a cached run reproduces the streamed run's batches
-exactly. The JAX package's mesh arm (`DeviceCache(mesh=...)`, the dataset
-sharded over the data axis) is not ported.
+exactly.
+
+The mesh arm (`DeviceCache(mesh=...)` with D > 1 ranks, JAX's dataset
+sharded over the data axis): the rows, padded to a multiple of D, are split
+into D contiguous blocks and each rank holds its own, so a rank's cache is
+1/D of the dataset. A batch's rows reach the ranks that train on them
+through one all-gather of fixed shape per batch: each rank contributes the
+global batch's rows it owns (zeros elsewhere, images and labels packed as
+[B, H, W, 4]) and keeps its block of rows, each from the rank that owns
+it. Every rank must take part in every batch; the batches equal the sharded
+streaming Loader's (`Loader(shard=...)`). `HybridCache` is single device:
+a hybrid plan on a mesh streams (the Trainer).
 """
 from __future__ import annotations
 
@@ -19,9 +29,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
-from .loader import Loader, batch_indices, produced
+from ..parallel.mesh import active
+from .loader import Loader, batch_indices, produced, shard_of
 
 
 def cache_bytes(n: int, height: int, width: int) -> int:
@@ -57,13 +69,16 @@ def _cache_drop_last(loader: Loader, shuffle: bool) -> bool:
     return loader.drop_last if loader._drop_last_explicit else shuffle
 
 
-def _upload(loader: Loader, rows, dev: torch.device):
+def _upload(loader: Loader, rows, dev: torch.device, n: int | None = None):
     """Decode `rows` of the loader's source into one host buffer (pinned for
-    the card) and copy it to `dev` in one transfer each for images and labels."""
-    n, h, w = len(rows), loader.height, loader.width
+    the card) and copy it to `dev` in one transfer each for images and labels;
+    `n` rows in all, those past `rows` zero."""
+    n, h, w = len(rows) if n is None else n, loader.height, loader.width
     pin = dev.type == "cuda"
     images = torch.empty((n, h, w, 3), dtype=torch.uint8, pin_memory=pin)
     labels = torch.empty((n, h, w), dtype=torch.uint8, pin_memory=pin)
+    images[len(rows):] = 0
+    labels[len(rows):] = 0
     im, lb = images.numpy(), labels.numpy()
     with ThreadPoolExecutor(loader.num_threads) as pool:
         for i, (img, lbl) in enumerate(pool.map(loader._decode, rows)):
@@ -78,29 +93,63 @@ def _index(idx: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 class DeviceCache:
     """The whole dataset as uint8 tensors on `device` (None -> the CUDA card)
-    + deterministic epoch batching."""
+    + deterministic epoch batching; with `mesh` (D > 1), this rank's block of
+    the rows (the module docstring)."""
 
-    def __init__(self, loader: Loader, device=None):
+    def __init__(self, loader: Loader, device=None, mesh=None):
         self.device = resolve_device(device)
         self.loader = loader
         self.batch_size = loader.batch_size
         self.n = len(loader.source)
-        self.images, self.labels = _upload(loader, range(self.n), self.device)
+        self.mesh = mesh if active(mesh) and mesh.data > 1 else None
+        if self.mesh is None:
+            self.images, self.labels = _upload(loader, range(self.n), self.device)
+            return
+        if loader.shard != (self.mesh.rank, self.mesh.data):
+            raise ValueError(f"the mesh cache needs the loader of rank {self.mesh.rank}'s "
+                             f"rows, Loader(shard=({self.mesh.rank}, {self.mesh.data}))")
+        self.per_rank = -(-self.n // self.mesh.data)  # rows padded to a multiple of D
+        lo = self.mesh.rank * self.per_rank
+        self.images, self.labels = _upload(loader, range(lo, min(lo + self.per_rank, self.n)),
+                                           self.device, self.per_rank)
 
     def epoch_batches(self, epoch: int, *, shuffle: bool = True):
         """Yields (images, labels, valid) batches on the device; the order and
-        drop-last/padding of the streaming Loader at the same (seed, epoch)."""
+        drop-last/padding of the streaming Loader at the same (seed, epoch),
+        this rank's block of each global batch on a mesh."""
         for idx, valid in batch_indices(
             self.n, self.batch_size, seed=self.loader.seed, epoch=epoch,
             shuffle=shuffle, drop_last=_cache_drop_last(self.loader, shuffle),
         ):
             imgs, lbls = self.take(idx)
-            yield imgs, lbls, valid
+            yield imgs, lbls, valid if self.mesh is None else shard_of(
+                idx, valid, self.loader.shard)[1]
 
     def take(self, idx: np.ndarray):
-        """Gather one batch of rows `idx` on the device."""
+        """Gather one batch of rows `idx` on the device: on a mesh, `idx` is
+        the global batch and the result this rank's block of it."""
+        if self.mesh is not None:
+            return self._take_sharded(np.asarray(idx, np.int64))
         di = _index(idx, self.device)
         return self.images.index_select(0, di), self.labels.index_select(0, di)
+
+    def _take_sharded(self, idx: np.ndarray):
+        mesh, dev = self.mesh, self.device
+        owner, local = np.divmod(idx, self.per_rank)
+        mine = np.nonzero(owner == mesh.rank)[0]
+        h, w = self.loader.height, self.loader.width
+        packed = torch.zeros((len(idx), h, w, 4), dtype=torch.uint8, device=dev)
+        if len(mine):
+            rows = _index(local[mine], dev)
+            at = _index(mine, dev)
+            packed[at, ..., :3] = self.images.index_select(0, rows)
+            packed[at, ..., 3] = self.labels.index_select(0, rows)
+        gathered = [torch.empty_like(packed) for _ in range(mesh.data)]
+        dist.all_gather(gathered, packed, group=mesh.group)
+        b = len(idx) // mesh.data
+        pos = np.arange(mesh.rank * b, (mesh.rank + 1) * b)
+        out = torch.stack(gathered)[_index(owner[pos], dev), _index(pos, dev)]
+        return out[..., :3].contiguous(), out[..., 3].contiguous()
 
 
 class HybridCache:

@@ -33,7 +33,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.norm import replaying
+from ..ops.norm import replaying, sync_mesh, synced
+from ..parallel.mesh import shard_rows
 from .blocks import (PER_TASK_BN_VARIANTS, DownsamplerBlock, NonBottleneck1d,
                      NonBottleneck1dAblation, NonBottleneck1dRAP, UpsamplerBlock)
 
@@ -83,6 +84,15 @@ def make_dropout_masks(np_rng: np.random.Generator, batch: int) -> dict:
     }
 
 
+def shard_dropout_masks(drop_masks: dict | None, mesh) -> dict | None:
+    """This rank's rows of `make_dropout_masks(rng, B)` for the global batch
+    B (`parallel.shard_rows` along each mask's batch axis)."""
+    if drop_masks is None:
+        return None
+    axes = {k: len(v) - 4 for k, v in dropout_mask_shapes(1).items()}
+    return {k: shard_rows(np.asarray(v), mesh, axes[k]) for k, v in drop_masks.items()}
+
+
 def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
     """`make_dropout_masks` output -> {encoder layer index: keep-mask [N, C]} on `device`."""
     g64 = torch.as_tensor(np.asarray(drop_masks["g64"])).to(device)
@@ -94,14 +104,24 @@ def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
     return out
 
 
+@contextlib.contextmanager
+def _replay(mesh):
+    """The recompute context of a region: `replaying`, and the forward's
+    sync-BN mesh (the backward may run in another thread), so the replay
+    issues the forward's collectives again, in the same order on every rank."""
+    with replaying(), synced(mesh):
+        yield
+
+
 def _ckpt(fn, *args):
     """fn(*args) as a remat region (the counterpart of JAX's `_ckpt` with its
     save-nothing policy): the forward keeps only the region's inputs, and the
     backward replays fn on them under `ops.norm.replaying`, so the running
     statistics are updated once. The forward draws no random numbers (dropout
     comes from host masks, passed in `args`), so no RNG state is kept."""
+    mesh = sync_mesh()
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=lambda: (contextlib.nullcontext(), replaying()))
+                      context_fn=lambda: (contextlib.nullcontext(), _replay(mesh)))
 
 
 def _regions_on(module: nn.Module, remat: bool) -> bool:

@@ -33,6 +33,15 @@ and du; the stats and the weight gradients are float32, and the glue of
 the JAX block does (nb1d_train.py:461-464, :496-520). `LAUNCHES_FWD` /
 `LAUNCHES_BWD` count kernel calls of `fwd_pair` / `bwd_pair` of every type,
 `LAUNCHES_FWD_BF16` / `LAUNCHES_BWD_BF16` the bfloat16 ones among them.
+
+Under `ops.norm.synced(mesh)` (data-parallel training) the glue computes
+the global batch's BN: the forward all-reduces K2's [2, C] sums before it
+forms each BN's statistics (so the pre-stage K2's second launch reads is
+global too), and the backward all-reduces the [2, C] sums over the batch
+that form each BN's input gradient, one collective per BN. The BN
+parameters' gradients it returns stay this rank's, as the conv weights'
+gradients from K3 do: `parallel.all_reduce_grads` sums them all once. The
+kernels are the same on every rank; the collectives sit between launches.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ import torch.nn.functional as F
 from . import _build
 from .dropout import drop_scale
 from .nb1d_infer import check_not_ablation, stack_taps, unstack_taps
-from .norm import BN_EPS, update_running_stats
+from ..parallel.mesh import all_reduce_
+from .norm import BN_EPS, sync_mesh, update_running_stats
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
@@ -306,12 +316,15 @@ def _col(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1)
 
 
-def _bn_backward(g_z, yhat, scale_inv, count: int, dt: torch.dtype):
+def _bn_backward(g_z, yhat, scale_inv, count: int, dt: torch.dtype, mesh=None):
     """Batch-statistics BN backward: (g_y in the activation type `dt`, d_scale,
-    d_bias) for z = scale*yhat + bias, computed in g_z's type."""
+    d_bias) for z = scale*yhat + bias, computed in g_z's type. With `mesh`
+    the statistics are the global batch's (`count` its pixels): g_y takes the
+    sums over the data group, while d_scale and d_bias stay this rank's."""
     dbias = g_z.sum((0, 2, 3))
     dscale = (g_z * yhat).sum((0, 2, 3))
-    g_y = _col(scale_inv) * (g_z - _col(dbias / count) - yhat * _col(dscale / count))
+    sums = (dbias, dscale) if mesh is None else all_reduce_(torch.stack([dbias, dscale]), mesh)
+    g_y = _col(scale_inv) * (g_z - _col(sums[0] / count) - yhat * _col(sums[1] / count))
     return g_y.to(dt).contiguous(memory_format=torch.channels_last), dscale, dbias
 
 
@@ -337,15 +350,16 @@ class Nb1dTrain(torch.autograd.Function):
     def forward(ctx, x, w31a, b31a, w13a, rap1, g1, be1, w31b, b31b, w13b, rap2, g2, be2,
                 mask_scaled, d, eps, pairs):
         fwd = pairs[0]
+        mesh = sync_mesh()
         n, c, h, w = x.shape
-        count = n * h * w
+        count = n * h * w * (1 if mesh is None else mesh.data)
         y1, st1 = fwd(x, w31a, b31a, w13a, rap1, None, 1)
-        mu1, var1 = _batch_stats(st1, count)
+        mu1, var1 = _batch_stats(all_reduce_(st1, mesh), count)
         inv1 = torch.rsqrt(var1 + eps)
         a1 = g1 * inv1
         b1 = be1 - mu1 * g1 * inv1
         y2, st2 = fwd(y1, w31b, b31b, w13b, rap2, (a1, b1), d)
-        mu2, var2 = _batch_stats(st2, count)
+        mu2, var2 = _batch_stats(all_reduce_(st2, mesh), count)
         inv2 = torch.rsqrt(var2 + eps)
         z2 = y2 * _col(g2 * inv2) + _col(be2 - mu2 * g2 * inv2)
         if mask_scaled is not None:
@@ -353,7 +367,7 @@ class Nb1dTrain(torch.autograd.Function):
         out = F.relu(z2 + x).to(x.dtype)
         ctx.save_for_backward(x, y1, y2, out, mu1, inv1, a1, b1, mu2, inv2,
                               w31a, b31a, w13a, rap1, g1, w31b, b31b, w13b, rap2, g2, mask_scaled)
-        ctx.d, ctx.pairs = d, pairs
+        ctx.d, ctx.pairs, ctx.mesh, ctx.count = d, pairs, mesh, count
         ctx.mark_non_differentiable(mu1, var1, mu2, var2)
         return out, mu1, var1, mu2, var2
 
@@ -361,18 +375,18 @@ class Nb1dTrain(torch.autograd.Function):
     def backward(ctx, g_out, *_):
         (x, y1, y2, out, mu1, inv1, a1, b1, mu2, inv2,
          w31a, b31a, w13a, rap1, g1, w31b, b31b, w13b, rap2, g2, mask_scaled) = ctx.saved_tensors
-        bwd = ctx.pairs[1]
-        n, c, h, w = x.shape
-        count = n * h * w
+        bwd, mesh, count = ctx.pairs[1], ctx.mesh, ctx.count
         dt, acc = x.dtype, _acc(x.dtype)
         zero = torch.zeros((), dtype=acc, device=x.device)
         g_f = torch.where(out > 0, g_out.to(acc), zero)
         g_z2 = g_f if mask_scaled is None else g_f * mask_scaled
-        g_y2, dg2, dbe2 = _bn_backward(g_z2, (y2 - _col(mu2)) * _col(inv2), g2 * inv2, count, dt)
+        g_y2, dg2, dbe2 = _bn_backward(g_z2, (y2 - _col(mu2)) * _col(inv2), g2 * inv2, count,
+                                       dt, mesh)
         dm, dw31b, db31b, dw13b, drap2 = bwd(y1, g_y2, w31b, b31b, w13b, rap2, (a1, b1), ctx.d)
         z1 = y1 * _col(a1) + _col(b1)
         g_z1 = torch.where(z1 > 0, dm.to(acc), zero)
-        g_y1, dg1, dbe1 = _bn_backward(g_z1, (y1 - _col(mu1)) * _col(inv1), g1 * inv1, count, dt)
+        g_y1, dg1, dbe1 = _bn_backward(g_z1, (y1 - _col(mu1)) * _col(inv1), g1 * inv1, count,
+                                       dt, mesh)
         dx_c, dw31a, db31a, dw13a, drap1 = bwd(x, g_y1, w31a, b31a, w13a, rap1, None, 1)
         dx = (g_f + dx_c.to(acc)).to(dt)
         return (dx, dw31a, db31a, dw13a, drap1, dg1, dbe1,
@@ -392,7 +406,9 @@ def nb1d_train_apply(block, x: torch.Tensor, task: int | None, dropprob: float =
     running-stat update with the absorbed pre-BN biases added back to the mean
     and the unbiased variance. x is float32 or bfloat16 (float64 with plain
     `pairs`); the output has x's type, and the dropout multiplier is in the
-    compute type (float32 for a bf16 x, as blocks.py:388 makes it)."""
+    compute type (float32 for a bf16 x, as blocks.py:388 makes it). Under
+    `ops.norm.synced` the statistics, and the count the running variance is
+    unbiased with, are the global batch's."""
     check_not_ablation(block)
     if dropprob > 0.0 and drop_mask is None:
         raise ValueError("nb1d_train_apply needs a host drop_mask when dropprob > 0 "
@@ -418,7 +434,9 @@ def nb1d_train_apply(block, x: torch.Tensor, task: int | None, dropprob: float =
         block.conv1x3_2.weight, rap2, bn2.weight, bn2.bias, mask_scaled, block.dilated,
         BN_EPS, pairs,
     )
+    mesh = sync_mesh()
+    count = n * h * w * (1 if mesh is None else mesh.data)
     with torch.no_grad():
-        update_running_stats(bn1, mu1 + bias1, var1, n * h * w)
-        update_running_stats(bn2, mu2 + bias2, var2, n * h * w)
+        update_running_stats(bn1, mu1 + bias1, var1, count)
+        update_running_stats(bn2, mu2 + bias2, var2, count)
     return out

@@ -9,6 +9,15 @@ with the biased batch variance and updates the running statistics in place
 with the unbiased one, once per forward: while a rematerialised region
 replays its forward in the backward (`replaying`, entered by
 `models.topology._ckpt`), `update_running_stats` does nothing.
+
+Under `synced(mesh)` (the data-parallel steps, `parallel.mesh`) training BN
+uses the global batch's statistics, as the JAX package's BN does under a
+mesh (mdilss_tpu/ops/norm.py:54-63 over the sharded batch): the mean is the
+mean of the ranks' means, then the variance the mean of the ranks' mean
+squared deviations from it (equal blocks, so these are the global two-pass
+statistics), each a differentiable all-reduce, and the running statistics
+take the unbiased variance at the global count. The training block's glue
+(`ops.nb1d_train`) reads the same context.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import threading
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import active, psum
 
 BN_EPS = 1e-3  # reference eps on every BN (models/erfnet.py:18)
 
@@ -66,6 +77,40 @@ def replaying():
         _REPLAY.depth -= 1
 
 
+class _Sync(threading.local):
+    mesh = None  # the data mesh whose batch statistics this thread's BN computes
+
+
+_SYNC = _Sync()
+
+
+@contextlib.contextmanager
+def synced(mesh):
+    """Training BN (and the training block's glue) in this thread computes
+    the statistics of the global batch over `mesh`'s data group (a mesh
+    without a group, or None: this rank's batch, as outside the context).
+    Per thread: the backward of a region's replay re-enters it with the
+    forward's mesh (`models.topology._ckpt`), and the training block keeps
+    its mesh for its own backward."""
+    saved = _SYNC.mesh
+    _SYNC.mesh = active(mesh)
+    try:
+        yield
+    finally:
+        _SYNC.mesh = saved
+
+
+def sync_mesh():
+    """The mesh of the innermost `synced` of this thread, or None."""
+    return _SYNC.mesh
+
+
+def mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over the data group's ranks of each rank's `t`
+    (differentiable); `t` itself without a mesh."""
+    return t if mesh is None else psum(t, mesh) / mesh.data
+
+
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
                          count: int) -> None:
@@ -81,12 +126,15 @@ def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tens
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Training-mode BN over (N, H, W) of NCHW `x`: normalise with the biased
-    batch variance (two-pass, as mdilss_tpu/ops/norm.py:54-57) and update
-    `bn`'s running statistics in place. Differentiable in x, weight and bias."""
+    batch variance (two-pass, as mdilss_tpu/ops/norm.py:54-57), of the global
+    batch under `synced`, and update `bn`'s running statistics in place.
+    Differentiable in x, weight and bias."""
+    mesh = sync_mesh()
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean((0, 2, 3))
-    var = (xf - mean.view(1, -1, 1, 1)).square().mean((0, 2, 3))
-    update_running_stats(bn, mean, var, x.numel() // x.shape[1])
+    mean = mean_over_ranks(xf.mean((0, 2, 3)), mesh)
+    var = mean_over_ranks((xf - mean.view(1, -1, 1, 1)).square().mean((0, 2, 3)), mesh)
+    count = x.numel() // x.shape[1] * (1 if mesh is None else mesh.data)
+    update_running_stats(bn, mean, var, count)
     inv = torch.rsqrt(var + bn.eps) * bn.weight.to(xf.dtype)
     shift = bn.bias.to(xf.dtype) - mean * inv
     return (xf * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)

@@ -39,13 +39,32 @@ are torch files (`ckpt/torch_io.py`); a model that does not fit the protocol
 raises, and so does `fused_train` with an ablation model (the JAX package's
 fused paths cover the RAP and plain encoders only,
 mdilss_tpu/models/topology.py:197-200). Spatial sharding raises
-NotImplementedError. `remat=True` gives every step maker `remat` and
-`remat_prev` (JAX's Trainer rematerialises the previous-task forwards
+NotImplementedError (ROADMAP A11). `remat=True` gives every step maker
+`remat` and `remat_prev` (JAX's Trainer rematerialises the previous-task forwards
 whatever `remat` is); the trained state is the same either way.
 
 A dataset cache that cannot be built (the card's memory full, say) is
 skipped as JAX skips it: the Trainer prints why, streams that dataset and
 charges nothing to the budget.
+
+Data-parallel (the JAX Trainer's mesh arms, mdilss_tpu/train/loop.py:189-265):
+the Trainer builds its mesh from `cfg.batch_size` (`parallel.make_mesh`:
+one process per card under torchrun, the data group the first
+gcd(batch_size, world) ranks). Each rank of the data group decodes, caches
+and trains on its block of every global batch; every rank draws the global
+batch's augment and dropout masks and keeps its rows, so the generators'
+states agree on every rank and in the checkpoint; the steps sum the
+gradients and reduce BN and the metrics (`train/steps.py`), so every rank
+holds the same weights and history. Only rank 0 writes the run's files
+(opts, checkpoints, best/, the logs, a profile), and the group waits for it
+after each checkpoint; every rank loads on resume. The device caches on a
+mesh hold 1/D of the dataset each: the budget is multiplied by D and each
+cache charged 1/D of its bytes, and a dataset that would need a hybrid
+cache streams; the ranks agree on each cache, or all stream. Ranks outside
+the data group build nothing and return rank 0's result from `fit`.
+`fused_train` with D > 1 raises ValueError, as JAX refuses it; the port's
+blocks run the fused kernels on a mesh all the same (their statistics
+reduced in the glue, `ops.nb1d_train`).
 
 `compute_dtype="bfloat16"` trains as the JAX package's bf16 Trainer does:
 augment writes bf16 images, and every train and eval forward (student,
@@ -63,6 +82,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..ckpt import torch_io
@@ -76,7 +96,9 @@ from ..losses import kld_corrected, kld_faithful
 from ..metrics import IoUEvaluator
 from ..models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP
 from ..models.erfnet_ablations import REFERENCE_NAMES
-from ..models.topology import make_dropout_masks
+from ..models.topology import make_dropout_masks, shard_dropout_masks
+from ..parallel.mesh import (active, all_reduce_, barrier, broadcast_object, make_mesh,
+                             replicate, shard_rows)
 from ..utils.logging import MetricLogger, getColorEntry
 from ..utils.profiling import StepTracer
 from . import steps
@@ -116,8 +138,8 @@ def check_supported(cfg: TrainConfig) -> None:
     steps.compute_dtype_of(cfg.compute_dtype)  # float32 or bfloat16, else ValueError
     if cfg.spatial_shards != 1:
         raise NotImplementedError(
-            f"spatial_shards={cfg.spatial_shards}: the port trains on one device; "
-            "sharding waits for ROADMAP A10")
+            f"spatial_shards={cfg.spatial_shards}: the port shards the batch only (one "
+            "process per card under torchrun); the spatial axis waits for ROADMAP A11")
 
 
 def task_stacked_model(model: str, num_classes) -> torch.nn.Module:
@@ -147,10 +169,11 @@ def init_model(cfg: TrainConfig) -> torch.nn.Module:
 class Trainer:
     """`Trainer(cfg, teacher=..., init_state=..., device=None).fit()`.
 
-    `device` None -> the CUDA card (raises without one); "cpu" runs the
-    plain versions. `init_state`: the student's initial weights as a
-    reference-grammar state dict of the configuration's model
-    (`ckpt.from_jax`, `ckpt.torch_io.load_state`); None -> `init_model`.
+    `device` None -> the CUDA card (raises without one; cuda:LOCAL_RANK under
+    torchrun); "cpu" runs the plain versions (gloo under torchrun).
+    `init_state`: the student's initial weights as a reference-grammar state
+    dict of the configuration's model (`ckpt.from_jax`,
+    `ckpt.torch_io.load_state`); None -> `init_model`.
     `teacher`: the previous step's model (an ERFNetRAP or ablation model
     with the previous tasks' heads), required by step2 and step3; it is moved to the device
     and never updated. `train/protocols.build_trainer` builds both from
@@ -163,31 +186,45 @@ class Trainer:
         if cfg.protocol in ("step2", "step3") and teacher is None:
             raise ValueError(f"protocol {cfg.protocol} distils from a teacher: pass teacher=")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        os.makedirs(cfg.savedir, exist_ok=True)
-        with open(os.path.join(cfg.savedir, "opts.txt"), "w") as f:
-            f.write(cfg.to_json())
+        self.mesh = make_mesh(cfg.batch_size, device=resolve_device(device))
+        self.device = self.mesh.device
+        if cfg.fused_train and self.mesh.data > 1:
+            # JAX's refusal (mdilss_tpu/train/loop.py:257-265); the port's blocks
+            # reduce their statistics in the glue and run the kernels all the same
+            raise ValueError(
+                "--fused-train is single-device only (in-kernel BN batch stats are not "
+                "mesh-reduced); drop spatial_shards/extra devices or disable fused_train")
+        self._writer = self.mesh.rank == 0  # only rank 0 writes the run's files
+        if self._writer:
+            os.makedirs(cfg.savedir, exist_ok=True)
+            with open(os.path.join(cfg.savedir, "opts.txt"), "w") as f:
+                f.write(cfg.to_json())
 
         model = init_model(cfg)
         if init_state is not None:
             model.load_state_dict(init_state, strict=True)
-        self.ts = steps.init_train_state(model.to(self.device))
-        self.teacher = None if teacher is None else teacher.to(self.device)
+        if not self.mesh.member:  # outside the data group: fit() waits for rank 0's result
+            return
+        self.ts = steps.init_train_state(replicate(model.to(self.device), self.mesh))
+        self.teacher = None if teacher is None else replicate(teacher.to(self.device), self.mesh)
 
-        with open(os.path.join(cfg.savedir, "model.txt"), "w") as f:
-            sizes = {k: list(p.shape) for k, p in model.named_parameters()}
-            f.write(json.dumps(sizes, indent=1))
+        if self._writer:
+            with open(os.path.join(cfg.savedir, "model.txt"), "w") as f:
+                sizes = {k: list(p.shape) for k, p in model.named_parameters()}
+                f.write(json.dumps(sizes, indent=1))
 
         self.aug_gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
         self._build_data()
         self._build_steps()
-        self.logger = MetricLogger(cfg.savedir)
+        self.logger = MetricLogger(cfg.savedir) if self._writer else None
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" else None
-        self._tracer = StepTracer(cfg.profile_dir, n=cfg.profile_steps, sync=sync)
+        self._tracer = StepTracer(cfg.profile_dir if self._writer else None,
+                                  n=cfg.profile_steps, sync=sync)
         self.best_acc = -np.inf
         self.start_epoch = 1
         self._step_count = 0
         self._sync_loss = None
+        barrier(self.mesh)  # rank 0's directory exists before anyone resumes or writes
         if cfg.resume:
             self._try_resume()
 
@@ -205,10 +242,12 @@ class Trainer:
     def _build_data(self):
         cfg = self.cfg
 
+        shard = (self.mesh.rank, self.mesh.data)
+
         def mk(name, subset, shuffle):
             return Loader(self._source(name, subset), batch_size=cfg.batch_size,
                           height=cfg.height, width=cfg.width, shuffle=shuffle,
-                          num_threads=cfg.num_workers, seed=cfg.seed)
+                          num_threads=cfg.num_workers, seed=cfg.seed, shard=shard)
 
         cur = cfg.datasets[cfg.current_task]
         trained = cfg.datasets if cfg.protocol == "multitask" else (cur,)
@@ -219,9 +258,17 @@ class Trainer:
         self._cache_budget = self._device_cache_budget()
 
     def _device_cache_budget(self) -> int:
-        """Byte budget for the device-resident dataset caches: half of the
-        card's memory (`torch.cuda.mem_get_info`'s total), 1 GiB on the CPU,
-        an explicit integer, or 0 ("off")."""
+        """Byte budget of one device for the device-resident dataset caches:
+        half of the card's memory (`torch.cuda.mem_get_info`'s total), 1 GiB
+        on the CPU, an explicit integer, or 0 ("off"); the smallest over the
+        data group's ranks, so they plan the same caches."""
+        budget = self._own_cache_budget()
+        if active(self.mesh):
+            t = torch.tensor([budget], dtype=torch.int64, device=self.device)
+            budget = int(all_reduce_(t, self.mesh, dist.ReduceOp.MIN).item())
+        return budget
+
+    def _own_cache_budget(self) -> int:
         if self.cfg.device_cache == "off":
             return 0
         if self.cfg.device_cache != "auto":
@@ -250,14 +297,22 @@ class Trainer:
         if ld is None:
             caches[dataset] = None
             return None
+        # on a mesh each rank holds 1/D of the rows: the budget multiplies by D
+        # (mdilss_tpu/train/loop.py:189-222)
+        d = self.mesh.data if active(self.mesh) else 1
         mode, rows = plan_cache(ld.source, height=ld.height, width=ld.width,
-                                budget_bytes=self._cache_budget, batch_size=ld.batch_size)
-        if mode == "stream":
+                                budget_bytes=self._cache_budget * d, batch_size=ld.batch_size)
+        if mode == "stream" or (mode == "hybrid" and d > 1):
+            # hybrid is single-device only; a meshed run over the sharded
+            # budget streams (and says so)
+            if mode == "hybrid":
+                print(f"device cache for {dataset}/{subset}: dataset exceeds even the "
+                      f"mesh-sharded budget; streaming")
             caches[dataset] = None
             return None
         try:
             if mode == "full":
-                cache = DeviceCache(ld, device=self.device)
+                cache = DeviceCache(ld, device=self.device, mesh=self.mesh)
             else:
                 print(f"device cache for {dataset}/{subset}: partial — {rows}/{len(ld.source)} "
                       f"rows cached ({100 * rows // len(ld.source)}%), remainder streams")
@@ -265,8 +320,13 @@ class Trainer:
         except Exception as e:  # e.g. the card's memory: stream this dataset
             print(f"device cache for {dataset}/{subset} disabled: {e}")
             cache = None
+        if d > 1:  # a mesh cache takes every rank in every batch: all build it, or none
+            ok = torch.tensor([cache is not None], dtype=torch.int32, device=self.device)
+            if not all_reduce_(ok, self.mesh, dist.ReduceOp.MIN).item() and cache is not None:
+                print(f"device cache for {dataset}/{subset} disabled: another rank's failed")
+                cache = None
         if cache is not None:
-            self._cache_budget -= cache_bytes(rows, ld.height, ld.width)
+            self._cache_budget -= cache_bytes(rows, ld.height, ld.width) // d
         caches[dataset] = cache
         return cache
 
@@ -306,7 +366,7 @@ class Trainer:
         cur_ds = cfg.datasets[cur]
         common = dict(lr_tree=self._lr_tree(), num_epochs=cfg.num_epochs,
                       weight_decay=cfg.weight_decay, iou_train=cfg.iou_train,
-                      compute_dtype=cfg.compute_dtype, remat=cfg.remat)
+                      compute_dtype=cfg.compute_dtype, remat=cfg.remat, mesh=self.mesh)
         prev = tuple(range(cur - 1, -1, -1))  # newest to oldest, the reference's order
         distill = dict(current_task=cur, prev_tasks=prev, class_weight=self._weight(cur_ds),
                        lambda_c=cfg.lambda_c, kld_fn=kld_fn, remat_prev=cfg.remat, **common)
@@ -326,7 +386,7 @@ class Trainer:
         self.eval_steps = {
             d: steps.make_eval_step(task=t, class_weight=self._weight(d),
                                     num_classes=cfg.num_classes[t],
-                                    compute_dtype=cfg.compute_dtype)
+                                    compute_dtype=cfg.compute_dtype, mesh=self.mesh)
             for t, d in enumerate(cfg.datasets)
         }
 
@@ -342,8 +402,11 @@ class Trainer:
         print(f"resumed from epoch {epoch} (best_acc {self.best_acc:.4f})")
 
     def _save(self, subdir: str, epoch: int) -> None:
-        torch_io.save(os.path.join(self.cfg.savedir, subdir), epoch, self.ts,
-                      best_acc=self.best_acc, aug_state=self.aug_gen.get_state())
+        """Rank 0 writes the checkpoint; the data group waits for it."""
+        if self._writer:
+            torch_io.save(os.path.join(self.cfg.savedir, subdir), epoch, self.ts,
+                          best_acc=self.best_acc, aug_state=self.aug_gen.get_state())
+        barrier(self.mesh)
 
     # ------------------------------------------------------------------
     def _train_batches(self, dataset: str, epoch: int):
@@ -403,8 +466,10 @@ class Trainer:
                    cms: list):
         cfg = self.cfg
         self._tracer.tick()
-        n = imgs.shape[0]
-        flip, tx, ty = transforms.draw_augment(self.aug_gen, n)
+        # the global batch's draws on every rank, this rank's rows of them
+        n = imgs.shape[0] * (self.mesh.data if active(self.mesh) else 1)
+        flip, tx, ty = (shard_rows(t, self.mesh)
+                        for t in transforms.draw_augment(self.aug_gen, n))
         x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
                                         num_classes=cfg.num_classes[task],
                                         out_dtype=steps.compute_dtype_of(cfg.compute_dtype))
@@ -414,10 +479,11 @@ class Trainer:
             if cfg.protocol == "step3" and cfg.two_phase and cfg.teacher_dropout:
                 # the teacher's forwards draw their own masks, after the student's
                 n_fwd += cfg.current_task
-            masks = [make_dropout_masks(self._np_rng, n) for _ in range(n_fwd)]
+            masks = [shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
+                     for _ in range(n_fwd)]
             self.ts, m = step(self.ts, self.teacher, x, y, masks, epoch)
         else:
-            masks = make_dropout_masks(self._np_rng, n)
+            masks = shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
             self.ts, m = step(self.ts, x, y, masks, epoch)
         # device scalars until the epoch's end: reading one here would wait
         # for the step every batch
@@ -466,7 +532,9 @@ class Trainer:
         """Run the epoch loop from `start_epoch`. `stop_after` ends the run
         after that epoch's checkpoint is written (an interruption; the LR
         schedule is keyed to cfg.num_epochs, so a resume must use the same
-        config)."""
+        config). Under torchrun every rank returns rank 0's result."""
+        if not self.mesh.member:
+            return broadcast_object(None, self.mesh)
         cfg = self.cfg
         cur_ds = cfg.datasets[cfg.current_task]
         history = {}
@@ -480,8 +548,9 @@ class Trainer:
                 val_loss, val_iou = self.evaluate(cur_ds, epoch)
                 row[f"val_loss_{cur_ds}"] = val_loss
                 row[f"val_acc_{cur_ds}"] = val_iou
-                print(f"epoch {epoch}: val {cur_ds} IoU "
-                      f"{getColorEntry(val_iou)}{val_iou * 100:.2f}\033[0m%")
+                if self._writer:
+                    print(f"epoch {epoch}: val {cur_ds} IoU "
+                          f"{getColorEntry(val_iou)}{val_iou * 100:.2f}\033[0m%")
             else:
                 val_loss, val_iou = 0.0, 0.0
 
@@ -512,17 +581,19 @@ class Trainer:
             row["lr_ds"] = cfg.lr * poly
             row["lr_shared"] = cfg.shared_lr_value() * poly
 
-            self.logger.log(row)
-            self.logger.automated_log_row(
-                epoch, row.get("train_loss", 0.0), row.get(f"val_loss_{cur_ds}", 0.0),
-                row.get("train_iou", 0.0), row.get(f"val_acc_{cur_ds}", 0.0), row["lr_ds"])
+            if self._writer:
+                self.logger.log(row)
+                self.logger.automated_log_row(
+                    epoch, row.get("train_loss", 0.0), row.get(f"val_loss_{cur_ds}", 0.0),
+                    row.get("train_iou", 0.0), row.get(f"val_acc_{cur_ds}", 0.0), row["lr_ds"])
             self._save("ckpt", epoch)
             if is_best:
-                with open(os.path.join(cfg.savedir, "best.txt"), "w") as f:
-                    f.write(f"Best epoch is {epoch}, with Val-IoU= {current_acc:.4f}")
+                if self._writer:
+                    with open(os.path.join(cfg.savedir, "best.txt"), "w") as f:
+                        f.write(f"Best epoch is {epoch}, with Val-IoU= {current_acc:.4f}")
                 self._save("best", epoch)
             history = row
             if stop_after is not None and epoch >= stop_after:
                 break
         self._tracer.stop()
-        return history
+        return broadcast_object(history, self.mesh)

@@ -46,6 +46,20 @@ package's `apply_fn` casts `x` (mdilss_tpu/train/loop.py:267-276), so the
 activations and logits are in that type while the parameters, Adam's state,
 the BN statistics, the weight gradients and the losses stay float32 (the
 losses upcast the logits).
+
+`mesh` (`parallel.make_mesh`; None, or a mesh without a group: one process)
+makes every maker's step data-parallel, as the JAX package's steps are under
+`jit_*_step(step, mesh)`: the step takes this rank's rows of the global
+batch (and of its dropout masks), every forward runs under
+`ops.norm.synced(mesh)` (global BN statistics, the train-mode teacher's
+too), each rank's losses are its share of the global batch's
+(`losses.weighted_cross_entropy(mesh=)`, `losses.kld_share`), the gradients
+are summed over the ranks before each Adam step (`all_reduce_grads`, once
+per backward, so twice in the two-phase step), and the metrics are the
+global batch's ("loss", "ce", "kld" summed in one collective, "cm" in
+another), the same on every rank. The ranks start from the same weights
+(`parallel.replicate`) and so keep the same weights, bit for bit. At D = 1
+the step is the one without a mesh, bit for bit.
 """
 from __future__ import annotations
 
@@ -57,10 +71,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..losses import kld_faithful, weighted_cross_entropy
+from ..losses import kld_faithful, kld_share, weighted_cross_entropy, weighted_nll_sums
 from ..metrics import confusion_matrix
 from ..models import topology
+from ..ops.norm import synced
 from ..ops.precision import no_tf32
+from ..parallel.mesh import active, all_reduce_, all_reduce_grads
 from . import optim
 from .optim import AdamState
 
@@ -104,6 +120,18 @@ def _train_cm(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> t
     return confusion_matrix(logits.detach().argmax(-1), labels, num_classes=num_classes)
 
 
+def _global_metrics(metrics: dict, mesh) -> dict:
+    """The batch's metrics over the data group: the scalars summed (each
+    rank's is its share) in one collective, "cm" summed in another."""
+    if mesh is None:
+        return metrics
+    keys = [k for k in metrics if k != "cm"]
+    out = dict(zip(keys, all_reduce_(torch.stack([metrics[k] for k in keys]), mesh).unbind()))
+    if "cm" in metrics:
+        out["cm"] = all_reduce_(metrics["cm"], mesh)
+    return out
+
+
 def _mask_list(masks, n: int, *, need_list: bool = False) -> list:
     """`masks` as one dropout-mask dict per forward: a list of exactly `n`
     dicts, or one dict (or None) reused by every forward unless `need_list`."""
@@ -136,12 +164,13 @@ def _teacher_mode(teacher: nn.Module, training: bool):
 
 def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
              prev_tasks: Sequence[int], kld_fn: Callable, teacher_training: bool,
-             teacher_masks=None, remat: bool = False, remat_prev: bool = False
-             ) -> torch.Tensor:
+             teacher_masks=None, remat: bool = False, remat_prev: bool = False,
+             mesh=None) -> torch.Tensor:
     """sum over `prev_tasks` of kld_fn(student, teacher): one student training
     forward (mask dict `masks[i]`; its remat regions with `remat`, itself one
     region with `remat_prev`) and one no_grad teacher forward (train or eval
-    mode; `teacher_masks[i]` or no dropout) per task."""
+    mode; `teacher_masks[i]` or no dropout) per task; with `mesh`, this
+    rank's share of the global batch's sum."""
     kld = torch.zeros((), dtype=torch.float32, device=images.device)
     student = functools.partial(model, remat=remat)
     with _teacher_mode(teacher, teacher_training):
@@ -152,26 +181,28 @@ def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
                 s_logits = student(images, t, masks[i])
             with torch.no_grad():
                 t_logits = teacher(images, t, None if teacher_masks is None else teacher_masks[i])
-            kld = kld + kld_fn(s_logits, t_logits)
+            kld = kld + kld_share(kld_fn(s_logits, t_logits), mesh)
     return kld
 
 
 def ce_loss_and_grads(model: nn.Module, images: torch.Tensor, labels: torch.Tensor, masks, *,
-                      task: int, class_weight: torch.Tensor, remat: bool = False):
+                      task: int, class_weight: torch.Tensor, remat: bool = False, mesh=None):
     """Weighted CE of head `task` and its gradient; one training forward (with
     its remat regions under `remat`), which updates the student's BN running
     statistics. `masks`: one `make_dropout_masks` dict or None (no dropout).
-    Returns (ce, logits detached, {parameter name: grad or None})."""
+    Returns (ce, logits detached, {parameter name: grad or None}); with
+    `mesh`, this rank's share of the CE and its gradient (not yet summed)."""
     model.train()
     logits = model(images, task, masks, remat=remat)
-    ce = weighted_cross_entropy(logits, labels, class_weight)
+    ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
     return ce.detach(), logits.detach(), _grads(model, ce)
 
 
 def kd_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks, *,
                       prev_tasks: Sequence[int], lambda_c: float = 0.1,
                       kld_fn: Callable = kld_faithful, teacher_training: bool = True,
-                      teacher_masks=None, remat: bool = False, remat_prev: bool = False):
+                      teacher_masks=None, remat: bool = False, remat_prev: bool = False,
+                      mesh=None):
     """Step 3's second phase: lambda_c * sum KLD over `prev_tasks` and its
     gradient. `masks` holds one dropout-mask dict per student forward,
     `teacher_masks` one per teacher forward or None; `remat`, `remat_prev` as
@@ -179,7 +210,7 @@ def kd_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor
     (lambda_c * kld, kld, grads)."""
     model.train()
     kld = _kld_sum(model, teacher, images, masks, prev_tasks, kld_fn, teacher_training,
-                   teacher_masks, remat, remat_prev)
+                   teacher_masks, remat, remat_prev, mesh)
     kd = lambda_c * kld
     return kd.detach(), kld.detach(), _grads(model, kd)
 
@@ -188,7 +219,7 @@ def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.T
                            labels: torch.Tensor, masks, *, current_task: int,
                            prev_tasks: Sequence[int], class_weight: torch.Tensor,
                            lambda_c: float = 0.1, kld_fn: Callable = kld_faithful,
-                           remat: bool = False, remat_prev: bool = False):
+                           remat: bool = False, remat_prev: bool = False, mesh=None):
     """The step-2 loss CE + lambda_c * sum KLD and its gradient; updates the
     student's BN running statistics. images [N,H,W,3] and labels [N,H,W] on
     the model's device; `masks` is one `make_dropout_masks` dict per student
@@ -198,32 +229,36 @@ def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.T
     mask_list = _mask_list(masks, 1 + len(prev_tasks))
     model.train()
     logits = model(images, current_task, mask_list[0], remat=remat)
-    ce = weighted_cross_entropy(logits, labels, class_weight)
+    ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
     kld = _kld_sum(model, teacher, images, mask_list[1:], prev_tasks, kld_fn,
-                   teacher_training=False, remat=remat, remat_prev=remat_prev)
+                   teacher_training=False, remat=remat, remat_prev=remat_prev, mesh=mesh)
     total = ce + lambda_c * kld
     return total.detach(), ce.detach(), kld.detach(), _grads(model, total), logits.detach()
 
 
 def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epochs: int,
                  weight_decay: float = 1e-4, iou_train: bool = False,
-                 compute_dtype="float32", remat: bool = False):
+                 compute_dtype="float32", remat: bool = False, mesh=None):
     """step(ts, images, labels, masks, epoch) -> (ts', metrics): weighted CE on
     head `task`, one Adam step. `masks`: one `make_dropout_masks` dict or
     None. metrics {"loss", "ce"} (+ "cm" [C, C] int64 with `iou_train`) as
-    tensors on the device. `remat`: the student forward's remat regions."""
+    tensors on the device. `remat`: the student forward's remat regions.
+    `mesh`: data-parallel over its ranks (the module docstring)."""
     weight = _class_weight(class_weight)
     dt = compute_dtype_of(compute_dtype)
+    mesh = active(mesh)
 
     @no_tf32()
+    @synced(mesh)
     def step(ts: TrainState, images, labels, masks, epoch: int):
         ce, logits, grads = ce_loss_and_grads(ts.model, images.to(dt), labels, masks, task=task,
-                                              class_weight=weight, remat=remat)
+                                              class_weight=weight, remat=remat, mesh=mesh)
         metrics = {"loss": ce, "ce": ce}
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
+        metrics = _global_metrics(metrics, mesh)
         opt = optim.apply_updates(
-            dict(ts.model.named_parameters()), grads, ts.opt, lr_tree,
+            dict(ts.model.named_parameters()), all_reduce_grads(grads, mesh), ts.opt, lr_tree,
             lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay,
         )
         return TrainState(ts.model, opt), metrics
@@ -235,27 +270,30 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
                       lr_tree: dict[str, float], num_epochs: int, lambda_c: float = 0.1,
                       kld_fn: Callable = kld_faithful, weight_decay: float = 1e-4,
                       iou_train: bool = False, compute_dtype="float32",
-                      remat: bool = False, remat_prev: bool = False):
+                      remat: bool = False, remat_prev: bool = False, mesh=None):
     """step(ts, teacher, images, labels, masks, epoch) -> (ts', metrics), with
     metrics {"loss", "ce", "kld"} (+ "cm" with `iou_train`) as tensors on the
     device (reading them waits for the step). `remat`: every student
     forward's remat regions; `remat_prev`: each previous-task student forward
-    one region as well (the module docstring)."""
+    one region as well; `mesh`: data-parallel (the module docstring)."""
     weight = _class_weight(class_weight)
     dt = compute_dtype_of(compute_dtype)
+    mesh = active(mesh)
 
     @no_tf32()
+    @synced(mesh)
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
         total, ce, kld, grads, logits = distill_loss_and_grads(
             ts.model, teacher, images.to(dt), labels, masks, current_task=current_task,
             prev_tasks=prev_tasks, class_weight=weight, lambda_c=lambda_c, kld_fn=kld_fn,
-            remat=remat, remat_prev=remat_prev,
+            remat=remat, remat_prev=remat_prev, mesh=mesh,
         )
         metrics = {"loss": total, "ce": ce, "kld": kld}
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
+        metrics = _global_metrics(metrics, mesh)
         opt = optim.apply_updates(
-            dict(ts.model.named_parameters()), grads, ts.opt, lr_tree,
+            dict(ts.model.named_parameters()), all_reduce_grads(grads, mesh), ts.opt, lr_tree,
             lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay,
         )
         return TrainState(ts.model, opt), metrics
@@ -269,7 +307,7 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
                                 weight_decay: float = 1e-4, iou_train: bool = False,
                                 teacher_training: bool = True, teacher_dropout: bool = False,
                                 compute_dtype="float32", remat: bool = False,
-                                remat_prev: bool = False):
+                                remat_prev: bool = False, mesh=None):
     """Step 3 (train_new_task_step3.py:317-356): a CE backward and Adam step,
     then lambda_c * sum KLD against the updated weights, its backward and a
     second Adam step with the same schedule factor; `ts.opt.count` grows by 2.
@@ -286,7 +324,8 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     is a list of 1 + len(prev_tasks) dicts or one dict (or None) reused by
     every student forward. `remat`, `remat_prev` as `make_distill_step`'s
     (JAX's KD phase always makes each previous-task forward a region,
-    mdilss_tpu/train/steps.py:286)."""
+    mdilss_tpu/train/steps.py:286). `mesh`: data-parallel, each phase's
+    gradients summed before its own Adam step (the module docstring)."""
     if teacher_dropout and not teacher_training:
         raise ValueError("teacher_dropout=True requires teacher_training=True (dropout is a "
                          "train-mode behaviour; the eval-mode teacher has none)")
@@ -294,8 +333,10 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     dt = compute_dtype_of(compute_dtype)
     n_prev = len(prev_tasks)
     n_masks = 1 + n_prev * (2 if teacher_dropout else 1)
+    mesh = active(mesh)
 
     @no_tf32()
+    @synced(mesh)
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
         images = images.to(dt)
         mask_list = _mask_list(masks, n_masks, need_list=teacher_dropout)
@@ -303,42 +344,49 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
         params = dict(ts.model.named_parameters())
         ce, logits, grads = ce_loss_and_grads(ts.model, images, labels, mask_list[0],
                                               task=current_task, class_weight=weight,
-                                              remat=remat)
+                                              remat=remat, mesh=mesh)
         cm = _train_cm(logits, labels, len(weight)) if iou_train else None
         del logits
-        opt = optim.apply_updates(params, grads, ts.opt, lr_tree, lr_scale=lr_scale,
-                                  weight_decay=weight_decay)
+        opt = optim.apply_updates(params, all_reduce_grads(grads, mesh), ts.opt, lr_tree,
+                                  lr_scale=lr_scale, weight_decay=weight_decay)
         del grads
         kd, kld, grads = kd_loss_and_grads(
             ts.model, teacher, images, mask_list[1:1 + n_prev], prev_tasks=prev_tasks,
             lambda_c=lambda_c, kld_fn=kld_fn, teacher_training=teacher_training,
             teacher_masks=mask_list[1 + n_prev:] if teacher_dropout else None,
-            remat=remat, remat_prev=remat_prev,
+            remat=remat, remat_prev=remat_prev, mesh=mesh,
         )
-        opt = optim.apply_updates(params, grads, opt, lr_tree, lr_scale=lr_scale,
-                                  weight_decay=weight_decay)
+        opt = optim.apply_updates(params, all_reduce_grads(grads, mesh), opt, lr_tree,
+                                  lr_scale=lr_scale, weight_decay=weight_decay)
         metrics = {"loss": ce + kd, "ce": ce, "kld": kld}
         if cm is not None:
             metrics["cm"] = cm
-        return TrainState(ts.model, opt), metrics
+        return TrainState(ts.model, opt), _global_metrics(metrics, mesh)
 
     return step
 
 
-def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="float32"):
+def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="float32",
+                   mesh=None):
     """step(model, images, labels) -> (loss, cm): eval-mode forward of head
     `task` in `compute_dtype` (bfloat16: K1's bf16 kernel on the card),
     weighted CE, argmax and the [C, C] int64 confusion matrix, all on the
     model's device. `labels` are prepared (`data.transforms.prepare_batch`:
-    the void label as the last class, whose weight is 0)."""
+    the void label as the last class, whose weight is 0). `mesh`: the images
+    are this rank's rows, and the CE (its numerator and denominator summed
+    over the ranks) and the confusion matrix are the global batch's."""
     weight = _class_weight(class_weight)
     dt = compute_dtype_of(compute_dtype)
+    mesh = active(mesh)
 
     @no_tf32()
     def step(model: nn.Module, images, labels):
         model.eval()
         logits = model(images.to(dt), task)
-        loss = weighted_cross_entropy(logits, labels, weight)
-        return loss, confusion_matrix(logits.argmax(-1), labels, num_classes=num_classes)
+        cm = confusion_matrix(logits.argmax(-1), labels, num_classes=num_classes)
+        if mesh is None:
+            return weighted_cross_entropy(logits, labels, weight), cm
+        num, den = all_reduce_(torch.stack(weighted_nll_sums(logits, labels, weight)), mesh)
+        return num / den, all_reduce_(cm, mesh)
 
     return step

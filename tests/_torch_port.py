@@ -406,3 +406,30 @@ def lr_moves(model, before: dict, lr: dict, after: dict | None = None) -> np.nda
     return np.concatenate([
         ((after[k].detach().double() - before[k].double()) / lr[k]).numpy().ravel()
         for k, _ in model.named_parameters() if lr[k] > 0])
+
+
+REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
+
+
+def torchrun(args: list, *, nproc: int = 2, env: dict | None = None):
+    """Start `python -m torch.distributed.run --standalone --nproc_per_node
+    nproc ARGS` from the repository root (the port importable, one thread
+    per rank) -> the Popen, its output piped; `finish` waits for it."""
+    import os
+    import subprocess
+    import sys
+
+    run_env = {**os.environ, "OMP_NUM_THREADS": "1", **(env or {})}
+    run_env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in run_env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={nproc}", *map(str, args)],
+        cwd=REPO, env=run_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(proc, timeout: float = 600) -> str:
+    """Wait for a `torchrun` process; its output, or fail with it."""
+    out, _ = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, out[-6000:]
+    return out

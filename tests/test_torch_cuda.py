@@ -1391,3 +1391,113 @@ def test_remat_steps_on_the_kernels_are_bitwise(cuda, deterministic_cudnn, kind,
         assert torch.equal(m_a[k], m_b[k]), k
     assert all(torch.equal(s_a[k], s_b[k]) for k in s_a)
     assert torch.equal(o_a.m, o_b.m) and torch.equal(o_a.v, o_b.v) and o_a.count == o_b.count
+
+
+@pytest.fixture
+def world1_nccl(cuda, tmp_path):
+    """A process group of one rank under NCCL, made in-process from a
+    FileStore, and the port's mesh over it: every collective of the sync-BN
+    glue, the losses and the gradients runs, over one rank."""
+    import torch.distributed as dist
+
+    from mdilss_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh(2, device=dev)
+        assert mesh.active and mesh.data == 1
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,d,rap", [(64, 1, True), (128, 16, True), (16, 1, False)])
+def test_sync_bn_block_on_one_nccl_rank_is_bitwise(cuda, world1_nccl, c, d, rap, dtype):
+    """The training block on the kernels under `synced` over a one-rank NCCL
+    group (K2's sums and the BN backward's sums all-reduced) against the
+    same block outside it: the output, dx, every gradient and the running
+    statistics bit for bit, and the same launches (K2 twice, K3 twice)."""
+    from mdilss_tpu_torch.ops.norm import synced
+
+    gen = torch.Generator().manual_seed(c * 10 + d + 3)
+    torch.manual_seed(c + d + 3)
+    blocks = [NonBottleneck1dRAP(c, d, 2, 0.3) if rap else NonBottleneck1d(c, d) for _ in range(2)]
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    for blk in blocks:
+        blk.to(cuda).train()
+    x = torch.randn(2, c, 16, 40, generator=gen).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)
+    mask = (torch.rand(2, c, generator=gen) < 0.7).to(cuda) if rap else None
+    cot = torch.randn(2, c, 16, 40, generator=gen).to(cuda)
+    results = []
+    for blk, mesh in zip(blocks, (None, world1_nccl)):
+        xi = x.clone().requires_grad_()
+        before = T.LAUNCHES_FWD, T.LAUNCHES_BWD
+        with synced(mesh):
+            out = blk(xi, 1 if rap else None, mask)
+            grads = torch.autograd.grad((out.float() * cot).sum(), [xi] + list(blk.parameters()),
+                                        allow_unused=True)
+        torch.cuda.synchronize()
+        assert (T.LAUNCHES_FWD - before[0], T.LAUNCHES_BWD - before[1]) == (2, 2)
+        results.append((out, grads, [b.clone() for b in blk.buffers()]))
+    (out_a, g_a, b_a), (out_b, g_b, b_b) = results
+    assert torch.equal(out_a, out_b)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(g_a, g_b))
+    assert all(torch.equal(a, b) for a, b in zip(b_a, b_b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["step2", "step3"])
+def test_steps_on_one_nccl_rank_are_bitwise(cuda, deterministic_cudnn, world1_nccl, kind, dtype):
+    """A step-2 step and a two-phase step-3 batch at 2x64x128 with `mesh` over
+    a one-rank NCCL group against the same step without: the losses, the
+    confusion matrix, every parameter, running statistic and Adam tensor bit
+    for bit, the teacher unchanged, the launches (K1, K2, K3) exactly (34,
+    68, 68) and (0, 170, 102) in both."""
+    import copy
+
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    if kind == "step3":
+        student, teacher, x, y, masks = _step3_setup(cuda, seed=8)
+        masks = masks[:3]
+        make = lambda s, **kw: _step3(s, compute_dtype=dtype, **kw)  # noqa: E731
+        want = (0, 170, 102)
+    else:
+        torch.manual_seed(8)
+        student, teacher = ERFNetRAP([5, 5], 2, device=cuda), ERFNetRAP([5], 1, device=cuda)
+        gen = torch.Generator().manual_seed(9)
+        _randomize_bn(student, gen)
+        _randomize_bn(teacher, gen)
+        rng = np.random.default_rng(8)
+        x = torch.from_numpy(rng.random((2, 64, 128, 3), dtype=np.float32)).to(cuda)
+        y = torch.from_numpy(rng.integers(0, 5, (2, 64, 128))).to(cuda)
+        masks = [make_dropout_masks(rng, 2) for _ in range(2)]
+
+        def make(s, **kw):
+            lr = rap_lr_tree(s, current_task=1, shared_lr=5e-6, ds_lr=5e-4)
+            return steps.make_distill_step(current_task=1, prev_tasks=(0,),
+                                           class_weight=np.ones(5, np.float32), lr_tree=lr,
+                                           num_epochs=150, iou_train=True, compute_dtype=dtype,
+                                           **kw)
+        want = (34, 68, 68)
+    t_before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    twin = copy.deepcopy(student)
+    out = []
+    for s, mesh in ((student, None), (twin, world1_nccl)):
+        before = _launches()
+        ts, m = make(s, mesh=mesh)(steps.init_train_state(s), teacher, x, y, masks, 1)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_launches(), before)) == want
+        assert all(torch.equal(v, t_before[k]) for k, v in teacher.state_dict().items())
+        out.append((m, s.state_dict(), ts.opt))
+    (m_a, s_a, o_a), (m_b, s_b, o_b) = out
+    for k in ("loss", "ce", "kld", "cm"):
+        assert torch.equal(m_a[k], m_b[k]), k
+    assert all(torch.equal(s_a[k], s_b[k]) for k in s_a)
+    assert torch.equal(o_a.m, o_b.m) and torch.equal(o_a.v, o_b.v) and o_a.count == o_b.count

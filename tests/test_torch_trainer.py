@@ -200,10 +200,10 @@ def test_device_cache_budget(tmp_path):
     ("step1", dict(model="erfnet_onlyRAP", compute_dtype="float16"), ValueError,
      "float32 or bfloat16"),
     ("step2", dict(model="erfnet_RA_series"), ValueError, "distils from a teacher"),
-    ("step3", dict(model="erfnet_RCM", spatial_shards=2), NotImplementedError, "A10"),
+    ("step3", dict(model="erfnet_RCM", spatial_shards=2), NotImplementedError, "A11"),
     ("step1", dict(compute_dtype="float64"), ValueError, "float32 or bfloat16"),
-    ("step1", dict(spatial_shards=2), NotImplementedError, "A10"),
-    ("step2", dict(remat=True, spatial_shards=2), NotImplementedError, "A10"),
+    ("step1", dict(spatial_shards=2), NotImplementedError, "A11"),
+    ("step2", dict(remat=True, spatial_shards=2), NotImplementedError, "A11"),
 ])
 def test_what_waits_raises(tmp_path, make, kw, error, match):
     cfg = getattr(C, make)(savedir=str(tmp_path / "run"), **TINY, **kw)
