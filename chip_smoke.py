@@ -197,13 +197,29 @@ Phases, each fatal on failure (non-zero exit):
      peak, and one step-2 Trainer epoch at full width with device_cache=
      "auto" (the cache's mesh arm, exact launches per rank); (c) `python -m
      torch.distributed.run --standalone --nproc_per_node 1 -m mdilss_tpu_torch
-     step1` at 6x512x1024 for one epoch.
+     step1` at 6x512x1024 for one epoch;
+ 19. the spatial axis (mdilss_tpu_torch/parallel/halo.py; cuDNN
+     deterministic): (a) one process: K2 fp32 and bf16 at the 7 block shapes
+     with the stats window the whole height, bitwise the call without one;
+     K2 (pre-stage and RAP) and K3 on padded slabs of the encoder's 1/8 maps
+     (6x128x64x128, d in 2, 4, 8, 16, S in 2, 4, 8 slabs, fp32 and bf16; each
+     slab with d halo rows cut from the whole tensor, K2's stats over the
+     slab's rows, K3's gy zero on the halo rows) and K1 on slabs with 1 + d
+     halo rows, stitched and summed against the whole calls (SP_TOL); (b)
+     the fp32 step-2 step at 6x512x1024 on a 1x2 mesh (2 processes) and a
+     2x2 mesh (4 processes), gloo, all on the one card (`--sp-worker`,
+     LOCAL_RANK 0): each rank's block of the batch (its data index's images,
+     its 256 rows), its launches exactly a step's 34 / 68 / 68, against this
+     process's step (tests/test_multichip.py's criterion, the ranks bitwise
+     equal); per rank its halo collectives and bytes, wall and busy ms, idle
+     share and peak.
 It prints the card's name and power limit, one `kernels` JSON line (K1's
 entry also carries its 17-block sums at batch 6 in bf16 and fp32; each
 entry its launches on every path driven, K1's through the exported heads
 and parity-check too, `launches_ablation_*` on phase 15's and
 `launches_bf16_*` on phase 16's, `launches_remat_*` on phase 17's,
-`launches_sharded_*` on phase 18's (per rank at world 2); K2's and
+`launches_sharded_*` on phase 18's (per rank at world 2),
+`launches_spatial_*` on phase 19's (per mesh and rank); K2's and
 K3's a `bf16` block with their
 bf16 launches, times, bound and errors) and, as the last line,
 {"ok": true, "device": {...}}. The full record goes to --out.
@@ -3679,6 +3695,301 @@ def dp_launches(rec: dict, k: str) -> dict:
     return out
 
 
+# ---- phase 19: the spatial axis (A11) ---------------------------------------------------------
+SP_SLAB = (6, 128, 64, 128)  # n, c, h, w: the encoder's 1/8 maps of 6x512x1024
+SP_DILATIONS, SP_SHARDS = (2, 4, 8, 16), (2, 4, 8)
+# the slabs against the whole call: (fp32, bf16) of each output's largest |difference| over
+# the output's largest |value| (y and du per pixel, the stats and weight gradients as sums)
+SP_TOL = {"y": (1e-6, 2.0 ** -8), "du": (1e-5, 2.0 ** -6), "sums": (1e-6, 1e-5),
+          "k1": (1e-6, 2.0 ** -8)}
+SP_MESHES = {"1x2": 2, "2x2": 4}  # mesh (data x spatial): processes on the card, gloo
+SP_TIMEOUT = 420  # seconds for a mesh's processes
+
+
+def slab_rows(s: int, n_sp: int, h: int, halo: int) -> tuple[int, int, int]:
+    """(first row, end row, rows above) of slab s of n_sp with `halo` rows
+    of its neighbours each side, clipped at the image's edges."""
+    hs = h // n_sp
+    top, bottom = min(halo, s * hs), min(halo, (n_sp - 1 - s) * hs)
+    return s * hs - top, (s + 1) * hs + bottom, top
+
+
+def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max()
+                 .clamp_min(1e-30))
+
+
+def padded_slab_case(seed: int, dev: torch.device, dt: str, d: int, n_sp: int) -> dict:
+    """K2 (pre-stage and RAP) and K3 on n_sp padded slabs of an SP_SLAB input
+    (each slab with d halo rows each side, cut from the whole tensor, K2's
+    stats window on the slab's rows, K3's gy zero on the halo rows), and K1
+    on slabs with 1 + d halo rows, each stitched (K3's du summed over the
+    slabs that hold a row) against the whole call: the largest difference
+    over the largest value of each output, and whether y and K1's output are
+    bitwise the whole call's."""
+    n, c, h, w = SP_SLAB
+    dtype = DTYPES[dt]
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)  # noqa: E731
+    x = cl(mk(n, c, h, w).to(dtype))
+    gy = cl(mk(n, c, h, w).to(dtype))
+    w31, b31, w13, rap = (mk(c, c, 3, 1, scale=c ** -0.5), mk(c, scale=0.1),
+                          mk(c, c, 1, 3, scale=c ** -0.5), mk(c, c, scale=c ** -0.5))
+    pre = ((1.0 + 0.2 * mk(c)).abs(), 0.2 * mk(c))
+    y, st = T.fwd_pair(x, w31, b31, w13, rap, pre, d)
+    whole_bwd = T.bwd_pair(x, gy, w31, b31, w13, rap, pre, d)
+    y_s, du_s = torch.empty_like(y), torch.zeros(n, c, h, w, dtype=torch.float32, device=dev)
+    st_s, grads_s = torch.zeros_like(st), [torch.zeros_like(g) for g in whole_bwd[1:]]
+    hs = h // n_sp
+    for s in range(n_sp):
+        lo, hi, top = slab_rows(s, n_sp, h, d)
+        raw = cl(x[:, :, lo:hi])
+        yp, stp = T.fwd_pair(raw, w31, b31, w13, rap, pre, d, (top, top + hs))
+        y_s[:, :, s * hs:(s + 1) * hs] = yp[:, :, top:top + hs]
+        st_s += stp
+        gyp = torch.zeros_like(raw)
+        gyp[:, :, top:top + hs] = gy[:, :, s * hs:(s + 1) * hs]
+        dup, *gp = T.bwd_pair(raw, cl(gyp), w31, b31, w13, rap, pre, d)
+        du_s[:, :, lo:hi] += dup.float()
+        for acc, g in zip(grads_s, gp):
+            acc += g
+    blk = NonBottleneck1dRAP(c, d, 1).to(dev)
+    randomize_bn(blk, gen)
+    ops = K.prepare_operands(blk, 0, dtype)
+    out = K.nb1d_infer(x, ops, d)
+    out_s = torch.empty_like(out)
+    for s in range(n_sp):
+        lo, hi, top = slab_rows(s, n_sp, h, 1 + d)
+        out_s[:, :, s * hs:(s + 1) * hs] = K.nb1d_infer(cl(x[:, :, lo:hi]), ops, d)[
+            :, :, top:top + hs]
+    sync(dev)
+    return {
+        "d": d, "shards": n_sp, "dtype": dt,
+        "y": _rel_max(y_s, y), "y_bitwise": bool(torch.equal(y_s, y)),
+        "stats": max(_rel_max(a, b) for a, b in zip(st_s, st)),
+        "du": _rel_max(du_s.to(dtype), whole_bwd[0]),
+        "wgrads": max(_rel_max(a, b) for a, b in zip(grads_s, whole_bwd[1:])),
+        "k1": _rel_max(out_s, out), "k1_bitwise": bool(torch.equal(out_s, out)),
+    }
+
+
+def k2_whole_window(seed: int, dev: torch.device) -> list[dict]:
+    """K2 fp32 and bf16 at each block shape of a 6x512x1024 forward with its
+    stats window the whole height, against the call without one: y and the
+    stats bitwise equal."""
+    out = []
+    for name, c, d, rap, h, w, _ in BLOCKS:
+        for dt, dtype in DTYPES.items():
+            gen = torch.Generator().manual_seed(seed + c + d)
+            mk = lambda *s: (torch.randn(*s, generator=gen) * 0.2).to(dev)  # noqa: E731
+            x = cl(torch.randn(TRAIN_BATCH, c, h, w, generator=gen).to(dev, dtype))
+            args = (mk(c, c, 3, 1), mk(c), mk(c, c, 1, 3), mk(c, c) if rap else None,
+                    ((1.0 + mk(c)).abs(), mk(c)))
+            y, st = T.fwd_pair(x, *args, d)
+            yw, stw = T.fwd_pair(x, *args, d, (0, h))
+            out.append({"block": name, "dtype": dt,
+                        "bitwise": bool(torch.equal(y, yw) and torch.equal(st, stw))})
+    return out
+
+
+def phase_spatial_kernels(seed: int, dev: torch.device) -> dict:
+    """Phase 19 (a), one process: K2's whole stats window, and K1/K2/K3 on
+    padded slabs against the whole calls."""
+    rec = {"whole_window": k2_whole_window(seed + 900, dev), "slabs": []}
+    bad = [r for r in rec["whole_window"] if not r["bitwise"]]
+    print(f"[spatial] K2 with the whole stats window vs without one, {len(rec['whole_window'])} "
+          f"calls (7 block shapes x fp32 / bf16): {len(bad)} not bitwise")
+    check(not bad, f"K2's whole window is not the call without one: {bad[:3]}")
+    for i, (dt, d, n_sp) in enumerate((dt, d, s) for dt in DTYPES for d in SP_DILATIONS
+                                      for s in SP_SHARDS):
+        r = padded_slab_case(seed + 910 + i, dev, dt, d, n_sp)
+        rec["slabs"].append(r)
+        j = 0 if dt == "f32" else 1
+        print(f"[spatial] {dt} d={d} S={n_sp} ({SP_SLAB[2] // n_sp} rows a slab): y "
+              f"{r['y']:.2e} (bitwise {r['y_bitwise']}), stats {r['stats']:.2e}, du "
+              f"{r['du']:.2e}, weight gradients {r['wgrads']:.2e}; K1 {r['k1']:.2e} (bitwise "
+              f"{r['k1_bitwise']})")
+        for k, v in (("y", r["y"]), ("stats", r["stats"]), ("du", r["du"]),
+                     ("wgrads", r["wgrads"]), ("k1", r["k1"])):
+            tol = SP_TOL["sums" if k in ("stats", "wgrads") else k][j]
+            check(v <= tol, f"padded slabs {dt} d={d} S={n_sp}: {k} {v:.3e} > {tol:.1e}")
+    return rec
+
+
+def sp_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "spatial")
+
+
+def sp_spawn(mesh: str, seed: int) -> list[dict]:
+    """Start the processes of `chip_smoke.py --sp-worker` for `mesh` on the
+    one card (LOCAL_RANK 0 for all) and wait for them -> each rank's record;
+    a rank that fails or outlasts SP_TIMEOUT fails the phase."""
+    world = SP_MESHES[mesh]
+    root = os.path.join(sp_root(), mesh)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(world), "LOCAL_RANK": "0"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--sp-worker", mesh, "--out", root],
+                              env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs, deadline = [], time.monotonic() + SP_TIMEOUT
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + f"\n(killed after {SP_TIMEOUT} s)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-30:]:
+            print(f"[sp-{mesh} rank {r}] {line[:300]}")
+        check(p.returncode == 0, f"--sp-worker {mesh} rank {r} exited {p.returncode}")
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def sp_worker(mesh_name: str, seed: int, root: str) -> int:
+    """One rank of phase 19 (b), under the environment `sp_spawn` sets: joins
+    the gloo group (`make_mesh(spatial=2, backend="gloo")`), takes its block
+    of the 6 images (those of its data index, its 256 rows of them), dropout
+    masks by data index, and the fp32 step-2 step through `make_step(mesh=)`
+    with the launch and halo counts zeroed just before (its state saved for
+    the parent); then 3 steps timed (wall ms, CUDA events) and one
+    profiled."""
+    import torch.distributed as dist
+
+    from mdilss_tpu_torch.models.topology import shard_dropout_masks
+    from mdilss_tpu_torch.parallel import halo as H
+    from mdilss_tpu_torch.parallel import make_mesh, shard_height, shard_rows
+
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    mesh = make_mesh(TRAIN_BATCH, spatial=2, device=dev, backend="gloo")
+    want_data = SP_MESHES[mesh_name] // 2
+    check(mesh.data == want_data and mesh.spatial == 2 and dist.get_backend() == "gloo",
+          f"mesh {mesh}")
+    student, teacher, images, labels, masks = train_setup(seed, dev, TRAIN_BATCH, HEIGHT, WIDTH)
+    x = shard_height(shard_rows(images, mesh), mesh, 1).to(dev)
+    y = shard_height(shard_rows(labels, mesh), mesh, 1).to(dev)
+    masks = [shard_dropout_masks(m, mesh) for m in masks]
+    _, step = make_step(student, mesh=mesh)
+    ts = steps.init_train_state(student)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launch_counts()
+    H.CALLS = H.BYTES = 0
+    ts, m = step(ts, teacher, x, y, masks, 1)
+    sync(dev)
+    rec = {"rank": rank, "data_index": mesh.data_index, "spatial_index": mesh.spatial_index,
+           "shape": list(x.shape), "launches": launch_counts(),
+           "halo_calls": H.CALLS, "halo_bytes": H.BYTES,
+           "metrics": {k: float(v) for k, v in m.items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    torch.save(dp_state(student, ts), os.path.join(root, f"rank{rank}.pt"))
+    state = {"ts": ts}
+
+    def one():
+        state["ts"], _ = step(state["ts"], teacher, x, y, masks, 1)
+
+    rec["wall_ms"] = time_ms(one, iters=3, warmup=0)
+    rec["profile"] = profile_once(one, f"sp-{mesh_name}-rank{rank}", "one fp32 step-2 step")
+    del state, one, ts, m
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+    return 0
+
+
+def sp_mesh_vs_one(mesh: str, ranks: list[dict], one: dict, params: list[str]) -> dict:
+    """A mesh's ranks against the one-process step: the loss to 1e-5
+    relative, every parameter within 1.1e-3 and at most 1% beyond 2e-5
+    (tests/test_multichip.py:62-71), the running statistics to 1e-4, every
+    rank bitwise rank 0, each rank's launches exactly a step's."""
+    states = [torch.load(os.path.join(sp_root(), mesh, f"rank{r}.pt"))
+              for r in range(len(ranks))]
+    unequal = sorted({k for s in states[1:] for k in s if not torch.equal(s[k], states[0][k])})
+    d = torch.cat([(states[0][k] - one[k]).abs().flatten() for k in params])
+    running = max(float((states[0][k].double() - one[k].double()).norm()
+                        / one[k].double().norm().clamp_min(1e-30)) for k in one if "running" in k)
+    rec = {"max_abs_param_diff": float(d.max()), "frac_beyond_2e5": float((d > 2e-5).float().mean()),
+           "max_running_rel": running, "ranks_unequal": unequal,
+           "loss": ranks[0]["metrics"]["loss"]}
+    return rec
+
+
+def phase_spatial(seed: int, dev: torch.device) -> dict:
+    """Phase 19: the spatial axis (ROADMAP A11; cuDNN deterministic). (a) one
+    process: K2's whole stats window bitwise the call without one, and K1 /
+    K2 / K3 on padded slabs of the encoder's 1/8 maps against the whole
+    calls; (b) the fp32 step-2 step at 6x512x1024 on a 1x2 mesh (2
+    processes) and a 2x2 mesh (4 processes), gloo, all on the one card,
+    against this process's step."""
+    t_phase = time.perf_counter()
+    rec = {"kernels": phase_spatial_kernels(seed, dev)}
+    rec["meshes"] = {m: sp_spawn(m, seed + 930) for m in SP_MESHES}
+    student, teacher, images, labels, masks = train_setup(seed + 930, dev, TRAIN_BATCH, HEIGHT,
+                                                          WIDTH)
+    _, step = make_step(student)
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ts, m = step(steps.init_train_state(student), teacher, images.to(dev), labels.to(dev),
+                     masks, 1)
+        sync(dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = old
+    one, loss_one = dp_state(student, ts), float(m["loss"])
+    params = [k for k, _ in student.named_parameters()]
+    card = card_line()
+    rec["vs_one"] = {}
+    for mesh, ranks in rec["meshes"].items():
+        v = rec["vs_one"][mesh] = sp_mesh_vs_one(mesh, ranks, one, params)
+        rel_loss = abs(v["loss"] - loss_one) / abs(loss_one)
+        print(f"[spatial] {mesh} (gloo, {len(ranks)} processes on this card) vs one process: "
+              f"loss {v['loss']:.6f} vs {loss_one:.6f} (rel {rel_loss:.2e}); parameters max "
+              f"|diff| {v['max_abs_param_diff']:.3e}, {100 * v['frac_beyond_2e5']:.3f}% beyond "
+              f"2e-5; running statistics max rel {v['max_running_rel']:.2e}; ranks unequal "
+              f"{len(v['ranks_unequal'])}")
+        check(rel_loss <= 1e-5, f"{mesh} loss {v['loss']} vs {loss_one}")
+        check(v["max_abs_param_diff"] <= 1.1e-3 and v["frac_beyond_2e5"] <= 0.01,
+              f"{mesh} parameters: {v['max_abs_param_diff']}, {v['frac_beyond_2e5']}")
+        check(v["max_running_rel"] <= 1e-4, f"{mesh} running statistics {v['max_running_rel']}")
+        check(not v["ranks_unequal"], f"{mesh}: the ranks differ: {v['ranks_unequal'][:5]}")
+        for r in ranks:
+            p = r["profile"]
+            print(f"[spatial] {card}: {mesh} rank {r['rank']} (data {r['data_index']}, spatial "
+                  f"{r['spatial_index']}, block {r['shape']}): launches {r['launches']} "
+                  f"(expected {STEP_LAUNCHES}); halo collectives {r['halo_calls']}, "
+                  f"{r['halo_bytes'] / 2**20:.3f} MiB per step; step wall {r['wall_ms']:.3f} ms, "
+                  f"busy {p['device_ms']:.3f} ms, idle share {p['idle_share']:.3f}; peak "
+                  f"{r['peak_memory_bytes'] / 2**30:.3f} GiB")
+            check(r["launches"] == STEP_LAUNCHES, f"{mesh} rank {r['rank']}: {r['launches']}")
+    shutil.rmtree(sp_root(), ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[spatial] phase 19 in {rec['seconds']:.1f} s")
+    return rec
+
+
+def sp_launches(rec: dict, k: str) -> dict:
+    """The kernels-line keys of kernel `k` on phase 19's meshes, per rank."""
+    return {f"launches_spatial_{mesh}_rank{r['rank']}": r["launches"][k]
+            for mesh, ranks in rec["meshes"].items() for r in ranks}
+
+
 def k3_kind_totals(blocks: list[dict]) -> dict:
     """K3's device ms per launch kind summed over the 34 pair calls of one
     student backward (None if a kind was not measured), with each kind's
@@ -3784,12 +4095,17 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-worker", choices=("nccl", "step"), default=None,
                     help="(phase 18 starts these) one rank of the two on the card; --out is "
                          "its directory")
+    ap.add_argument("--sp-worker", choices=tuple(SP_MESHES), default=None,
+                    help="(phase 19 starts these) one rank of a spatial mesh on the card; "
+                         "--out is its directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     if args.dp_worker:
         return dp_worker(args.dp_worker, args.seed, args.out)
+    if args.sp_worker:
+        return sp_worker(args.sp_worker, args.seed, args.out)
     dev = torch.device("cuda")
     # the plain versions and cuDNN run fp32 convs in full fp32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -3821,6 +4137,7 @@ def main(argv=None) -> int:
     bf16 = phase_bf16(args.seed, dev)
     remat = phase_remat(args.seed, dev)
     dp = phase_data_parallel(args.seed, dev)
+    sp = phase_spatial(args.seed, dev)
     glue = glue_bound()
     print(f"[glue-bound] K4 glue at {TRAIN_BATCH}x{HEIGHT}x{WIDTH} f32, bytes at "
           f"{PEAK_BYTES / 1e12} TB/s: {glue['fwd_bwd_ms']:.3f} ms per student forward and "
@@ -3852,6 +4169,7 @@ def main(argv=None) -> int:
         "launches_bf16_cli_chain": bf16["cli_chain"]["launches_bf16"]["K1"],
         **remat_launches(remat, "K1"),
         **dp_launches(dp, "K1"),
+        **sp_launches(sp, "K1"),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_rel_l2": {dt: max(c["rel_l2"] for c in cases if c["dtype"] == dt) for dt in DTYPES},
         **k1_sums(times["blocks"], "bf16", 1),
@@ -3874,6 +4192,7 @@ def main(argv=None) -> int:
                     launches_ablation_steps=ablations["step_launches"]["K2"],
                     **remat_launches(remat, "K2"),
                     **dp_launches(dp, "K2"),
+                    **sp_launches(sp, "K2"),
                     bf16=bf16_entry(bf16, "fwd")),
         kernel_entry("nb1d_train_bwd", "mdilss_tpu/ops/pallas/nb1d_train.py:258",
                      train_path["launches"]["K3"], train_cases,
@@ -3887,6 +4206,7 @@ def main(argv=None) -> int:
                      launches_ablation_steps=ablations["step_launches"]["K3"],
                      **remat_launches(remat, "K3"),
                      **dp_launches(dp, "K3"),
+                     **sp_launches(sp, "K3"),
                      bf16=bf16_entry(bf16, "bwd"))]}
     record = {"card": card, "device": torch.cuda.get_device_name(0), "seed": args.seed,
               "torch": torch.__version__, "cuda": torch.version.cuda, "build": build,
@@ -3895,7 +4215,7 @@ def main(argv=None) -> int:
               "train_path": train_path, "train_times": train_times, "step3_path": step3_path,
               "other_steps": other_steps, "trainer": trainer, "cli_chain": cli_chain,
               "slice10": slice10, "ablations": ablations, "bf16": bf16, "remat": remat,
-              "data_parallel": dp,
+              "data_parallel": dp, "spatial": sp,
               "glue_bound": glue,
               "kernels": kernels["kernels"], "seconds": time.perf_counter() - t0}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

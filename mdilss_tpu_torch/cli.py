@@ -28,15 +28,18 @@ cuda. `bench` waits for ROADMAP A2: it parses and exits non-zero. An ablation
 `--kind` reads the port's checkpoint directories only (those models have no
 torch grammar), and exits naming that for anything else.
 
-Data-parallel training: the JAX package's single process takes every
-visible device (its mesh); the port takes one process per card, launched by
-torchrun, e.g. `python -m torch.distributed.run --standalone --nproc_per_node
-8 -m mdilss_tpu_torch step2 ...`. The training commands and `pipeline` then
-build the mesh from the environment (`parallel.make_mesh`: NCCL on
-cuda:LOCAL_RANK, or gloo with `--device cpu`); rank 0 writes the run's files
-and prints the result line, and every rank trains the same weights. A plain
-`python -m mdilss_tpu_torch` trains on one card. `--spatial-shards` other
-than 1 waits for ROADMAP A11.
+Sharded training: the JAX package's single process takes every visible
+device (its ('data', 'spatial') mesh); the port takes one process per card,
+launched by torchrun, e.g. `python -m torch.distributed.run --standalone
+--nproc_per_node 8 -m mdilss_tpu_torch step2 --spatial-shards 2 ...`. The
+training commands and `pipeline` then build the mesh from the environment
+(`parallel.make_mesh`: NCCL on cuda:LOCAL_RANK, or gloo with `--device
+cpu`): `--spatial-shards S` must divide the processes (JAX's error), each
+image's rows split over S of them (the height a multiple of 8 S) and the
+batch over gcd(batch, processes / S); rank 0 writes the run's files and
+prints the result line, and every rank trains the same weights. A plain
+`python -m mdilss_tpu_torch` trains on one card, where `--spatial-shards`
+other than 1 raises JAX's error.
 """
 from __future__ import annotations
 
@@ -100,7 +103,8 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--no-device-cache", action="store_true",
                    help="disable the device-resident uint8 dataset cache")
     p.add_argument("--spatial-shards", type=int, default=1,
-                   help="the port shards the batch only: anything but 1 raises (ROADMAP A11)")
+                   help="shard each image's rows over this many processes (under torchrun; "
+                        "must divide the process count, and 8x it the height)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute type of the forwards (bfloat16: bf16 activations and "
                         "kernels; parameters, optimizer state and losses stay float32)")

@@ -6,6 +6,7 @@
 //     u = pre ? relu(a * x + b) : x          (rows outside the image are zero padding)
 //     c = relu(rowconv_d(u, w31) + b31)
 //     y = colconv_d(c, w13) [+ u @ rap]      -> y and per-channel [2, C] sum / sum of squares
+//                                              of y over the rows row0 .. row1 - 1 of each image
 //   K3 _bwd_pair_kernel (entry bwd_pair), the gradient of y with respect to u and the weights:
 //     dc   = colconv_d^T(gy, w13) * [c > 0]  (c recomputed from u)
 //     du   = rowconv_d^T(dc, w31) [+ gy @ rap^T]
@@ -109,7 +110,7 @@ fwd_pair_mma_kernel(const float* __restrict__ x, const float* __restrict__ w31,
                     const float* __restrict__ b31, const float* __restrict__ w13,
                     const float* __restrict__ rap, const float* __restrict__ pa,
                     const float* __restrict__ pb, float* __restrict__ y,
-                    float* __restrict__ part, int H, int W, int d) {
+                    float* __restrict__ part, int H, int W, int d, int row0, int row1) {
   using B = K2B<C>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -120,9 +121,10 @@ fwd_pair_mma_kernel(const float* __restrict__ x, const float* __restrict__ w31,
   pair_mainloop<C>(smem, x, w31, b31, w13, rap, pa, pb, H, W, d, f);
 
   // ---- epilogue: write y; the CTA's [2][C] partial sum and sum of squares over its columns
-  // inside the image, per thread, then over the 8 lanes of each channel pair (a fixed shuffle
-  // tree), then over the warp rows in order ----
+  // inside the image (zero for a row outside the stats window), per thread, then over the 8
+  // lanes of each channel pair (a fixed shuffle tree), then over the warp rows in order ----
   const size_t row_base = (static_cast<size_t>(n) * H + r) * W;
+  const bool counted = r >= row0 && r < row1;
   float s[B::NT][2], q[B::NT][2];
 #pragma unroll
   for (int nt = 0; nt < B::NT; ++nt) s[nt][0] = s[nt][1] = q[nt][0] = q[nt][1] = 0.f;
@@ -130,6 +132,7 @@ fwd_pair_mma_kernel(const float* __restrict__ x, const float* __restrict__ w31,
     if (w0 + m >= W) return;
     const float v0 = f.acc[mt][nt][2 * h], v1 = f.acc[mt][nt][2 * h + 1];
     st2(y + (row_base + w0 + m) * C + co, v0, v1);
+    if (!counted) return;
     s[nt][0] += v0;
     s[nt][1] += v1;
     q[nt][0] += v0 * v0;
@@ -476,14 +479,14 @@ size_t grad_len(int C, bool rap) {
 template <int C>
 cudaError_t fwd(const float* x, const float* w31, const float* b31, const float* w13,
                 const float* rap, const float* pa, const float* pb, float* y, float* stats,
-                float* scratch, int n, int h, int w, int d, cudaStream_t s) {
+                float* scratch, int n, int h, int w, int d, int row0, int row1, cudaStream_t s) {
   // the ring and c; a halo past the card's shared memory per block fails here
   const size_t smem = pair_smem_bytes<C>(d);
   if (smem > INT_MAX) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fwd_pair_mma_kernel<C>, smem);
   if (err != cudaSuccess) return err;
-  fwd_pair_mma_kernel<C><<<pair_grid<C>(n, h, w), kThreads, smem, s>>>(x, w31, b31, w13, rap, pa,
-                                                                       pb, y, scratch, h, w, d);
+  fwd_pair_mma_kernel<C><<<pair_grid<C>(n, h, w), kThreads, smem, s>>>(
+      x, w31, b31, w13, rap, pa, pb, y, scratch, h, w, d, row0, row1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce(scratch, static_cast<int>(fwd_partials<C>(n, h, w)), 2 * C, stats, s);
@@ -1232,7 +1235,8 @@ fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
                      const float* __restrict__ b31, const bf16* __restrict__ w13,
                      const bf16* __restrict__ rap, const float* __restrict__ pa,
                      const float* __restrict__ pb, bf16* __restrict__ y,
-                     float* __restrict__ part, int ntiles, int H, int W, int d) {
+                     float* __restrict__ part, int ntiles, int H, int W, int d, int row0,
+                     int row1) {
   using R = FwdRing<C>;
   constexpr int TM = R::TM, KC = R::KC, LDA = R::LDA, LDB = R::LDB, MT = R::MT, NT = R::NT;
   constexpr int THREADS = R::THREADS, AV = KC / 8, V = C / 8, DPAD = R::DPAD;
@@ -1384,7 +1388,7 @@ fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
   };
   // y rounded to bf16 through c_s's rows DPAD .. (the halo rows keep their zeros) to the tile's
   // columns inside the image as 16-byte rows; this thread's channels v .. v+7 of each row it
-  // stores go into its running sums
+  // stores go into its running sums where the image row lies in the stats window
   auto store_y = [&](const FwdWalk& p) {
     bf16* ys = c_s + DPAD * LDB;
     __syncthreads();  // every warp is done with c_s
@@ -1399,10 +1403,12 @@ fwd_pair_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w31,
               __floats2bfloat162_rn(acc[i][nt][2 * h], acc[i][nt][2 * h + 1]);
     __syncthreads();
     const int n_out = min(p.tw, W - p.w0), v = (threadIdx.x % V) * 8;
+    const bool counted = p.r >= row0 && p.r < row1;
     bf16* out = y + (static_cast<size_t>(p.row) * W + p.w0) * C + v;
     for (int m = threadIdx.x / V; m < n_out; m += THREADS / V) {
       const uint4 raw8 = *reinterpret_cast<const uint4*>(ys + m * LDB + v);
       *reinterpret_cast<uint4*>(out + static_cast<size_t>(m) * C) = raw8;
+      if (!counted) continue;
       const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw8);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1512,7 +1518,8 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, int ntiles,
 template <int C>
 cudaError_t fwd_bf16(const bf16* x, const bf16* w31, const float* b31, const bf16* w13,
                      const bf16* rap, const float* pa, const float* pb, bf16* y, float* stats,
-                     float* scratch, int n, int h, int w, int d, cudaStream_t s) {
+                     float* scratch, int n, int h, int w, int d, int row0, int row1,
+                     cudaStream_t s) {
   using R = FwdRing<C>;
   // the kernel indexes pixels and tiles with int
   if (static_cast<long long>(n) * h * w > INT_MAX) return cudaErrorInvalidValue;
@@ -1520,8 +1527,8 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* w31, const float* b31, const bf1
   const int walkers = fwd_bf16_walkers<C>(n, h, w, d);
   cudaError_t err = set_smem(fwd_pair_bf16_kernel<C>, R::BYTES);
   if (err != cudaSuccess) return err;
-  fwd_pair_bf16_kernel<C><<<walkers, R::THREADS, R::BYTES, s>>>(x, w31, b31, w13, rap, pa, pb, y,
-                                                                scratch, ntiles, h, w, d);
+  fwd_pair_bf16_kernel<C><<<walkers, R::THREADS, R::BYTES, s>>>(
+      x, w31, b31, w13, rap, pa, pb, y, scratch, ntiles, h, w, d, row0, row1);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_reduce(scratch, walkers, 2 * C, stats, s);
 }
@@ -1598,13 +1605,16 @@ extern "C" long long nb1d_train_fwd_scratch(int channels, int n, int h, int w) {
 
 // K2 on the given stream; allocates nothing, does not synchronise. x, y: float32 NHWC
 // [n, h, w, C]; w31, w13: tap-stacked [3C][C]; b31, pa, pb: [C]; rap: [C][C] ([ci][co]); rap
-// and pa/pb may be null. stats: [2][C] (sum, sum of squares of y over n*h*w). scratch: the
-// floats nb1d_train_fwd_scratch gives. Returns the cudaError_t of the launches (0 on success).
+// and pa/pb may be null. stats: [2][C] (sum, sum of squares of y over the n * (row1 - row0) * w
+// pixels of the rows row0 .. row1 - 1 of each image; 0, h for all, the stats window of a
+// slab with halo rows). scratch: the floats nb1d_train_fwd_scratch gives. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int nb1d_train_fwd(int channels, const void* x, const void* w31, const void* b31,
                               const void* w13, const void* rap, const void* pa, const void* pb,
                               void* y, void* stats, void* scratch, int n, int h, int w, int d,
-                              void* stream) {
-  if (bad_shape(n, h, w, d)) return static_cast<int>(cudaErrorInvalidValue);
+                              int row0, int row1, void* stream) {
+  if (bad_shape(n, h, w, d) || row0 < 0 || row0 > row1 || row1 > h)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [&](auto c) {
     return fwd<decltype(c)::value>(
@@ -1612,7 +1622,7 @@ extern "C" int nb1d_train_fwd(int channels, const void* x, const void* w31, cons
         static_cast<const float*>(b31), static_cast<const float*>(w13),
         static_cast<const float*>(rap), static_cast<const float*>(pa),
         static_cast<const float*>(pb), static_cast<float*>(y), static_cast<float*>(stats),
-        static_cast<float*>(scratch), n, h, w, d, s);
+        static_cast<float*>(scratch), n, h, w, d, row0, row1, s);
   };
   cudaError_t err;
   switch (channels) {
@@ -1690,12 +1700,13 @@ extern "C" long long nb1d_train_fwd_bf16_scratch(int channels, int n, int h, int
 }
 
 // K2 in bf16, as nb1d_train_fwd with x, y, w31, w13 and rap in bf16 (b31, pa, pb, stats float32);
-// the stats are the sums of the bf16 y.
+// the stats are the sums of the bf16 y over the rows row0 .. row1 - 1.
 extern "C" int nb1d_train_fwd_bf16(int channels, const void* x, const void* w31, const void* b31,
                                    const void* w13, const void* rap, const void* pa,
                                    const void* pb, void* y, void* stats, void* scratch, int n,
-                                   int h, int w, int d, void* stream) {
-  if (bad_shape(n, h, w, d)) return static_cast<int>(cudaErrorInvalidValue);
+                                   int h, int w, int d, int row0, int row1, void* stream) {
+  if (bad_shape(n, h, w, d) || row0 < 0 || row0 > row1 || row1 > h)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_channels(channels, [&](auto c) {
     return fwd_bf16<decltype(c)::value>(
@@ -1703,7 +1714,7 @@ extern "C" int nb1d_train_fwd_bf16(int channels, const void* x, const void* w31,
         static_cast<const float*>(b31), static_cast<const bf16*>(w13),
         static_cast<const bf16*>(rap), static_cast<const float*>(pa),
         static_cast<const float*>(pb), static_cast<bf16*>(y), static_cast<float*>(stats),
-        static_cast<float*>(scratch), n, h, w, d, s);
+        static_cast<float*>(scratch), n, h, w, d, row0, row1, s);
   }));
 }
 

@@ -12,16 +12,19 @@ batch through `loader.batch_indices` (same permutation, drop-last and
 padding rule), so a cached run reproduces the streamed run's batches
 exactly.
 
-The mesh arm (`DeviceCache(mesh=...)` with D > 1 ranks, JAX's dataset
-sharded over the data axis): the rows, padded to a multiple of D, are split
-into D contiguous blocks and each rank holds its own, so a rank's cache is
-1/D of the dataset. A batch's rows reach the ranks that train on them
-through one all-gather of fixed shape per batch: each rank contributes the
-global batch's rows it owns (zeros elsewhere, images and labels packed as
-[B, H, W, 4]) and keeps its block of rows, each from the rank that owns
-it. Every rank must take part in every batch; the batches equal the sharded
-streaming Loader's (`Loader(shard=...)`). `HybridCache` is single device:
-a hybrid plan on a mesh streams (the Trainer).
+The mesh arm (`DeviceCache(mesh=...)` with D > 1 data indices, JAX's
+dataset sharded `P("data")` over the data axis and replicated over the
+spatial one): the rows, padded to a multiple of D, are split into D
+contiguous blocks and each rank holds the block of its data index, whole
+images, so a rank's cache is 1/D of the dataset. A batch's rows reach the
+ranks that train on them through one all-gather of fixed shape per batch
+over the D ranks of the rank's spatial index (`mesh.data_group`): each
+contributes the global batch's rows its data index owns (zeros elsewhere,
+images and labels packed as [B, H, W, 4]) and keeps its data index's block
+of rows, each from the rank that owns it. Every rank must take part in
+every batch; the batches equal the sharded streaming Loader's
+(`Loader(shard=...)`). `HybridCache` is single device: a hybrid plan on a
+mesh streams (the Trainer).
 """
 from __future__ import annotations
 
@@ -93,8 +96,8 @@ def _index(idx: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 class DeviceCache:
     """The whole dataset as uint8 tensors on `device` (None -> the CUDA card)
-    + deterministic epoch batching; with `mesh` (D > 1), this rank's block of
-    the rows (the module docstring)."""
+    + deterministic epoch batching; with `mesh` (D > 1), the block of the
+    rows of this rank's data index (the module docstring)."""
 
     def __init__(self, loader: Loader, device=None, mesh=None):
         self.device = resolve_device(device)
@@ -105,11 +108,12 @@ class DeviceCache:
         if self.mesh is None:
             self.images, self.labels = _upload(loader, range(self.n), self.device)
             return
-        if loader.shard != (self.mesh.rank, self.mesh.data):
-            raise ValueError(f"the mesh cache needs the loader of rank {self.mesh.rank}'s "
-                             f"rows, Loader(shard=({self.mesh.rank}, {self.mesh.data}))")
-        self.per_rank = -(-self.n // self.mesh.data)  # rows padded to a multiple of D
-        lo = self.mesh.rank * self.per_rank
+        i, d = self.mesh.data_index, self.mesh.data
+        if loader.shard != (i, d):
+            raise ValueError(f"the mesh cache needs the loader of data index {i}'s rows, "
+                             f"Loader(shard=({i}, {d}))")
+        self.per_rank = -(-self.n // d)  # rows padded to a multiple of D
+        lo = i * self.per_rank
         self.images, self.labels = _upload(loader, range(lo, min(lo + self.per_rank, self.n)),
                                            self.device, self.per_rank)
 
@@ -136,7 +140,7 @@ class DeviceCache:
     def _take_sharded(self, idx: np.ndarray):
         mesh, dev = self.mesh, self.device
         owner, local = np.divmod(idx, self.per_rank)
-        mine = np.nonzero(owner == mesh.rank)[0]
+        mine = np.nonzero(owner == mesh.data_index)[0]
         h, w = self.loader.height, self.loader.width
         packed = torch.zeros((len(idx), h, w, 4), dtype=torch.uint8, device=dev)
         if len(mine):
@@ -145,9 +149,9 @@ class DeviceCache:
             packed[at, ..., :3] = self.images.index_select(0, rows)
             packed[at, ..., 3] = self.labels.index_select(0, rows)
         gathered = [torch.empty_like(packed) for _ in range(mesh.data)]
-        dist.all_gather(gathered, packed, group=mesh.group)
+        dist.all_gather(gathered, packed, group=mesh.data_group)
         b = len(idx) // mesh.data
-        pos = np.arange(mesh.rank * b, (mesh.rank + 1) * b)
+        pos = np.arange(mesh.data_index * b, (mesh.data_index + 1) * b)
         out = torch.stack(gathered)[_index(owner[pos], dev), _index(pos, dev)]
         return out[..., :3].contiguous(), out[..., 3].contiguous()
 

@@ -11,10 +11,12 @@ Training drops the last partial batch (`drop_last`, the default with
 shuffling; the reference kept it, a <=0.2% difference in seen samples per
 epoch). Evaluation keeps it, padded, with a validity mask.
 
-Data-parallel (`shard=(rank, D)`): the Loader plans the global batches of
+Data-parallel (`shard=(i, D)`): the Loader plans the global batches of
 `batch_size` as one process does (the same permutation, drop-last and
-padding rule) and decodes only this rank's contiguous block of each, so
-the ranks' batches together are the single process's batch.
+padding rule) and decodes only the contiguous block of each of data index
+i, so the D blocks together are the single process's batch. The ranks of
+one data index on a spatial mesh load the same whole images and each keeps
+its rows after augment (train/loop.py).
 """
 from __future__ import annotations
 

@@ -11,11 +11,12 @@ Port of mdilss_tpu/losses.py:33-68, on the port's spatial logits [N, H, W, C]
     p_t * (log p_t - p_s), with 0 * log 0 = 0.
   * `kld_corrected`: the intended KL(p_t || p_s), mean of p_t * (log p_t - log p_s).
 
-Data-parallel (`mesh`, parallel/mesh.py): a rank's loss is its share of the
+Sharded (`mesh`, parallel/mesh.py): a rank's loss is its share of the
 global batch's, so the shares sum to it and their gradients sum to its
 gradient. The CE's share is this rank's sum of w * nll over the global sum
-of w (all-reduced, no gradient); the KLDs' is this rank's mean over D
-(`kld_share`: the ranks hold equal blocks).
+of w (all-reduced over every rank of the mesh, no gradient); the KLDs' is
+this rank's mean over D * S (`kld_share`: the ranks hold equal blocks of
+images and of rows).
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 def kld_share(kld: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's share of the global batch's KLD from its local mean `kld`."""
-    return kld / mesh.data if active(mesh) else kld
+    return kld / mesh.size if active(mesh) else kld
 
 
 def kld_faithful(student_logits: torch.Tensor, teacher_logits: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,15 @@ so a released state dict loads with strict=True:
 In training mode (`module.train()`) every BN normalises with the batch
 statistics and updates its running statistics in place, in forward order.
 
+On a spatial mesh (`ops.norm.synced` with S > 1, each rank a slab of each
+image's rows) every plain conv with vertical extent takes the rows it reads
+of its neighbours (`parallel.halo.pad_rows`, zero rows past the image's
+edge) and convolves with no vertical padding of its own: the downsampler's
+3x3 s2 conv 1 row above, the upsampler's transposed 3x3 s2 conv 1 row below,
+an ablation block's 3x1 convs d rows each side. The nb1d kernels' wrappers
+take their own halos (`ops.nb1d_infer`, `ops.nb1d_train`); the 2x2 max pool,
+the 1x1 convs and the head's k2s2 transposed conv need none.
+
 Parameters live in float32; each op casts them to the activation type, as
 the JAX convs do (`w.astype(x.dtype)`), so a bf16 forward needs no copy of
 the model. Activations are NCHW in torch.channels_last memory format.
@@ -33,7 +42,8 @@ from torch import nn
 from ..ops.dropout import dropout2d
 from ..ops.nb1d_infer import nb1d_infer, prepare_operands
 from ..ops.nb1d_train import nb1d_train_apply
-from ..ops.norm import BN_EPS, batch_norm_eval, batch_norm_train
+from ..ops.norm import BN_EPS, batch_norm_eval, batch_norm_train, sync_mesh
+from ..parallel.halo import pad_rows, spatial_of
 
 
 def _bn(ch: int) -> nn.BatchNorm2d:
@@ -49,15 +59,35 @@ def _batch_norm(module: nn.Module, x: torch.Tensor, bn: nn.BatchNorm2d) -> torch
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """`conv` in x's type; on a spatial mesh with the rows its output rows
+    read above (its padding) and below the slab."""
     dt = x.dtype
-    return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride, conv.padding,
-                    conv.dilation)
+    w, b = conv.weight.to(dt), conv.bias.to(dt)
+    (kh, _), (sh, _), (ph, pw), (dh, _) = (conv.kernel_size, conv.stride, conv.padding,
+                                           conv.dilation)
+    sp = spatial_of(sync_mesh())
+    bottom = (kh - 1) * dh - ph - sh + 1
+    if sp is None or ph == bottom == 0:
+        return F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation)
+    return F.conv2d(pad_rows(x, ph, bottom, sp), w, b, conv.stride, (0, pw), conv.dilation)
 
 
 def _conv_t(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
+    """`conv` in x's type; on a spatial mesh with the input rows above and
+    below the slab that its output rows receive from, cropped to the
+    slab's output rows."""
     dt = x.dtype
-    return F.conv_transpose2d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride,
-                              conv.padding, conv.output_padding)
+    w, b = conv.weight.to(dt), conv.bias.to(dt)
+    (kh, _), (sh, _), (ph, _), (dh, _) = (conv.kernel_size, conv.stride, conv.padding,
+                                          conv.dilation)
+    sp = spatial_of(sync_mesh())
+    top, bottom = max(0, ((kh - 1) * dh - ph) // sh), (ph - 1) // sh + 1
+    if sp is None or top == bottom == 0:
+        return F.conv_transpose2d(x, w, b, conv.stride, conv.padding, conv.output_padding)
+    h = x.shape[2]
+    out = F.conv_transpose2d(pad_rows(x, top, bottom, sp), w, b, conv.stride, conv.padding,
+                             conv.output_padding)
+    return out[:, :, top * sh:(top + h) * sh].contiguous(memory_format=torch.channels_last)
 
 
 class DownsamplerBlock(nn.Module):

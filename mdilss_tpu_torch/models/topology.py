@@ -85,8 +85,10 @@ def make_dropout_masks(np_rng: np.random.Generator, batch: int) -> dict:
 
 
 def shard_dropout_masks(drop_masks: dict | None, mesh) -> dict | None:
-    """This rank's rows of `make_dropout_masks(rng, B)` for the global batch
-    B (`parallel.shard_rows` along each mask's batch axis)."""
+    """The rows of `make_dropout_masks(rng, B)` for the global batch B of
+    this rank's data index (`parallel.shard_rows` along each mask's batch
+    axis): a mask is per image and channel, the same on every spatial rank
+    of the image."""
     if drop_masks is None:
         return None
     axes = {k: len(v) - 4 for k, v in dropout_mask_shapes(1).items()}

@@ -15,6 +15,13 @@ dispatcher picks by the tensors' device only; a CUDA tensor the kernel does
 not take raises, it never falls back to the plain version or to the other
 kernel.
 
+On a spatial mesh (`ops.norm.synced` with S > 1: this rank holds a slab of
+each image's rows) `nb1d_infer` takes 1 + d rows of its neighbours above
+and below once (`parallel.halo.exchange`), runs the same op on the padded
+slab and keeps the slab's rows: the halo's m, recomputed, covers the
+dilated pair's reach, and where the image ends the kernel zero-pads as on
+the whole image.
+
 `LAUNCHES` counts kernel launches (two per block), `LAUNCHES_BF16` the
 bfloat16 ones among them.
 """
@@ -27,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .norm import fold_bn
+from ..parallel.halo import exchange, spatial_of
+from .norm import fold_bn, sync_mesh
 
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
@@ -151,10 +159,16 @@ def nb1d_infer(x: torch.Tensor, ops: Nb1dOperands, dilated: int) -> torch.Tensor
     16/64/128) or raise. Goes through the custom op `mdilss::nb1d_infer`, so
     eager forwards and programs exported with torch.export take one route.
     Another device raises (the op's fake implementation would serve a meta
-    tensor)."""
+    tensor). On a spatial mesh, the op runs on x with 1 + `dilated` halo
+    rows each side (the module docstring)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nb1d_infer: unsupported device {x.device}")
-    return torch.ops.mdilss.nb1d_infer(x, *ops, dilated)
+    sp = spatial_of(sync_mesh())
+    if sp is None:
+        return torch.ops.mdilss.nb1d_infer(x, *ops, dilated)
+    xp, up, _ = exchange(x, 1 + dilated, 1 + dilated, sp)
+    out = torch.ops.mdilss.nb1d_infer(xp, *ops, dilated)
+    return out[:, :, up:up + x.shape[2]].contiguous(memory_format=torch.channels_last)
 
 
 # The block as a torch.library custom op: its CPU implementation is the plain

@@ -34,14 +34,24 @@ the JAX block does (nb1d_train.py:461-464, :496-520). `LAUNCHES_FWD` /
 `LAUNCHES_BWD` count kernel calls of `fwd_pair` / `bwd_pair` of every type,
 `LAUNCHES_FWD_BF16` / `LAUNCHES_BWD_BF16` the bfloat16 ones among them.
 
-Under `ops.norm.synced(mesh)` (data-parallel training) the glue computes
-the global batch's BN: the forward all-reduces K2's [2, C] sums before it
-forms each BN's statistics (so the pre-stage K2's second launch reads is
-global too), and the backward all-reduces the [2, C] sums over the batch
-that form each BN's input gradient, one collective per BN. The BN
-parameters' gradients it returns stay this rank's, as the conv weights'
-gradients from K3 do: `parallel.all_reduce_grads` sums them all once. The
-kernels are the same on every rank; the collectives sit between launches.
+Under `ops.norm.synced(mesh)` (sharded training) the glue computes the
+global batch's BN over every rank of the mesh: the forward all-reduces K2's
+[2, C] sums before it forms each BN's statistics (so the pre-stage K2's
+second launch reads is global too), and the backward all-reduces the
+[2, C] sums over the batch that form each BN's input gradient, one
+collective per BN. The BN parameters' gradients it returns stay this
+rank's, as the conv weights' gradients from K3 do:
+`parallel.all_reduce_grads` sums them all once. The kernels are the same on
+every rank; the collectives sit between launches.
+
+On a spatial mesh (S > 1, this rank a slab of h rows of each image) each
+pair runs on its slab with its neighbours' rows around it
+(`parallel.halo.exchange`): 1 row for the first pair, d for the dilated
+one, the halo rows' c and y recomputed, and its y cropped to the slab. K2's
+stats count the slab's rows only (its stats window, `rows`), never the
+halo's. K3 runs unchanged on the padded input with gy zero on the halo
+rows: its weight gradients are then this rank's partials, and the halo rows
+of du go back to their owners (`exchange_adjoint`).
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ import torch.nn.functional as F
 from . import _build
 from .dropout import drop_scale
 from .nb1d_infer import check_not_ablation, stack_taps, unstack_taps
+from ..parallel.halo import exchange, exchange_adjoint, spatial_of
 from ..parallel.mesh import all_reduce_
 from .norm import BN_EPS, sync_mesh, update_running_stats
 
@@ -104,16 +115,17 @@ def _plain_operands(x, w31, b31, w13, rap, pre):
     return rw(w31), b31.detach().to(acc), rw(w13), rw(rap), pre
 
 
-def fwd_pair_plain(x, w31, b31, w13, rap, pre, d: int):
+def fwd_pair_plain(x, w31, b31, w13, rap, pre, d: int, rows: tuple[int, int] | None = None):
     """(y in x's type, stats [2, C] = sum and sum of squares of y over N, H,
-    W in the compute type). bfloat16 x: float32 arithmetic on the bf16
-    values, u, c and y rounded to bf16 where the kernel rounds them, the
+    W in the compute type; over the rows rows[0] .. rows[1] - 1 of H only
+    with `rows`, the stats window). bfloat16 x: float32 arithmetic on the
+    bf16 values, u, c and y rounded to bf16 where the kernel rounds them, the
     stats from the rounded y."""
     dt, acc = x.dtype, _acc(x.dtype)
     w31, b31, w13, rap, pre = _plain_operands(x, w31, b31, w13, rap, pre)
     u = _pre(x.to(acc), pre).to(dt).to(acc)
     y = _pair(u, w31, b31, w13, rap, d, dt).to(dt)
-    yf = y.to(acc)
+    yf = y.to(acc) if rows is None else y[:, :, rows[0]:rows[1]].to(acc)
     return y, torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
 
 
@@ -146,7 +158,7 @@ def _library() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for sfx in _ENTRY.values():
             fwd, bwd = getattr(lib, "nb1d_train_fwd" + sfx), getattr(lib, "nb1d_train_bwd" + sfx)
-            fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
             fwd.restype = i
             bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
             bwd.restype = i
@@ -226,16 +238,21 @@ def _raise_on(lib, rc: int, what: str, x: torch.Tensor, d: int) -> None:
                            f"dilation {d}")
 
 
-def fwd_pair(x, w31, b31, w13, rap, pre, d: int):
+def fwd_pair(x, w31, b31, w13, rap, pre, d: int, rows: tuple[int, int] | None = None):
     """K2: (y [N,C,H,W] in x's type, stats [2, C] float32) of the pair on u =
-    pre(x) (`pre` = (a, b) per-channel, or None). CPU tensor -> plain version;
-    CUDA tensor -> the kernel of its type (float32 or bfloat16) or raise."""
+    pre(x) (`pre` = (a, b) per-channel, or None); the stats over the rows
+    rows[0] .. rows[1] - 1 of H with `rows` (a slab between its halo rows),
+    else over all. CPU tensor -> plain version; CUDA tensor -> the kernel of
+    its type (float32 or bfloat16) or raise."""
     global LAUNCHES_FWD, LAUNCHES_FWD_BF16
     if x.device.type == "cpu":
-        return fwd_pair_plain(x, w31, b31, w13, rap, pre, d)
+        return fwd_pair_plain(x, w31, b31, w13, rap, pre, d, rows)
     _check_act("x", x)
     if d < 1:
         raise ValueError(f"dilation {d} < 1")
+    row0, row1 = (0, x.shape[2]) if rows is None else rows
+    if not 0 <= row0 <= row1 <= x.shape[2]:
+        raise ValueError(f"stats rows {rows} outside the {x.shape[2]} rows of x")
     w31s, b31v, w13s, rapm, pa, pb = _kernel_operands(x, w31, b31, w13, rap, pre)
     lib = _library()
     n, c, h, w = x.shape
@@ -247,7 +264,7 @@ def fwd_pair(x, w31, b31, w13, rap, pre, d: int):
     with torch.cuda.device(x.device):
         rc = getattr(lib, "nb1d_train_fwd" + sfx)(
             c, _ptr(x), _ptr(w31s), _ptr(b31v), _ptr(w13s), _ptr(rapm), _ptr(pa), _ptr(pb),
-            _ptr(y), _ptr(stats), _ptr(scratch), n, h, w, d,
+            _ptr(y), _ptr(stats), _ptr(scratch), n, h, w, d, row0, row1,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_on(lib, rc, "nb1d_train_fwd" + sfx, x, d)
@@ -316,11 +333,21 @@ def _col(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1)
 
 
+def _slab(t: torch.Tensor, top: int, h: int) -> torch.Tensor:
+    """The h rows of t after its `top` halo rows, channels_last."""
+    return t[:, :, top:top + h].contiguous(memory_format=torch.channels_last)
+
+
+def _zero_halo(g: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
+    """g with `top` zero rows above and `bottom` below, channels_last."""
+    return F.pad(g, (0, 0, top, bottom)).contiguous(memory_format=torch.channels_last)
+
+
 def _bn_backward(g_z, yhat, scale_inv, count: int, dt: torch.dtype, mesh=None):
     """Batch-statistics BN backward: (g_y in the activation type `dt`, d_scale,
     d_bias) for z = scale*yhat + bias, computed in g_z's type. With `mesh`
     the statistics are the global batch's (`count` its pixels): g_y takes the
-    sums over the data group, while d_scale and d_bias stay this rank's."""
+    sums over the mesh, while d_scale and d_bias stay this rank's."""
     dbias = g_z.sum((0, 2, 3))
     dscale = (g_z * yhat).sum((0, 2, 3))
     sums = (dbias, dscale) if mesh is None else all_reduce_(torch.stack([dbias, dscale]), mesh)
@@ -337,7 +364,8 @@ class Nb1dTrain(torch.autograd.Function):
     rap1/rap2 are [C, C] or None (plain block); mask_scaled is the [N, C, 1, 1]
     dropout multiplier (in the compute type) or None; mu/var are the batch
     statistics of the pre-BN activations without the absorbed biases (not
-    differentiable). x, out and the pairs' y1, y2 and du are in x's type
+    differentiable), of the global batch under `ops.norm.synced` (with the
+    row halos of a spatial mesh). x, out and the pairs' y1, y2 and du are in x's type
     (float32 or bfloat16, float64 for a plain yardstick); the glue computes in
     at least float32 and rounds out, g_y1, g_y2 and dx back to x's type, as
     nb1d_train.py:461-464, :496-520 do. `pairs` is
@@ -351,43 +379,72 @@ class Nb1dTrain(torch.autograd.Function):
                 mask_scaled, d, eps, pairs):
         fwd = pairs[0]
         mesh = sync_mesh()
+        sp = spatial_of(mesh)
         n, c, h, w = x.shape
-        count = n * h * w * (1 if mesh is None else mesh.data)
-        y1, st1 = fwd(x, w31a, b31a, w13a, rap1, None, 1)
+        count = n * h * w * (1 if mesh is None else mesh.size)
+        if sp is None:
+            xp, halos = x, None
+            y1, st1 = fwd(x, w31a, b31a, w13a, rap1, None, 1)
+        else:  # the pairs on the slab and its halo rows, the stats over the slab
+            xp, u1, d1 = exchange(x, 1, 1, sp)
+            y1p, st1 = fwd(xp, w31a, b31a, w13a, rap1, None, 1, (u1, u1 + h))
+            y1 = _slab(y1p, u1, h)
+            del y1p
         mu1, var1 = _batch_stats(all_reduce_(st1, mesh), count)
         inv1 = torch.rsqrt(var1 + eps)
         a1 = g1 * inv1
         b1 = be1 - mu1 * g1 * inv1
-        y2, st2 = fwd(y1, w31b, b31b, w13b, rap2, (a1, b1), d)
+        if sp is None:
+            y1h = y1
+            y2, st2 = fwd(y1, w31b, b31b, w13b, rap2, (a1, b1), d)
+        else:
+            y1h, u2, d2 = exchange(y1, d, d, sp)
+            halos = (u1, d1, u2, d2)
+            y2p, st2 = fwd(y1h, w31b, b31b, w13b, rap2, (a1, b1), d, (u2, u2 + h))
+            y2 = _slab(y2p, u2, h)
+            del y1, y2p
         mu2, var2 = _batch_stats(all_reduce_(st2, mesh), count)
         inv2 = torch.rsqrt(var2 + eps)
         z2 = y2 * _col(g2 * inv2) + _col(be2 - mu2 * g2 * inv2)
         if mask_scaled is not None:
             z2 = z2 * mask_scaled
         out = F.relu(z2 + x).to(x.dtype)
-        ctx.save_for_backward(x, y1, y2, out, mu1, inv1, a1, b1, mu2, inv2,
+        # on a spatial mesh the pairs' padded inputs, which K3 reruns on
+        ctx.save_for_backward(xp, y1h, y2, out, mu1, inv1, a1, b1, mu2, inv2,
                               w31a, b31a, w13a, rap1, g1, w31b, b31b, w13b, rap2, g2, mask_scaled)
         ctx.d, ctx.pairs, ctx.mesh, ctx.count = d, pairs, mesh, count
+        ctx.sp, ctx.halos, ctx.h = sp, halos, h
         ctx.mark_non_differentiable(mu1, var1, mu2, var2)
         return out, mu1, var1, mu2, var2
 
     @staticmethod
     def backward(ctx, g_out, *_):
-        (x, y1, y2, out, mu1, inv1, a1, b1, mu2, inv2,
+        (xp, y1h, y2, out, mu1, inv1, a1, b1, mu2, inv2,
          w31a, b31a, w13a, rap1, g1, w31b, b31b, w13b, rap2, g2, mask_scaled) = ctx.saved_tensors
-        bwd, mesh, count = ctx.pairs[1], ctx.mesh, ctx.count
-        dt, acc = x.dtype, _acc(x.dtype)
-        zero = torch.zeros((), dtype=acc, device=x.device)
+        bwd, mesh, count, sp, h = ctx.pairs[1], ctx.mesh, ctx.count, ctx.sp, ctx.h
+        u1, d1, u2, d2 = (0, 0, 0, 0) if sp is None else ctx.halos
+        dt, acc = xp.dtype, _acc(xp.dtype)
+        zero = torch.zeros((), dtype=acc, device=xp.device)
         g_f = torch.where(out > 0, g_out.to(acc), zero)
         g_z2 = g_f if mask_scaled is None else g_f * mask_scaled
         g_y2, dg2, dbe2 = _bn_backward(g_z2, (y2 - _col(mu2)) * _col(inv2), g2 * inv2, count,
                                        dt, mesh)
-        dm, dw31b, db31b, dw13b, drap2 = bwd(y1, g_y2, w31b, b31b, w13b, rap2, (a1, b1), ctx.d)
+        if sp is not None:
+            g_y2 = _zero_halo(g_y2, u2, d2)
+        dm, dw31b, db31b, dw13b, drap2 = bwd(y1h, g_y2, w31b, b31b, w13b, rap2, (a1, b1), ctx.d)
+        if sp is None:
+            y1 = y1h
+        else:
+            dm, y1 = exchange_adjoint(dm, h, ctx.d, ctx.d, sp), _slab(y1h, u2, h)
         z1 = y1 * _col(a1) + _col(b1)
         g_z1 = torch.where(z1 > 0, dm.to(acc), zero)
         g_y1, dg1, dbe1 = _bn_backward(g_z1, (y1 - _col(mu1)) * _col(inv1), g1 * inv1, count,
                                        dt, mesh)
-        dx_c, dw31a, db31a, dw13a, drap1 = bwd(x, g_y1, w31a, b31a, w13a, rap1, None, 1)
+        if sp is not None:
+            g_y1 = _zero_halo(g_y1, u1, d1)
+        dx_c, dw31a, db31a, dw13a, drap1 = bwd(xp, g_y1, w31a, b31a, w13a, rap1, None, 1)
+        if sp is not None:
+            dx_c = exchange_adjoint(dx_c, h, 1, 1, sp)
         dx = (g_f + dx_c.to(acc)).to(dt)
         return (dx, dw31a, db31a, dw13a, drap1, dg1, dbe1,
                 dw31b, db31b, dw13b, drap2, dg2, dbe2, None, None, None, None)
@@ -408,7 +465,7 @@ def nb1d_train_apply(block, x: torch.Tensor, task: int | None, dropprob: float =
     `pairs`); the output has x's type, and the dropout multiplier is in the
     compute type (float32 for a bf16 x, as blocks.py:388 makes it). Under
     `ops.norm.synced` the statistics, and the count the running variance is
-    unbiased with, are the global batch's."""
+    unbiased with, are the global batch's (over data x spatial)."""
     check_not_ablation(block)
     if dropprob > 0.0 and drop_mask is None:
         raise ValueError("nb1d_train_apply needs a host drop_mask when dropprob > 0 "
@@ -435,7 +492,7 @@ def nb1d_train_apply(block, x: torch.Tensor, task: int | None, dropprob: float =
         BN_EPS, pairs,
     )
     mesh = sync_mesh()
-    count = n * h * w * (1 if mesh is None else mesh.data)
+    count = n * h * w * (1 if mesh is None else mesh.size)
     with torch.no_grad():
         update_running_stats(bn1, mu1 + bias1, var1, count)
         update_running_stats(bn2, mu2 + bias2, var2, count)

@@ -10,14 +10,16 @@ with the unbiased one, once per forward: while a rematerialised region
 replays its forward in the backward (`replaying`, entered by
 `models.topology._ckpt`), `update_running_stats` does nothing.
 
-Under `synced(mesh)` (the data-parallel steps, `parallel.mesh`) training BN
-uses the global batch's statistics, as the JAX package's BN does under a
-mesh (mdilss_tpu/ops/norm.py:54-63 over the sharded batch): the mean is the
-mean of the ranks' means, then the variance the mean of the ranks' mean
-squared deviations from it (equal blocks, so these are the global two-pass
-statistics), each a differentiable all-reduce, and the running statistics
-take the unbiased variance at the global count. The training block's glue
-(`ops.nb1d_train`) reads the same context.
+Under `synced(mesh)` (the sharded steps, `parallel.mesh`) training BN uses
+the global batch's statistics, as the JAX package's BN does under a mesh
+(mdilss_tpu/ops/norm.py:54-63 over the sharded batch): the mean is the mean
+of the ranks' means over every rank of the mesh, data x spatial, then the
+variance the mean of the ranks' mean squared deviations from it (equal
+blocks of images and of rows, so these are the global two-pass statistics),
+each a differentiable all-reduce, and the running statistics take the
+unbiased variance at the global count. The training block's glue
+(`ops.nb1d_train`) and the row halos of the convs (`parallel.halo`, through
+`models.blocks` and the kernels' wrappers) read the same context.
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ def replaying():
 
 
 class _Sync(threading.local):
-    mesh = None  # the data mesh whose batch statistics this thread's BN computes
+    mesh = None  # the mesh whose batch statistics this thread's BN computes
 
 
 _SYNC = _Sync()
@@ -87,8 +89,9 @@ _SYNC = _Sync()
 @contextlib.contextmanager
 def synced(mesh):
     """Training BN (and the training block's glue) in this thread computes
-    the statistics of the global batch over `mesh`'s data group (a mesh
-    without a group, or None: this rank's batch, as outside the context).
+    the statistics of the global batch over `mesh` (a mesh without a group,
+    or None: this rank's batch, as outside the context), and the convs
+    exchange their row halos over a spatial mesh.
     Per thread: the backward of a region's replay re-enters it with the
     forward's mesh (`models.topology._ckpt`), and the training block keeps
     its mesh for its own backward."""
@@ -106,9 +109,9 @@ def sync_mesh():
 
 
 def mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The mean over the data group's ranks of each rank's `t`
-    (differentiable); `t` itself without a mesh."""
-    return t if mesh is None else psum(t, mesh) / mesh.data
+    """The mean over the mesh's ranks of each rank's `t` (differentiable);
+    `t` itself without a mesh."""
+    return t if mesh is None else psum(t, mesh) / mesh.size
 
 
 @torch.no_grad()
@@ -133,7 +136,7 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = mean_over_ranks(xf.mean((0, 2, 3)), mesh)
     var = mean_over_ranks((xf - mean.view(1, -1, 1, 1)).square().mean((0, 2, 3)), mesh)
-    count = x.numel() // x.shape[1] * (1 if mesh is None else mesh.data)
+    count = x.numel() // x.shape[1] * (1 if mesh is None else mesh.size)
     update_running_stats(bn, mean, var, count)
     inv = torch.rsqrt(var + bn.eps) * bn.weight.to(xf.dtype)
     shift = bn.bias.to(xf.dtype) - mean * inv

@@ -8,6 +8,7 @@ from .mesh import (
     make_mesh,
     psum,
     replicate,
+    shard_height,
     shard_rows,
 )
 
@@ -17,6 +18,7 @@ __all__ = [
     "make_mesh",
     "replicate",
     "shard_rows",
+    "shard_height",
     "all_reduce_",
     "psum",
     "all_reduce_grads",

@@ -38,8 +38,7 @@ confusion matrices are int64 on the device and summed there; checkpoints
 are torch files (`ckpt/torch_io.py`); a model that does not fit the protocol
 raises, and so does `fused_train` with an ablation model (the JAX package's
 fused paths cover the RAP and plain encoders only,
-mdilss_tpu/models/topology.py:197-200). Spatial sharding raises
-NotImplementedError (ROADMAP A11). `remat=True` gives every step maker
+mdilss_tpu/models/topology.py:197-200). `remat=True` gives every step maker
 `remat` and `remat_prev` (JAX's Trainer rematerialises the previous-task forwards
 whatever `remat` is); the trained state is the same either way.
 
@@ -47,24 +46,32 @@ A dataset cache that cannot be built (the card's memory full, say) is
 skipped as JAX skips it: the Trainer prints why, streams that dataset and
 charges nothing to the budget.
 
-Data-parallel (the JAX Trainer's mesh arms, mdilss_tpu/train/loop.py:189-265):
-the Trainer builds its mesh from `cfg.batch_size` (`parallel.make_mesh`:
-one process per card under torchrun, the data group the first
-gcd(batch_size, world) ranks). Each rank of the data group decodes, caches
-and trains on its block of every global batch; every rank draws the global
-batch's augment and dropout masks and keeps its rows, so the generators'
-states agree on every rank and in the checkpoint; the steps sum the
-gradients and reduce BN and the metrics (`train/steps.py`), so every rank
-holds the same weights and history. Only rank 0 writes the run's files
-(opts, checkpoints, best/, the logs, a profile), and the group waits for it
+Sharded (the JAX Trainer's mesh arms, mdilss_tpu/train/loop.py:189-265):
+the Trainer builds its mesh from `cfg.batch_size` and `cfg.spatial_shards`
+(`parallel.make_mesh`: one process per card under torchrun; S =
+spatial_shards must divide the world, JAX's ValueError; the mesh the first
+D * S ranks, D = gcd(batch_size, world / S)). Each rank of the mesh decodes
+and caches the images of its data index and trains on its block of every
+global batch: every rank draws the global batch's augment and dropout masks
+and keeps its data index's images (and masks), augments them at full height
+and keeps its spatial index's rows of the images and labels, so the
+generators' states agree on every rank and in the checkpoint; validation
+batches split the same way. The steps sum the gradients and reduce BN and
+the metrics, and the convs exchange row halos (`train/steps.py`), so every
+rank holds the same weights and history. Only rank 0 writes the run's files
+(opts, checkpoints, best/, the logs, a profile), and the mesh waits for it
 after each checkpoint; every rank loads on resume. The device caches on a
-mesh hold 1/D of the dataset each: the budget is multiplied by D and each
-cache charged 1/D of its bytes, and a dataset that would need a hybrid
-cache streams; the ranks agree on each cache, or all stream. Ranks outside
-the data group build nothing and return rank 0's result from `fit`.
-`fused_train` with D > 1 raises ValueError, as JAX refuses it; the port's
-blocks run the fused kernels on a mesh all the same (their statistics
-reduced in the glue, `ops.nb1d_train`).
+mesh hold 1/D of the dataset each (the rows of the data index, whole
+images, the same on each spatial rank, JAX's `P("data")`): the budget is
+multiplied by D and each cache charged 1/D of its bytes, and a dataset that
+would need a hybrid cache streams; the ranks agree on each cache, or all
+stream. Ranks outside the mesh build nothing and return rank 0's result
+from `fit`. `fused_train` on more than one rank raises ValueError, as JAX
+refuses it; the port's blocks run the fused kernels on a mesh all the same
+(their statistics reduced in the glue, `ops.nb1d_train`). The image height
+must split into S slabs at every level of the encoder, H % (8 S) == 0, or
+the Trainer raises ValueError (GSPMD pads uneven shards; the port does
+not).
 
 `compute_dtype="bfloat16"` trains as the JAX package's bf16 Trainer does:
 augment writes bf16 images, and every train and eval forward (student,
@@ -98,7 +105,7 @@ from ..models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP
 from ..models.erfnet_ablations import REFERENCE_NAMES
 from ..models.topology import make_dropout_masks, shard_dropout_masks
 from ..parallel.mesh import (active, all_reduce_, barrier, broadcast_object, make_mesh,
-                             replicate, shard_rows)
+                             replicate, shard_height, shard_rows)
 from ..utils.logging import MetricLogger, getColorEntry
 from ..utils.profiling import StepTracer
 from . import steps
@@ -118,10 +125,9 @@ OLD_EVAL_PROTOCOLS = ("step2", "step3", "multitask", "ft", "fe")
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item it waits for, for
-    what the port's Trainer does not run yet, and ValueError for a model
-    that does not fit the protocol or a compute_dtype other than float32
-    and bfloat16."""
+    """Raise ValueError for a model that does not fit the protocol, an
+    ablation model with `fused_train`, or a compute_dtype other than
+    float32 and bfloat16."""
     if cfg.model not in RAP_MODELS and cfg.model not in MULTIHEAD_MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.protocol not in RAP_PROTOCOLS + MULTIHEAD_PROTOCOLS:
@@ -136,10 +142,21 @@ def check_supported(cfg: TrainConfig) -> None:
             f"fused_train with model {cfg.model!r}: the fused paths cover the rap/plain "
             f"encoders only, not {REFERENCE_NAMES[cfg.model]!r}")
     steps.compute_dtype_of(cfg.compute_dtype)  # float32 or bfloat16, else ValueError
-    if cfg.spatial_shards != 1:
-        raise NotImplementedError(
-            f"spatial_shards={cfg.spatial_shards}: the port shards the batch only (one "
-            "process per card under torchrun); the spatial axis waits for ROADMAP A11")
+
+
+# the encoder's three downsamplers halve the rows: each level's rows split evenly
+SPATIAL_MULTIPLE = 8
+
+
+def check_height(cfg: TrainConfig, spatial: int) -> None:
+    """ValueError unless the image height splits into `spatial` slabs at
+    every level of the encoder (a deliberate deviation: GSPMD pads uneven
+    shards)."""
+    if spatial > 1 and cfg.height % (SPATIAL_MULTIPLE * spatial):
+        raise ValueError(
+            f"--spatial-shards {spatial} needs a height divisible by "
+            f"{SPATIAL_MULTIPLE * spatial} ({SPATIAL_MULTIPLE} x the shards: the encoder's "
+            f"three downsamplers halve the rows of every slab), not {cfg.height}")
 
 
 def task_stacked_model(model: str, num_classes) -> torch.nn.Module:
@@ -170,7 +187,9 @@ class Trainer:
     """`Trainer(cfg, teacher=..., init_state=..., device=None).fit()`.
 
     `device` None -> the CUDA card (raises without one; cuda:LOCAL_RANK under
-    torchrun); "cpu" runs the plain versions (gloo under torchrun).
+    torchrun); "cpu" runs the plain versions (gloo under torchrun). A
+    `cfg.spatial_shards` that does not divide the processes raises JAX's
+    ValueError, as does a height that does not split (`check_height`).
     `init_state`: the student's initial weights as a reference-grammar state
     dict of the configuration's model (`ckpt.from_jax`,
     `ckpt.torch_io.load_state`); None -> `init_model`.
@@ -186,9 +205,11 @@ class Trainer:
         if cfg.protocol in ("step2", "step3") and teacher is None:
             raise ValueError(f"protocol {cfg.protocol} distils from a teacher: pass teacher=")
         self.cfg = cfg
-        self.mesh = make_mesh(cfg.batch_size, device=resolve_device(device))
+        self.mesh = make_mesh(cfg.batch_size, spatial=cfg.spatial_shards,
+                              device=resolve_device(device))
         self.device = self.mesh.device
-        if cfg.fused_train and self.mesh.data > 1:
+        check_height(cfg, self.mesh.spatial)
+        if cfg.fused_train and self.mesh.size > 1:
             # JAX's refusal (mdilss_tpu/train/loop.py:257-265); the port's blocks
             # reduce their statistics in the glue and run the kernels all the same
             raise ValueError(
@@ -203,7 +224,7 @@ class Trainer:
         model = init_model(cfg)
         if init_state is not None:
             model.load_state_dict(init_state, strict=True)
-        if not self.mesh.member:  # outside the data group: fit() waits for rank 0's result
+        if not self.mesh.member:  # outside the mesh: fit() waits for rank 0's result
             return
         self.ts = steps.init_train_state(replicate(model.to(self.device), self.mesh))
         self.teacher = None if teacher is None else replicate(teacher.to(self.device), self.mesh)
@@ -242,7 +263,7 @@ class Trainer:
     def _build_data(self):
         cfg = self.cfg
 
-        shard = (self.mesh.rank, self.mesh.data)
+        shard = (self.mesh.data_index, self.mesh.data)  # whole images of this data index
 
         def mk(name, subset, shuffle):
             return Loader(self._source(name, subset), batch_size=cfg.batch_size,
@@ -261,7 +282,7 @@ class Trainer:
         """Byte budget of one device for the device-resident dataset caches:
         half of the card's memory (`torch.cuda.mem_get_info`'s total), 1 GiB
         on the CPU, an explicit integer, or 0 ("off"); the smallest over the
-        data group's ranks, so they plan the same caches."""
+        mesh's ranks, so they plan the same caches."""
         budget = self._own_cache_budget()
         if active(self.mesh):
             t = torch.tensor([budget], dtype=torch.int64, device=self.device)
@@ -402,7 +423,7 @@ class Trainer:
         print(f"resumed from epoch {epoch} (best_acc {self.best_acc:.4f})")
 
     def _save(self, subdir: str, epoch: int) -> None:
-        """Rank 0 writes the checkpoint; the data group waits for it."""
+        """Rank 0 writes the checkpoint; the mesh waits for it."""
         if self._writer:
             torch_io.save(os.path.join(self.cfg.savedir, subdir), epoch, self.ts,
                           best_acc=self.best_acc, aug_state=self.aug_gen.get_state())
@@ -466,13 +487,15 @@ class Trainer:
                    cms: list):
         cfg = self.cfg
         self._tracer.tick()
-        # the global batch's draws on every rank, this rank's rows of them
+        # the global batch's draws on every rank, this rank's images of them,
+        # augmented whole (a translate moves rows across the slabs), then its rows
         n = imgs.shape[0] * (self.mesh.data if active(self.mesh) else 1)
         flip, tx, ty = (shard_rows(t, self.mesh)
                         for t in transforms.draw_augment(self.aug_gen, n))
         x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
                                         num_classes=cfg.num_classes[task],
                                         out_dtype=steps.compute_dtype_of(cfg.compute_dtype))
+        x, y = shard_height(x, self.mesh, 1), shard_height(y, self.mesh, 1)
         step = self.train_steps[dataset]
         if cfg.protocol in ("step2", "step3"):
             n_fwd = 1 + cfg.current_task
@@ -515,7 +538,8 @@ class Trainer:
             # padded images -> all-ignore labels: they count in neither CE nor IoU
             valid = torch.as_tensor(valid).to(self.device, non_blocking=True)
             y = torch.where(valid[:, None, None], y, nc - 1)
-            loss, cm = estep(self.ts.model, x, y)
+            loss, cm = estep(self.ts.model, shard_height(x, self.mesh, 1),
+                             shard_height(y, self.mesh, 1))
             losses.append(loss)
             cms.append(cm)
             if len(cms) % 16 == 0 and len(cms) >= 32:

@@ -48,18 +48,21 @@ the BN statistics, the weight gradients and the losses stay float32 (the
 losses upcast the logits).
 
 `mesh` (`parallel.make_mesh`; None, or a mesh without a group: one process)
-makes every maker's step data-parallel, as the JAX package's steps are under
-`jit_*_step(step, mesh)`: the step takes this rank's rows of the global
-batch (and of its dropout masks), every forward runs under
-`ops.norm.synced(mesh)` (global BN statistics, the train-mode teacher's
-too), each rank's losses are its share of the global batch's
+makes every maker's step sharded, as the JAX package's steps are under
+`jit_*_step(step, mesh)` with images and labels `P("data", "spatial")`: the
+step takes this rank's block of the global batch (the images of its data
+index, `parallel.shard_rows`, and of those the rows of its spatial index,
+`parallel.shard_height`; the dropout masks by data index), every forward
+runs under `ops.norm.synced(mesh)` (global BN statistics, the train-mode
+teacher's too, and on a spatial mesh the convs' row halos), each rank's
+losses are its share of the global batch's
 (`losses.weighted_cross_entropy(mesh=)`, `losses.kld_share`), the gradients
 are summed over the ranks before each Adam step (`all_reduce_grads`, once
 per backward, so twice in the two-phase step), and the metrics are the
 global batch's ("loss", "ce", "kld" summed in one collective, "cm" in
 another), the same on every rank. The ranks start from the same weights
-(`parallel.replicate`) and so keep the same weights, bit for bit. At D = 1
-the step is the one without a mesh, bit for bit.
+(`parallel.replicate`) and so keep the same weights, bit for bit. With one
+rank the step is the one without a mesh, bit for bit.
 """
 from __future__ import annotations
 
@@ -121,8 +124,8 @@ def _train_cm(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> t
 
 
 def _global_metrics(metrics: dict, mesh) -> dict:
-    """The batch's metrics over the data group: the scalars summed (each
-    rank's is its share) in one collective, "cm" summed in another."""
+    """The batch's metrics over the mesh: the scalars summed (each rank's is
+    its share) in one collective, "cm" summed in another."""
     if mesh is None:
         return metrics
     keys = [k for k in metrics if k != "cm"]
@@ -373,13 +376,16 @@ def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="
     weighted CE, argmax and the [C, C] int64 confusion matrix, all on the
     model's device. `labels` are prepared (`data.transforms.prepare_batch`:
     the void label as the last class, whose weight is 0). `mesh`: the images
-    are this rank's rows, and the CE (its numerator and denominator summed
-    over the ranks) and the confusion matrix are the global batch's."""
+    and labels are this rank's block (its images, its rows of them), the
+    forward takes its row halos on a spatial mesh, and the CE (its numerator
+    and denominator summed over the ranks) and the confusion matrix are the
+    global batch's."""
     weight = _class_weight(class_weight)
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
     @no_tf32()
+    @synced(mesh)
     def step(model: nn.Module, images, labels):
         model.eval()
         logits = model(images.to(dt), task)

@@ -12,7 +12,9 @@ bf16 and K2 bf16 at the edges of their tiles against float64 and the plain
 bf16 pair, bitwise reruns there, and K2 bf16's c and y against K3's and K1's
 there; (remat) a block, a model's training forward and backward and the
 step-2 and step-3 steps with their remat regions, K2 rerun in the backward,
-bit for bit as without regions, the running statistics updated once.
+bit for bit as without regions, the running statistics updated once; (the
+spatial axis) K2's stats window, and K1, K2 and K3 on padded slabs of the
+encoder's 1/8 maps against the whole calls (`chip_smoke.padded_slab_case`).
 Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -1501,3 +1503,61 @@ def test_steps_on_one_nccl_rank_are_bitwise(cuda, deterministic_cudnn, world1_nc
         assert torch.equal(m_a[k], m_b[k]), k
     assert all(torch.equal(s_a[k], s_b[k]) for k in s_a)
     assert torch.equal(o_a.m, o_b.m) and torch.equal(o_a.v, o_b.v) and o_a.count == o_b.count
+
+
+# ---- the spatial axis (A11): K2's stats window; K1/K2/K3 on padded slabs ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,d,n,h,w", [(128, 16, 2, 20, 45), (64, 1, 6, 9, 150),
+                                       (16, 2, 1, 8, 300), (128, 4, 6, 64, 128)])
+def test_k2_stats_window(cuda, c, d, n, h, w, dtype):
+    """K2 with a stats window: the whole height bitwise the call without one;
+    any window leaves y bitwise as it was and sums the window's rows of it
+    (to 1e-6 of the largest sum, against float64 sums of the same y)."""
+    gen = torch.Generator().manual_seed(c + d + h)
+    w31, b31, w13, rap, pre = _pair_args(gen, c, True, True, cuda)
+    x = torch.randn(n, c, h, w, generator=gen).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)
+    y, st = T.fwd_pair(x, w31, b31, w13, rap, pre, d)
+    yw, stw = T.fwd_pair(x, w31, b31, w13, rap, pre, d, (0, h))
+    assert torch.equal(y, yw) and torch.equal(st, stw)
+    for r0, r1 in ((0, h // 2), (1, h - 1), (h // 2, h), (3, 3)):
+        yr, sr = T.fwd_pair(x, w31, b31, w13, rap, pre, d, (r0, r1))
+        assert torch.equal(yr, y)
+        rows = y[:, :, r0:r1].double()
+        want = torch.stack([rows.sum((0, 2, 3)), rows.square().sum((0, 2, 3))])
+        scale = want.abs().amax(1, keepdim=True).clamp_min(1e-30)
+        assert float(((sr.double() - want).abs() / scale).max()) <= 1e-6, (r0, r1)
+    with pytest.raises(ValueError, match="stats rows"):
+        T.fwd_pair(x, w31, b31, w13, rap, pre, d, (2, h + 1))
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n_sp", [2, 4, 8])
+@pytest.mark.parametrize("d", [2, 4, 8, 16])
+def test_pairs_on_padded_slabs_equal_the_whole_call(cuda, smoke, d, n_sp, dt):
+    """K2 (pre-stage and RAP) and K3 on S padded slabs of the encoder's 1/8
+    maps (6x128x64x128: 32 to 8 rows a slab against d = 2 .. 16), each slab
+    with d halo rows cut from the whole tensor, K2's stats over the slab's
+    rows and K3's gy zero on the halo rows, and K1 on slabs with 1 + d halo
+    rows: stitched (K3's du summed over the slabs that hold a row, its weight
+    gradients and K2's stats over the slabs) against the whole calls, within
+    chip_smoke.SP_TOL (y and K1's output per pixel, the sums to 1e-6 in
+    fp32)."""
+    r = smoke.padded_slab_case(d * 10 + n_sp, cuda, dt, d, n_sp)
+    j = 0 if dt == "f32" else 1
+    for k in ("y", "stats", "du", "wgrads", "k1"):
+        tol = smoke.SP_TOL["sums" if k in ("stats", "wgrads") else k][j]
+        assert r[k] <= tol, (k, r[k], tol)

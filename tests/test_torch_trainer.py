@@ -200,15 +200,27 @@ def test_device_cache_budget(tmp_path):
     ("step1", dict(model="erfnet_onlyRAP", compute_dtype="float16"), ValueError,
      "float32 or bfloat16"),
     ("step2", dict(model="erfnet_RA_series"), ValueError, "distils from a teacher"),
-    ("step3", dict(model="erfnet_RCM", spatial_shards=2), NotImplementedError, "A11"),
     ("step1", dict(compute_dtype="float64"), ValueError, "float32 or bfloat16"),
-    ("step1", dict(spatial_shards=2), NotImplementedError, "A11"),
-    ("step2", dict(remat=True, spatial_shards=2), NotImplementedError, "A11"),
 ])
 def test_what_waits_raises(tmp_path, make, kw, error, match):
     cfg = getattr(C, make)(savedir=str(tmp_path / "run"), **TINY, **kw)
     with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("make,kw", [
+    ("step3", dict(model="erfnet_RCM")),
+    ("step1", {}),
+    ("step2", dict(remat=True)),
+])
+def test_spatial_shards_must_divide_the_world(tmp_path, make, kw):
+    """spatial_shards=2 on one process raises JAX's ValueError (the shards
+    must divide the devices, mdilss_tpu/train/loop.py:249-254); on 4
+    processes the same configs build on a 2x2 mesh
+    (tests/test_torch_spatial_trainer.py)."""
+    cfg = getattr(C, make)(savedir=str(tmp_path / "run"), spatial_shards=2, **TINY, **kw)
+    with pytest.raises(ValueError, match="--spatial-shards 2 must divide the device count"):
+        Trainer(cfg, teacher=_teacher(make), device="cpu")
 
 
 def _teacher(protocol: str):

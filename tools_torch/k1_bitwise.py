@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K1's kernels (csrc/nb1d_infer.cu) and K2's and K3's bf16 kernels
-(csrc/nb1d_train.cu) of two checkouts of the port, bit for bit, on one NVIDIA
-card.
+"""K1's kernels (csrc/nb1d_infer.cu), K2's fp32 and bf16 kernels and K3's bf16
+kernels (csrc/nb1d_train.cu) of two checkouts of the port, bit for bit, on one
+NVIDIA card.
 
     python3 tools_torch/k1_bitwise.py ROOT_A ROOT_B [--seed 0]
 
@@ -10,16 +10,17 @@ root's own `ops/_build.py` (tools_torch/sass_compare.py `build`), loads the
 libraries with ctypes and calls, on the same random inputs, K1's C entry
 `nb1d_pair` (one conv pair of each of the 7 nb1d block shapes of a 512x1024
 forward at batch 1 and 6, in float32 and bfloat16, without and with the
-residual) and K2's `nb1d_train_fwd_bf16` (the same shapes at batch 6, with and
-without the pre-stage: y and the [2, C] stats) and K3's
-`nb1d_train_bwd_bf16` on the same inputs (du and the weight gradients).
-Prints, per case, whether the two outputs are equal bit for bit, and exits 1
-if any K1 output, K2 y or K3 output differs. K2's stats are float32 sums
-whose order is the design's (a partial per walker since the walker design of
-K2 bf16), so for them it prints the largest difference from the other
-checkout's relative to the largest value of each row (sum, sum of squares)
-and does not fail. Use it when a change moves K1's, K2's or K3's code, or a
-header they share, without meaning to change their results.
+residual), K2's `nb1d_train_fwd` and `nb1d_train_fwd_bf16` (the same shapes
+at batch 6, with and without the pre-stage: y and the [2, C] stats; a
+checkout whose K2 takes a stats window, `row0, row1`, is called with the
+whole height) and K3's `nb1d_train_bwd_bf16` on the bf16 inputs (du and the
+weight gradients). Prints, per case, whether the two outputs are equal bit
+for bit, and exits 1 if any differs. K2's stats are float32 sums in the
+design's order; against a checkout of another order (K2 bf16 before its
+walker design) they differ, and the line gives the largest difference
+relative to the largest value of each row (sum, sum of squares). Use it when
+a change moves K1's, K2's or K3's code, or a header they share, without
+meaning to change their results.
 """
 from __future__ import annotations
 
@@ -51,13 +52,22 @@ def load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def load_train(path: Path) -> ctypes.CDLL:
+def has_window(root: Path) -> bool:
+    """Whether the checkout's K2 entries take a stats window (row0, row1)."""
+    src = (root / "mdilss_tpu_torch" / "csrc" / "nb1d_train.cu").read_text()
+    return "int d, int row0, int row1, void* stream" in src
+
+
+def load_train(path: Path, window: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nb1d_train_fwd_bf16.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.nb1d_train_fwd_bf16.restype = i
-    lib.nb1d_train_fwd_bf16_scratch.argtypes = [i, i, i, i]
-    lib.nb1d_train_fwd_bf16_scratch.restype = ctypes.c_longlong
+    lib.window = window
+    for sfx in ("", "_bf16"):
+        fwd = getattr(lib, "nb1d_train_fwd" + sfx)
+        fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i] + [i, i] * window + [p]
+        fwd.restype = i
+        getattr(lib, f"nb1d_train_fwd{sfx}_scratch").argtypes = [i, i, i, i]
+        getattr(lib, f"nb1d_train_fwd{sfx}_scratch").restype = ctypes.c_longlong
     lib.nb1d_train_bwd_bf16.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.nb1d_train_bwd_bf16.restype = i
     lib.nb1d_train_bwd_bf16_scratch.argtypes = [i, i, i, i, i]
@@ -67,16 +77,18 @@ def load_train(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def train_bf16_cases(libs, gen, dev) -> bool:
-    """K2 bf16's y and stats and K3 bf16's du and weight gradients of both
-    libraries, each block shape at batch 6, with and without the pre-stage;
-    True if every y and K3 output is bit for bit equal."""
+def train_cases(libs, gen, dev) -> bool:
+    """K2's y and stats (fp32 and bf16) and K3 bf16's du and weight gradients
+    of both libraries, each block shape at batch 6, with and without the
+    pre-stage; True if every output is bit for bit equal."""
     import torch
 
     same = True
     for name, c, d, rap, h, w in BLOCKS:
         n = 6
         for pre in (False, True):
+            same &= fwd_f32_case(libs, gen, dev, name, c, d, rap, h, w, n, pre)
+
             def mk(*shape, scale=1.0, dtype=torch.bfloat16):
                 return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype).contiguous()
 
@@ -97,7 +109,7 @@ def train_bf16_cases(libs, gen, dev) -> bool:
                 rc = lib.nb1d_train_fwd_bf16(c, x.data_ptr(), w31.data_ptr(), b31.data_ptr(),
                                              w13.data_ptr(), ptr(rapm), ptr(pa), ptr(pb),
                                              y.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-                                             n, h, w, d, stream)
+                                             n, h, w, d, *(0, h) * lib.window, stream)
                 torch.cuda.synchronize()
                 if rc != 0:
                     raise RuntimeError(f"nb1d_train_fwd_bf16 returned {rc} for {name}")
@@ -115,19 +127,58 @@ def train_bf16_cases(libs, gen, dev) -> bool:
                 if rc != 0:
                     raise RuntimeError(f"nb1d_train_bwd_bf16 returned {rc} for {name}")
                 bwd.append((du, grads))
-            (ya, sa), (yb, sb) = outs
-            equal = torch.equal(ya, yb)
             k3_equal = all(torch.equal(a, b) for a, b in zip(*bwd))
-            same &= equal and k3_equal
+            same &= k3_equal
             print(f"K3 bf16 {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage, "
                   f"du and weight gradients: " + ("bitwise equal" if k3_equal else "differ"))
-            rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(sa, sb)]
-            print(f"K2 bf16 {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage: "
-                  f"y " + ("bitwise equal" if equal else
-                           f"{int((ya != yb).sum())} elements differ")
-                  + f"; stats largest relative difference: sum {rel[0]:.2e}, "
-                    f"sum of squares {rel[1]:.2e}")
+            same &= report_k2("bf16", name, n, h, w, c, pre, outs)
     return same
+
+
+def report_k2(dt: str, name, n, h, w, c, pre, outs) -> bool:
+    """Print whether the two libraries' K2 y and stats are bitwise equal (else
+    how far apart); True if both are."""
+    import torch
+
+    (ya, sa), (yb, sb) = outs
+    y_eq, s_eq = torch.equal(ya, yb), torch.equal(sa, sb)
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(sa, sb)]
+    print(f"K2 {dt} {name} [{n},{h},{w},{c}] {'with' if pre else 'without'} pre-stage: y "
+          + ("bitwise equal" if y_eq else f"{int((ya != yb).sum())} elements differ")
+          + "; stats " + ("bitwise equal" if s_eq else
+                          f"largest relative difference: sum {rel[0]:.2e}, sum of squares "
+                          f"{rel[1]:.2e}"))
+    return y_eq and s_eq
+
+
+def fwd_f32_case(libs, gen, dev, name, c, d, rap, h, w, n, pre) -> bool:
+    """K2 fp32's y and stats of both libraries on the same inputs."""
+    import torch
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev).contiguous()
+
+    x = mk(n, h, w, c)
+    w31, w13 = mk(3 * c, c, scale=c ** -0.5), mk(3 * c, c, scale=c ** -0.5)
+    rapm = mk(c, c, scale=c ** -0.5) if rap else None
+    b31 = mk(c)
+    pa = (1.0 + 0.2 * mk(c)).abs() if pre else None
+    pb = 0.2 * mk(c) if pre else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    outs = []
+    for lib in libs:
+        y = torch.empty_like(x)
+        stats = torch.empty(2, c, device=dev)
+        scratch = torch.empty(lib.nb1d_train_fwd_scratch(c, n, h, w), device=dev)
+        rc = lib.nb1d_train_fwd(c, x.data_ptr(), w31.data_ptr(), b31.data_ptr(), w13.data_ptr(),
+                                ptr(rapm), ptr(pa), ptr(pb), y.data_ptr(), stats.data_ptr(),
+                                scratch.data_ptr(), n, h, w, d, *(0, h) * lib.window,
+                                torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"nb1d_train_fwd returned {rc} for {name}")
+        outs.append((y, stats))
+    return report_k2("fp32", name, n, h, w, c, pre, outs)
 
 
 def main(argv=None) -> int:
@@ -172,8 +223,8 @@ def main(argv=None) -> int:
                           + ("bitwise equal" if equal else
                              f"{int((outs[0] != outs[1]).sum())} elements differ"))
     roots = (args.root_a, args.root_b)
-    same &= train_bf16_cases([load_train(build(r.resolve(), "nb1d_train")) for r in roots], gen,
-                             dev)
+    same &= train_cases([load_train(build(r.resolve(), "nb1d_train"), has_window(r.resolve()))
+                         for r in roots], gen, dev)
     return 0 if same else 1
 
 
