@@ -24,7 +24,8 @@ without a card it raises) in place of `--platform`; no
 `--compilation-cache` (XLA's); each `--data-root NAME=PATH` is checked and a
 bad one exits with a usage message naming it; `export --platforms` takes cuda
 and cpu (a torch.export program is traced on one device) and defaults to
-cuda. `bench` waits for ROADMAP A2: it parses and exits non-zero. An ablation
+cuda. `bench` exits non-zero naming the port's benchmark, `python3
+benchmark/run.py` (JAX's `--bench-*` options have no counterpart). An ablation
 `--kind` reads the port's checkpoint directories only (those models have no
 torch grammar), and exits naming that for anything else.
 
@@ -56,7 +57,9 @@ _CKPT_KINDS = ("rap", *MULTIHEAD_KINDS)  # the kinds with a reference state-dict
 _KINDS = _CKPT_KINDS + C.ABLATION_MODELS
 # the reference step-1 trainer's model factory (train_RAPFT_step1.py:451-460)
 _MODELS = ("erfnet_RA_parallel", *C.ABLATION_MODELS)
-_WAITS = {"bench": "A2 (the port's benchmark)"}
+_BENCH = ("bench: the port's benchmark is `python3 benchmark/run.py --workload NAME --seed N "
+         "--seconds S --trace 0|1`, run from the root of a checkout (`--list` names its "
+         "cells); the JAX package's --bench-* options have no counterpart")
 
 
 def _name_path(kv: str) -> tuple[str, str]:
@@ -111,7 +114,8 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
     p.add_argument("--synthetic-size", type=int, default=24)
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler chrome trace of a few train steps here")
+                   help="write a torch.profiler chrome trace of a few train steps here, "
+                        "the program's spans over it")
     _add_data_root(p, help="dataset root, e.g. --data-root cityscapes=/data/cs (repeatable)")
 
 
@@ -300,15 +304,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reverse direction: a checkpoint directory -> a reference-format "
                          ".pth.tar")
 
-    pb = sub.add_parser("bench", help="throughput benchmark (ROADMAP A2: not ported)")
-    pb.add_argument("--mesh", default=None)
-    pb.add_argument("--steps", type=int, default=None)
-    pb.add_argument("--passes", type=int, default=None)
-    pb.add_argument("--bench-batch", type=int, default=None, dest="bench_batch")
-    pb.add_argument("--bench-height", type=int, default=None, dest="bench_height")
-    pb.add_argument("--bench-width", type=int, default=None, dest="bench_width")
-    pb.add_argument("--bench-dtype", choices=("bf16", "f32"), default=None, dest="bench_dtype")
-    pb.add_argument("--json-out", default=None, dest="bench_json_out")
+    sub.add_parser("bench", help="names the port's benchmark, benchmark/run.py, and exits")
     return parser
 
 
@@ -456,10 +452,8 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    if args.cmd in _WAITS:
-        raise SystemExit(f"{args.cmd}: not ported to this package yet (ROADMAP "
-                         f"{_WAITS[args.cmd]}); the JAX package's `python -m mdilss_tpu "
-                         f"{args.cmd}` runs it")
+    if args.cmd == "bench":
+        raise SystemExit(_BENCH)
     if getattr(args, "kind", None) in C.ABLATION_MODELS and not os.path.isdir(args.ckpt):
         raise SystemExit(f"{args.cmd} --kind {args.kind}: {args.ckpt} is not a checkpoint "
                          f"directory of this package; the ablation models have no torch "

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
+
 MAX_TRANSLATE = 2  # pixels, each axis (train_RAPFT_step1.py:66-68)
 
 
@@ -100,6 +102,7 @@ def draw_augment(gen: torch.Generator, n: int):
 # Device side
 # ---------------------------------------------------------------------------
 
+@spanned("data.augment")
 def augment_batch(images_u8: torch.Tensor, labels_u8: torch.Tensor, flip, tx, ty, *,
                   num_classes: int, out_dtype: torch.dtype = torch.float32):
     """Train-time augment on the tensors' device: hflip where `flip`, a
@@ -140,6 +143,7 @@ def augment_batch(images_u8: torch.Tensor, labels_u8: torch.Tensor, flip, tx, ty
     return _finalize(imgs, lbls, num_classes, out_dtype)
 
 
+@spanned("data.prepare")
 def prepare_batch(images_u8, labels_u8, *, num_classes: int):
     """uint8 images [N,H,W,3] -> float32 in [0, 1]; uint8 labels [N,H,W] ->
     int32 with the void label 255 relabelled to `num_classes - 1`

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 
 def confusion_matrix(preds, targets, *, num_classes: int) -> torch.Tensor:
     """[N,H,W] integer preds/targets -> [C, C] int64 counts cm[target, pred],
@@ -21,7 +23,8 @@ def confusion_matrix(preds, targets, *, num_classes: int) -> torch.Tensor:
     cc = num_classes * num_classes
     idx = targets.reshape(-1).to(torch.int64) * num_classes + preds.reshape(-1).to(torch.int64)
     idx = idx.clamp(min=0)
-    cm = torch.bincount(idx[idx < cc], minlength=cc)
+    with span("wait.confusion"):  # the mask's count, the bincount's min and max read back
+        cm = torch.bincount(idx[idx < cc], minlength=cc)
     return cm.reshape(num_classes, num_classes)
 
 

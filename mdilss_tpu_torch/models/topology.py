@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.norm import replaying, sync_mesh, synced
 from ..parallel.mesh import shard_rows
+from ..utils.profiling import span as trace_span, spanned
 from .blocks import (PER_TASK_BN_VARIANTS, DownsamplerBlock, NonBottleneck1d,
                      NonBottleneck1dAblation, NonBottleneck1dRAP, UpsamplerBlock)
 
@@ -74,6 +75,7 @@ def dropout_mask_shapes(batch: int) -> dict:
     }
 
 
+@spanned("data.masks")
 def make_dropout_masks(np_rng: np.random.Generator, batch: int) -> dict:
     """Bernoulli keep-masks for one training forward, drawn as the JAX package
     draws them (g64 first, then g128)."""
@@ -97,8 +99,9 @@ def shard_dropout_masks(drop_masks: dict | None, mesh) -> dict | None:
 
 def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
     """`make_dropout_masks` output -> {encoder layer index: keep-mask [N, C]} on `device`."""
-    g64 = torch.as_tensor(np.asarray(drop_masks["g64"])).to(device)
-    g128 = torch.as_tensor(np.asarray(drop_masks["g128"])).to(device)
+    with trace_span("wait.dropout_masks"):  # two blocking host -> device copies
+        g64 = torch.as_tensor(np.asarray(drop_masks["g64"])).to(device)
+        g128 = torch.as_tensor(np.asarray(drop_masks["g128"])).to(device)
     out = {1 + i: g64[i].reshape(g64.shape[1], -1) for i in range(g64.shape[0])}
     for rep in range(g128.shape[0]):
         for j in range(g128.shape[1]):

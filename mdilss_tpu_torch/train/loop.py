@@ -107,7 +107,7 @@ from ..models.topology import make_dropout_masks, shard_dropout_masks
 from ..parallel.mesh import (active, all_reduce_, barrier, broadcast_object, make_mesh,
                              replicate, shard_height, shard_rows)
 from ..utils.logging import MetricLogger, getColorEntry
-from ..utils.profiling import StepTracer
+from ..utils.profiling import StepTracer, span
 from . import steps
 from .masks import ablation_lr_tree, multihead_lr_tree, rap_lr_tree
 from .optim import poly_lr_factor
@@ -487,42 +487,44 @@ class Trainer:
                    cms: list):
         cfg = self.cfg
         self._tracer.tick()
-        # the global batch's draws on every rank, this rank's images of them,
-        # augmented whole (a translate moves rows across the slabs), then its rows
-        n = imgs.shape[0] * (self.mesh.data if active(self.mesh) else 1)
-        flip, tx, ty = (shard_rows(t, self.mesh)
-                        for t in transforms.draw_augment(self.aug_gen, n))
-        x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
-                                        num_classes=cfg.num_classes[task],
-                                        out_dtype=steps.compute_dtype_of(cfg.compute_dtype))
-        x, y = shard_height(x, self.mesh, 1), shard_height(y, self.mesh, 1)
-        step = self.train_steps[dataset]
-        if cfg.protocol in ("step2", "step3"):
-            n_fwd = 1 + cfg.current_task
-            if cfg.protocol == "step3" and cfg.two_phase and cfg.teacher_dropout:
-                # the teacher's forwards draw their own masks, after the student's
-                n_fwd += cfg.current_task
-            masks = [shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
-                     for _ in range(n_fwd)]
-            self.ts, m = step(self.ts, self.teacher, x, y, masks, epoch)
-        else:
-            masks = shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
-            self.ts, m = step(self.ts, x, y, masks, epoch)
-        # device scalars until the epoch's end: reading one here would wait
-        # for the step every batch
-        for k in losses:
-            if k in m:
-                losses[k].append(m[k])
-        if "cm" in m:
-            cms.append(m["cm"])
-        # bounded pipeline: every 16 steps, read the loss saved at the
-        # previous sync point (long finished), so at most ~32 steps are queued
-        # and the device never waits for the host
-        self._step_count += 1
-        if self._step_count % 16 == 0:
-            if self._sync_loss is not None:
-                self._sync_loss.item()
-            self._sync_loss = m["loss"]
+        with span("batch"):
+            # the global batch's draws on every rank, this rank's images of them,
+            # augmented whole (a translate moves rows across the slabs), then its rows
+            n = imgs.shape[0] * (self.mesh.data if active(self.mesh) else 1)
+            flip, tx, ty = (shard_rows(t, self.mesh)
+                            for t in transforms.draw_augment(self.aug_gen, n))
+            x, y = transforms.augment_batch(imgs, lbls, flip, tx, ty,
+                                            num_classes=cfg.num_classes[task],
+                                            out_dtype=steps.compute_dtype_of(cfg.compute_dtype))
+            x, y = shard_height(x, self.mesh, 1), shard_height(y, self.mesh, 1)
+            step = self.train_steps[dataset]
+            if cfg.protocol in ("step2", "step3"):
+                n_fwd = 1 + cfg.current_task
+                if cfg.protocol == "step3" and cfg.two_phase and cfg.teacher_dropout:
+                    # the teacher's forwards draw their own masks, after the student's
+                    n_fwd += cfg.current_task
+                masks = [shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
+                         for _ in range(n_fwd)]
+                self.ts, m = step(self.ts, self.teacher, x, y, masks, epoch)
+            else:
+                masks = shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
+                self.ts, m = step(self.ts, x, y, masks, epoch)
+            # device scalars until the epoch's end: reading one here would wait
+            # for the step every batch
+            for k in losses:
+                if k in m:
+                    losses[k].append(m[k])
+            if "cm" in m:
+                cms.append(m["cm"])
+            # bounded pipeline: every 16 steps, read the loss saved at the
+            # previous sync point (long finished), so at most ~32 steps are queued
+            # and the device never waits for the host
+            self._step_count += 1
+            if self._step_count % 16 == 0:
+                if self._sync_loss is not None:
+                    with span("wait.pipeline"):
+                        self._sync_loss.item()
+                self._sync_loss = m["loss"]
 
     def evaluate(self, dataset: str, epoch: int) -> tuple[float, float]:
         """(mean val loss, val mIoU) of one domain."""
@@ -534,16 +536,18 @@ class Trainer:
                    else device_prefetch(self.val_loaders[dataset], device=self.device))
         losses, cms = [], []
         for imgs, lbls, valid in batches:
-            x, y = transforms.prepare_batch(imgs, lbls, num_classes=nc)
-            # padded images -> all-ignore labels: they count in neither CE nor IoU
-            valid = torch.as_tensor(valid).to(self.device, non_blocking=True)
-            y = torch.where(valid[:, None, None], y, nc - 1)
-            loss, cm = estep(self.ts.model, shard_height(x, self.mesh, 1),
-                             shard_height(y, self.mesh, 1))
-            losses.append(loss)
-            cms.append(cm)
-            if len(cms) % 16 == 0 and len(cms) >= 32:
-                losses[-17].item()  # lagged sync: bounds the queued batches
+            with span("batch"):
+                x, y = transforms.prepare_batch(imgs, lbls, num_classes=nc)
+                # padded images -> all-ignore labels: they count in neither CE nor IoU
+                valid = torch.as_tensor(valid).to(self.device, non_blocking=True)
+                y = torch.where(valid[:, None, None], y, nc - 1)
+                loss, cm = estep(self.ts.model, shard_height(x, self.mesh, 1),
+                                 shard_height(y, self.mesh, 1))
+                losses.append(loss)
+                cms.append(cm)
+                if len(cms) % 16 == 0 and len(cms) >= 32:
+                    with span("wait.pipeline"):
+                        losses[-17].item()  # lagged sync: bounds the queued batches
         if not cms:
             return 0.0, 0.0
         ev = IoUEvaluator(nc, nc - 1)

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 class AdamState(NamedTuple):
     m: torch.Tensor  # first moment, flat [P] float32
@@ -54,10 +56,11 @@ def apply_updates(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor
     f32 = np.float32
     c1 = float(f32(1.0) - f32(b1) ** f32(count))
     c2 = float(f32(1.0) - f32(b2) ** f32(count))
-    lr = torch.repeat_interleave(
-        torch.tensor([float(lr_tree[k]) for k in names], dtype=torch.float32, device=dev),
-        torch.tensor(sizes, device=dev),
-    )
+    with span("wait.adam_lr"):  # two blocking copies; the repeats' min and sum read back
+        lr = torch.repeat_interleave(
+            torch.tensor([float(lr_tree[k]) for k in names], dtype=torch.float32, device=dev),
+            torch.tensor(sizes, device=dev),
+        )
     p_flat = torch.cat([p.reshape(-1).float() for p in ps])
     g_flat = torch.cat([
         torch.zeros(p.numel(), dtype=torch.float32, device=dev) if grads.get(k) is None

@@ -80,6 +80,7 @@ from ..models import topology
 from ..ops.norm import synced
 from ..ops.precision import no_tf32
 from ..parallel.mesh import active, all_reduce_, all_reduce_grads
+from ..utils.profiling import span, spanned
 from . import optim
 from .optim import AdamState
 
@@ -109,18 +110,37 @@ def _class_weight(class_weight) -> torch.Tensor:
     return torch.as_tensor(np.asarray(class_weight, np.float32))
 
 
+def _params(model: nn.Module) -> dict:
+    with span("step.modes"):
+        return dict(model.named_parameters())
+
+
+def _mode(model: nn.Module, training: bool) -> None:
+    with span("step.modes"):
+        model.train(training)
+
+
 def _grads(model: nn.Module, loss: torch.Tensor) -> dict:
     """{parameter name: d loss / d parameter, or None where the loss does not
     reach it}; frees the graph."""
-    params = dict(model.named_parameters())
-    return dict(zip(params, torch.autograd.grad(loss, list(params.values()), allow_unused=True)))
+    params = _params(model)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return dict(zip(params, grads))
+
+
+def _adam(params: dict, grads: dict, opt: AdamState, lr_tree: dict, mesh, **kw) -> AdamState:
+    """One Adam step over `params` with `grads` summed over the mesh's ranks."""
+    with span("step.optimizer"):
+        return optim.apply_updates(params, all_reduce_grads(grads, mesh), opt, lr_tree, **kw)
 
 
 def _train_cm(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Confusion matrix of the training batch from the step's current-task
     logits (the reference's --iouTrain, train_RAPFT_step1.py:269-317): no
     extra forward."""
-    return confusion_matrix(logits.detach().argmax(-1), labels, num_classes=num_classes)
+    with span("step.loss"):
+        return confusion_matrix(logits.detach().argmax(-1), labels, num_classes=num_classes)
 
 
 def _global_metrics(metrics: dict, mesh) -> dict:
@@ -154,15 +174,16 @@ def _teacher_mode(teacher: nn.Module, training: bool):
     every buffer are as before (a training forward updates BN running
     statistics in place)."""
     was = teacher.training
-    saved = [(b, b.clone()) for b in teacher.buffers()] if training else []
-    teacher.train(training)
+    with span("step.modes"):
+        saved = [(b, b.clone()) for b in teacher.buffers()] if training else []
+        teacher.train(training)
     try:
         yield
     finally:
-        with torch.no_grad():
+        with span("step.modes"), torch.no_grad():
             for b, v in saved:
                 b.copy_(v)
-        teacher.train(was)
+            teacher.train(was)
 
 
 def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
@@ -178,13 +199,15 @@ def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
     student = functools.partial(model, remat=remat)
     with _teacher_mode(teacher, teacher_training):
         for i, t in enumerate(prev_tasks):
-            if remat_prev:
-                s_logits = topology._ckpt(student, images, t, masks[i])
-            else:
-                s_logits = student(images, t, masks[i])
-            with torch.no_grad():
+            with span("step.forward", task=t):
+                if remat_prev:
+                    s_logits = topology._ckpt(student, images, t, masks[i])
+                else:
+                    s_logits = student(images, t, masks[i])
+            with span("step.teacher", task=t), torch.no_grad():
                 t_logits = teacher(images, t, None if teacher_masks is None else teacher_masks[i])
-            kld = kld + kld_share(kld_fn(s_logits, t_logits), mesh)
+            with span("step.loss"):
+                kld = kld + kld_share(kld_fn(s_logits, t_logits), mesh)
     return kld
 
 
@@ -195,9 +218,11 @@ def ce_loss_and_grads(model: nn.Module, images: torch.Tensor, labels: torch.Tens
     statistics. `masks`: one `make_dropout_masks` dict or None (no dropout).
     Returns (ce, logits detached, {parameter name: grad or None}); with
     `mesh`, this rank's share of the CE and its gradient (not yet summed)."""
-    model.train()
-    logits = model(images, task, masks, remat=remat)
-    ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
+    _mode(model, True)
+    with span("step.forward", task=task):
+        logits = model(images, task, masks, remat=remat)
+    with span("step.loss"):
+        ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
     return ce.detach(), logits.detach(), _grads(model, ce)
 
 
@@ -211,7 +236,7 @@ def kd_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor
     `teacher_masks` one per teacher forward or None; `remat`, `remat_prev` as
     `_kld_sum`'s. The current head gets no gradient (None). Returns
     (lambda_c * kld, kld, grads)."""
-    model.train()
+    _mode(model, True)
     kld = _kld_sum(model, teacher, images, masks, prev_tasks, kld_fn, teacher_training,
                    teacher_masks, remat, remat_prev, mesh)
     kd = lambda_c * kld
@@ -230,9 +255,11 @@ def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.T
     (no dropout); `remat`, `remat_prev` as `_kld_sum`'s. Returns (loss, ce,
     kld, {parameter name: grad or None}, current-task logits detached)."""
     mask_list = _mask_list(masks, 1 + len(prev_tasks))
-    model.train()
-    logits = model(images, current_task, mask_list[0], remat=remat)
-    ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
+    _mode(model, True)
+    with span("step.forward", task=current_task):
+        logits = model(images, current_task, mask_list[0], remat=remat)
+    with span("step.loss"):
+        ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
     kld = _kld_sum(model, teacher, images, mask_list[1:], prev_tasks, kld_fn,
                    teacher_training=False, remat=remat, remat_prev=remat_prev, mesh=mesh)
     total = ce + lambda_c * kld
@@ -251,6 +278,7 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
+    @spanned("step", kind="ce")
     @no_tf32()
     @synced(mesh)
     def step(ts: TrainState, images, labels, masks, epoch: int):
@@ -260,10 +288,8 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
         metrics = _global_metrics(metrics, mesh)
-        opt = optim.apply_updates(
-            dict(ts.model.named_parameters()), all_reduce_grads(grads, mesh), ts.opt, lr_tree,
-            lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay,
-        )
+        opt = _adam(_params(ts.model), grads, ts.opt, lr_tree, mesh,
+                    lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay)
         return TrainState(ts.model, opt), metrics
 
     return step
@@ -283,6 +309,7 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
+    @spanned("step", kind="distill")
     @no_tf32()
     @synced(mesh)
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
@@ -295,10 +322,8 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
         metrics = _global_metrics(metrics, mesh)
-        opt = optim.apply_updates(
-            dict(ts.model.named_parameters()), all_reduce_grads(grads, mesh), ts.opt, lr_tree,
-            lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay,
-        )
+        opt = _adam(_params(ts.model), grads, ts.opt, lr_tree, mesh,
+                    lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay)
         return TrainState(ts.model, opt), metrics
 
     return step
@@ -338,20 +363,21 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     n_masks = 1 + n_prev * (2 if teacher_dropout else 1)
     mesh = active(mesh)
 
+    @spanned("step", kind="two_phase")
     @no_tf32()
     @synced(mesh)
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
         images = images.to(dt)
         mask_list = _mask_list(masks, n_masks, need_list=teacher_dropout)
         lr_scale = optim.poly_lr_factor(epoch, num_epochs)
-        params = dict(ts.model.named_parameters())
+        params = _params(ts.model)
         ce, logits, grads = ce_loss_and_grads(ts.model, images, labels, mask_list[0],
                                               task=current_task, class_weight=weight,
                                               remat=remat, mesh=mesh)
         cm = _train_cm(logits, labels, len(weight)) if iou_train else None
         del logits
-        opt = optim.apply_updates(params, all_reduce_grads(grads, mesh), ts.opt, lr_tree,
-                                  lr_scale=lr_scale, weight_decay=weight_decay)
+        opt = _adam(params, grads, ts.opt, lr_tree, mesh, lr_scale=lr_scale,
+                    weight_decay=weight_decay)
         del grads
         kd, kld, grads = kd_loss_and_grads(
             ts.model, teacher, images, mask_list[1:1 + n_prev], prev_tasks=prev_tasks,
@@ -359,8 +385,8 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
             teacher_masks=mask_list[1 + n_prev:] if teacher_dropout else None,
             remat=remat, remat_prev=remat_prev, mesh=mesh,
         )
-        opt = optim.apply_updates(params, all_reduce_grads(grads, mesh), opt, lr_tree,
-                                  lr_scale=lr_scale, weight_decay=weight_decay)
+        opt = _adam(params, grads, opt, lr_tree, mesh, lr_scale=lr_scale,
+                    weight_decay=weight_decay)
         metrics = {"loss": ce + kd, "ce": ce, "kld": kld}
         if cm is not None:
             metrics["cm"] = cm
@@ -384,15 +410,18 @@ def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
+    @spanned("step", kind="eval")
     @no_tf32()
     @synced(mesh)
     def step(model: nn.Module, images, labels):
-        model.eval()
-        logits = model(images.to(dt), task)
-        cm = confusion_matrix(logits.argmax(-1), labels, num_classes=num_classes)
-        if mesh is None:
-            return weighted_cross_entropy(logits, labels, weight), cm
-        num, den = all_reduce_(torch.stack(weighted_nll_sums(logits, labels, weight)), mesh)
-        return num / den, all_reduce_(cm, mesh)
+        _mode(model, False)
+        with span("step.forward", task=task):
+            logits = model(images.to(dt), task)
+        with span("step.loss"):
+            cm = confusion_matrix(logits.argmax(-1), labels, num_classes=num_classes)
+            if mesh is None:
+                return weighted_cross_entropy(logits, labels, weight), cm
+            num, den = all_reduce_(torch.stack(weighted_nll_sums(logits, labels, weight)), mesh)
+            return num / den, all_reduce_(cm, mesh)
 
     return step

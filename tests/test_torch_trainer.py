@@ -182,6 +182,9 @@ def test_profiler_trace_written(tmp_path):
     tr.fit()
     trace = json.loads((tmp_path / "trace/trace.json").read_text())
     assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])
+    # the program's spans over the ops, as user annotations
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"batch", "step", "step.forward", "step.backward", "step.optimizer"} <= spans
 
 
 def test_device_cache_budget(tmp_path):
