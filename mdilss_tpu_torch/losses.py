@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from .parallel.mesh import active, all_reduce_
-from .utils.profiling import span
 
 
 def weighted_nll_sums(logits: torch.Tensor, targets: torch.Tensor,
@@ -35,8 +34,7 @@ def weighted_nll_sums(logits: torch.Tensor, targets: torch.Tensor,
     valid = (targets >= 0) & (targets < c)
     idx = torch.where(valid, targets, torch.zeros_like(targets)).long()
     nll = -logp.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
-    with span("wait.class_weight"):  # a blocking copy where `weight` is on the host
-        weight = weight.to(device=logits.device, dtype=torch.float32)
+    weight = weight.to(device=logits.device, dtype=torch.float32)
     w = weight[idx] * valid
     return (w * nll).sum(), w.sum()
 

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.norm import replaying, sync_mesh, synced
 from ..parallel.mesh import shard_rows
-from ..utils.profiling import span as trace_span, spanned
+from ..utils.profiling import spanned
 from .blocks import (PER_TASK_BN_VARIANTS, DownsamplerBlock, NonBottleneck1d,
                      NonBottleneck1dAblation, NonBottleneck1dRAP, UpsamplerBlock)
 
@@ -98,10 +98,18 @@ def shard_dropout_masks(drop_masks: dict | None, mesh) -> dict | None:
 
 
 def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
-    """`make_dropout_masks` output -> {encoder layer index: keep-mask [N, C]} on `device`."""
-    with trace_span("wait.dropout_masks"):  # two blocking host -> device copies
-        g64 = torch.as_tensor(np.asarray(drop_masks["g64"])).to(device)
-        g128 = torch.as_tensor(np.asarray(drop_masks["g128"])).to(device)
+    """`make_dropout_masks` output -> {encoder layer index: keep-mask [N, C]} on
+    `device`. Both masks go over in one copy of one host block; on a CUDA
+    device the block is pinned and the copy does not wait for the queue
+    (torch's caching host allocator keeps the block until the copy has run)."""
+    g64, g128 = np.asarray(drop_masks["g64"]), np.asarray(drop_masks["g128"])
+    host = torch.from_numpy(np.concatenate([g64.ravel(), g128.ravel()]))
+    if torch.device(device).type == "cuda":
+        flat = host.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = host.to(device)
+    g64, g128 = (part.view(a.shape) for part, a in zip(flat.split([g64.size, g128.size]),
+                                                         (g64, g128)))
     out = {1 + i: g64[i].reshape(g64.shape[1], -1) for i in range(g64.shape[0])}
     for rep in range(g128.shape[0]):
         for j in range(g128.shape[1]):

@@ -16,6 +16,16 @@ so weight decay still moves it where lr > 0, as in the JAX package.
 
 The moments are one flat float32 vector over the parameters in the order of
 the `params` dict, as in the JAX package; parameters are updated in place.
+
+A step neither waits for the device nor walks the parameters in Python op
+by op: what the LR dict gives (the per-element LR vector, its `lr > 0`
+mask, the leaves' sizes, zero vectors for the None gradients) is built on
+the parameters' device once by an `LrCache` that the caller keeps (one host
+-> device copy, at its first step) and reused while the parameters' names,
+sizes, LRs and device stay the same; the parameters and gradients are
+flattened, and the result written back, by one call each
+(`torch._utils._flatten_dense_tensors`, `_unflatten_dense_tensors`,
+`torch._foreach_copy_`).
 """
 from __future__ import annotations
 
@@ -23,8 +33,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from ..utils.profiling import span
+
+LR_BUILDS = 0  # per-element LR vectors built (`LrCache.get`): one per step maker and device
 
 
 class AdamState(NamedTuple):
@@ -40,39 +52,60 @@ def init(params: dict[str, torch.Tensor]) -> AdamState:
     return AdamState(m=zeros, v=zeros.clone(), count=0)
 
 
+class LrCache:
+    """What `apply_updates` takes from the LR dict, on the parameters'
+    device: `lr` (each element's base LR, float32), `live` (`lr > 0` as
+    float32) and `zeros` (per leaf, a zero vector of its size, all views
+    of one buffer: what a None gradient reads as).
+    Built at the first `get` and again only when the parameters' names,
+    sizes, LRs or device change."""
+
+    def __init__(self):
+        self.key = None
+
+    def get(self, names: list, ps: list, lr_tree: dict) -> "LrCache":
+        global LR_BUILDS
+        lrs = tuple(float(lr_tree[k]) for k in names)
+        sizes = tuple(p.numel() for p in ps)
+        dev = ps[0].device
+        key = (tuple(names), sizes, lrs, dev)
+        if key != self.key:
+            host = torch.from_numpy(np.repeat(np.asarray(lrs, np.float32), sizes))
+            self.lr = host.to(dev)  # the one copy: it waits for the queue to drain
+            self.live = (self.lr > 0).float()
+            zeros = torch.zeros(max(sizes), dtype=torch.float32, device=dev)
+            self.zeros = [zeros[:n] for n in sizes]
+            self.key = key
+            LR_BUILDS += 1
+        return self
+
+
 @torch.no_grad()
 def apply_updates(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor | None],
                   state: AdamState, lr_tree: dict[str, float], *, lr_scale: float,
                   weight_decay: float = 1e-4, b1: float = 0.9, b2: float = 0.999,
-                  eps: float = 1e-8) -> AdamState:
+                  eps: float = 1e-8, cache: LrCache | None = None) -> AdamState:
     """One Adam step, in place on `params`; returns the new state. `lr_tree`
     gives each parameter's base LR (0 = frozen), `lr_scale` the schedule
-    factor applied to every parameter (`poly_lr_factor`)."""
+    factor applied to every parameter (`poly_lr_factor`). `cache`: the
+    caller's `LrCache`, reused across its steps (None: built for this one)."""
     names = list(params)
-    ps = [params[k] for k in names]
-    dev = ps[0].device
-    sizes = [p.numel() for p in ps]
+    ps = list(params.values())
+    lc = (LrCache() if cache is None else cache).get(names, ps, lr_tree)
     count = state.count + 1
     f32 = np.float32
     c1 = float(f32(1.0) - f32(b1) ** f32(count))
     c2 = float(f32(1.0) - f32(b2) ** f32(count))
-    with span("wait.adam_lr"):  # two blocking copies; the repeats' min and sum read back
-        lr = torch.repeat_interleave(
-            torch.tensor([float(lr_tree[k]) for k in names], dtype=torch.float32, device=dev),
-            torch.tensor(sizes, device=dev),
-        )
-    p_flat = torch.cat([p.reshape(-1).float() for p in ps])
-    g_flat = torch.cat([
-        torch.zeros(p.numel(), dtype=torch.float32, device=dev) if grads.get(k) is None
-        else grads[k].reshape(-1).float()
-        for k, p in zip(names, ps)
-    ])
-    gf = (g_flat + weight_decay * p_flat) * (lr > 0).float()
+    # one flat copy each, cast after the concatenation: the same float32 values as each leaf
+    # cast first, since a wider common type holds every leaf's values exactly
+    p_flat = _flatten_dense_tensors(ps).float()
+    g_flat = _flatten_dense_tensors([z if g is None else g
+                                     for g, z in zip(map(grads.get, names), lc.zeros)]).float()
+    gf = (g_flat + weight_decay * p_flat) * lc.live
     m = b1 * state.m + (1.0 - b1) * gf
     v = b2 * state.v + (1.0 - b2) * gf.square()
-    new = p_flat - (lr * lr_scale) * (m / c1) / (torch.sqrt(v / c2) + eps)
-    for p, chunk in zip(ps, new.split(sizes)):
-        p.copy_(chunk.view_as(p))
+    new = p_flat - (lc.lr * lr_scale) * (m / c1) / (torch.sqrt(v / c2) + eps)
+    torch._foreach_copy_(ps, _unflatten_dense_tensors(new, ps))
     return AdamState(m=m, v=v, count=count)
 
 

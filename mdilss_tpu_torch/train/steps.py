@@ -29,6 +29,14 @@ current-task logits of the step. Every step runs its float32 convs and
 matmuls with TF32 off (`ops.precision.no_tf32`), whatever the process's
 flags are.
 
+After its first call a step waits for the device nowhere (but `iou_train`'s
+confusion matrix, which reads back its counts): each maker walks the
+student's parameters once a call, puts its class weights on the step's
+device at its first call and reuses them, keeps Adam's `optim.LrCache`, and
+saves and restores a training-mode teacher's buffers through copies
+allocated once (`_BufferCopies`), one `torch._foreach_copy_` per buffer type
+each way; a mode switch is skipped where every module is in that mode.
+
 `remat=True` runs every student forward with its remat regions
 (`models.topology._ckpt` over each group64 block, each group128 chain and
 each decoder nb1d block), as the JAX package's Trainer passes `remat` to
@@ -110,29 +118,46 @@ def _class_weight(class_weight) -> torch.Tensor:
     return torch.as_tensor(np.asarray(class_weight, np.float32))
 
 
+def _on_device(copies: dict, host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`host` on `device`: copied at the first request for that device (a
+    copy that waits for the queue to drain), the same tensor after."""
+    t = copies.get(device)
+    if t is None:
+        t = copies[device] = host.to(device)
+    return t
+
+
 def _params(model: nn.Module) -> dict:
     with span("step.modes"):
         return dict(model.named_parameters())
 
 
-def _mode(model: nn.Module, training: bool) -> None:
-    with span("step.modes"):
+def _set_mode(model: nn.Module, training: bool) -> None:
+    """`model.train(training)`, skipped where every module is in that mode
+    already: reading the flags costs a third of setting them."""
+    if any(m.training != training for m in model.modules()):
         model.train(training)
 
 
-def _grads(model: nn.Module, loss: torch.Tensor) -> dict:
+def _mode(model: nn.Module, training: bool) -> None:
+    with span("step.modes"):
+        _set_mode(model, training)
+
+
+def _grads(params: dict, loss: torch.Tensor) -> dict:
     """{parameter name: d loss / d parameter, or None where the loss does not
-    reach it}; frees the graph."""
-    params = _params(model)
+    reach it} over `params` (`_params`); frees the graph."""
     with span("step.backward"):
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return dict(zip(params, grads))
 
 
-def _adam(params: dict, grads: dict, opt: AdamState, lr_tree: dict, mesh, **kw) -> AdamState:
+def _adam(params: dict, grads: dict, opt: AdamState, lr_tree: dict, mesh,
+          cache: optim.LrCache, **kw) -> AdamState:
     """One Adam step over `params` with `grads` summed over the mesh's ranks."""
     with span("step.optimizer"):
-        return optim.apply_updates(params, all_reduce_grads(grads, mesh), opt, lr_tree, **kw)
+        return optim.apply_updates(params, all_reduce_grads(grads, mesh), opt, lr_tree,
+                                   cache=cache, **kw)
 
 
 def _train_cm(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -168,36 +193,67 @@ def _mask_list(masks, n: int, *, need_list: bool = False) -> list:
     return [masks] * n
 
 
+class _BufferCopies:
+    """Copies of a module's buffers, allocated at the first `save` and
+    reused while the buffers keep their shapes, types and devices. `save`
+    and `restore` copy one buffer type at a time, each in one
+    `torch._foreach_copy_`."""
+
+    def __init__(self):
+        self.sig, self.groups, self.copies, self.pairs = None, {}, {}, []
+
+    def save(self, bufs: list) -> None:
+        sig = [(b.shape, b.dtype, b.device) for b in bufs]
+        if sig != self.sig:
+            self.groups = {}
+            for i, b in enumerate(bufs):
+                self.groups.setdefault(b.dtype, []).append(i)
+            self.copies = {dt: [torch.empty_like(bufs[i]) for i in idx]
+                           for dt, idx in self.groups.items()}
+            self.sig = sig
+        self.pairs = [([bufs[i] for i in idx], self.copies[dt])
+                      for dt, idx in self.groups.items()]
+        for live, saved in self.pairs:
+            torch._foreach_copy_(saved, live)
+
+    def restore(self) -> None:
+        for live, saved in self.pairs:
+            torch._foreach_copy_(live, saved)
+        self.pairs = []
+
+
 @contextlib.contextmanager
-def _teacher_mode(teacher: nn.Module, training: bool):
+def _teacher_mode(teacher: nn.Module, training: bool, copies: _BufferCopies | None = None):
     """The teacher in `training` mode for the block; afterwards its mode and
     every buffer are as before (a training forward updates BN running
-    statistics in place)."""
+    statistics in place), restored from `copies` (the caller's, reused
+    across its steps; None: allocated for this block)."""
     was = teacher.training
-    with span("step.modes"):
-        saved = [(b, b.clone()) for b in teacher.buffers()] if training else []
-        teacher.train(training)
+    copies = _BufferCopies() if copies is None else copies
+    with span("step.modes"), torch.no_grad():
+        copies.save(list(teacher.buffers()) if training else [])
+        _set_mode(teacher, training)
     try:
         yield
     finally:
         with span("step.modes"), torch.no_grad():
-            for b, v in saved:
-                b.copy_(v)
-            teacher.train(was)
+            copies.restore()
+            _set_mode(teacher, was)
 
 
 def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
              prev_tasks: Sequence[int], kld_fn: Callable, teacher_training: bool,
              teacher_masks=None, remat: bool = False, remat_prev: bool = False,
-             mesh=None) -> torch.Tensor:
+             mesh=None, teacher_copies: _BufferCopies | None = None) -> torch.Tensor:
     """sum over `prev_tasks` of kld_fn(student, teacher): one student training
     forward (mask dict `masks[i]`; its remat regions with `remat`, itself one
     region with `remat_prev`) and one no_grad teacher forward (train or eval
     mode; `teacher_masks[i]` or no dropout) per task; with `mesh`, this
-    rank's share of the global batch's sum."""
+    rank's share of the global batch's sum. `teacher_copies`: where a
+    training-mode teacher's buffers are saved (`_teacher_mode`)."""
     kld = torch.zeros((), dtype=torch.float32, device=images.device)
     student = functools.partial(model, remat=remat)
-    with _teacher_mode(teacher, teacher_training):
+    with _teacher_mode(teacher, teacher_training, teacher_copies):
         for i, t in enumerate(prev_tasks):
             with span("step.forward", task=t):
                 if remat_prev:
@@ -212,49 +268,58 @@ def _kld_sum(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks,
 
 
 def ce_loss_and_grads(model: nn.Module, images: torch.Tensor, labels: torch.Tensor, masks, *,
-                      task: int, class_weight: torch.Tensor, remat: bool = False, mesh=None):
+                      task: int, class_weight: torch.Tensor, remat: bool = False, mesh=None,
+                      params: dict | None = None):
     """Weighted CE of head `task` and its gradient; one training forward (with
     its remat regions under `remat`), which updates the student's BN running
     statistics. `masks`: one `make_dropout_masks` dict or None (no dropout).
     Returns (ce, logits detached, {parameter name: grad or None}); with
-    `mesh`, this rank's share of the CE and its gradient (not yet summed)."""
+    `mesh`, this rank's share of the CE and its gradient (not yet summed).
+    `params`: the model's `named_parameters` as a dict, if the caller has it."""
+    params = _params(model) if params is None else params
     _mode(model, True)
     with span("step.forward", task=task):
         logits = model(images, task, masks, remat=remat)
     with span("step.loss"):
         ce = weighted_cross_entropy(logits, labels, class_weight, mesh)
-    return ce.detach(), logits.detach(), _grads(model, ce)
+    return ce.detach(), logits.detach(), _grads(params, ce)
 
 
 def kd_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor, masks, *,
                       prev_tasks: Sequence[int], lambda_c: float = 0.1,
                       kld_fn: Callable = kld_faithful, teacher_training: bool = True,
                       teacher_masks=None, remat: bool = False, remat_prev: bool = False,
-                      mesh=None):
+                      mesh=None, params: dict | None = None,
+                      teacher_copies: _BufferCopies | None = None):
     """Step 3's second phase: lambda_c * sum KLD over `prev_tasks` and its
     gradient. `masks` holds one dropout-mask dict per student forward,
-    `teacher_masks` one per teacher forward or None; `remat`, `remat_prev` as
-    `_kld_sum`'s. The current head gets no gradient (None). Returns
-    (lambda_c * kld, kld, grads)."""
+    `teacher_masks` one per teacher forward or None; `remat`, `remat_prev`,
+    `teacher_copies` as `_kld_sum`'s, `params` as `ce_loss_and_grads`'. The
+    current head gets no gradient (None). Returns (lambda_c * kld, kld,
+    grads)."""
+    params = _params(model) if params is None else params
     _mode(model, True)
     kld = _kld_sum(model, teacher, images, masks, prev_tasks, kld_fn, teacher_training,
-                   teacher_masks, remat, remat_prev, mesh)
+                   teacher_masks, remat, remat_prev, mesh, teacher_copies)
     kd = lambda_c * kld
-    return kd.detach(), kld.detach(), _grads(model, kd)
+    return kd.detach(), kld.detach(), _grads(params, kd)
 
 
 def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.Tensor,
                            labels: torch.Tensor, masks, *, current_task: int,
                            prev_tasks: Sequence[int], class_weight: torch.Tensor,
                            lambda_c: float = 0.1, kld_fn: Callable = kld_faithful,
-                           remat: bool = False, remat_prev: bool = False, mesh=None):
+                           remat: bool = False, remat_prev: bool = False, mesh=None,
+                           params: dict | None = None):
     """The step-2 loss CE + lambda_c * sum KLD and its gradient; updates the
     student's BN running statistics. images [N,H,W,3] and labels [N,H,W] on
     the model's device; `masks` is one `make_dropout_masks` dict per student
     forward (current task first), one dict reused by every forward, or None
-    (no dropout); `remat`, `remat_prev` as `_kld_sum`'s. Returns (loss, ce,
-    kld, {parameter name: grad or None}, current-task logits detached)."""
+    (no dropout); `remat`, `remat_prev` as `_kld_sum`'s, `params` as
+    `ce_loss_and_grads`'. Returns (loss, ce, kld, {parameter name: grad or
+    None}, current-task logits detached)."""
     mask_list = _mask_list(masks, 1 + len(prev_tasks))
+    params = _params(model) if params is None else params
     _mode(model, True)
     with span("step.forward", task=current_task):
         logits = model(images, current_task, mask_list[0], remat=remat)
@@ -263,7 +328,7 @@ def distill_loss_and_grads(model: nn.Module, teacher: nn.Module, images: torch.T
     kld = _kld_sum(model, teacher, images, mask_list[1:], prev_tasks, kld_fn,
                    teacher_training=False, remat=remat, remat_prev=remat_prev, mesh=mesh)
     total = ce + lambda_c * kld
-    return total.detach(), ce.detach(), kld.detach(), _grads(model, total), logits.detach()
+    return total.detach(), ce.detach(), kld.detach(), _grads(params, total), logits.detach()
 
 
 def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epochs: int,
@@ -274,7 +339,7 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
     None. metrics {"loss", "ce"} (+ "cm" [C, C] int64 with `iou_train`) as
     tensors on the device. `remat`: the student forward's remat regions.
     `mesh`: data-parallel over its ranks (the module docstring)."""
-    weight = _class_weight(class_weight)
+    weight, weights, lr_cache = _class_weight(class_weight), {}, optim.LrCache()
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
@@ -282,13 +347,16 @@ def make_ce_step(*, task: int, class_weight, lr_tree: dict[str, float], num_epoc
     @no_tf32()
     @synced(mesh)
     def step(ts: TrainState, images, labels, masks, epoch: int):
-        ce, logits, grads = ce_loss_and_grads(ts.model, images.to(dt), labels, masks, task=task,
-                                              class_weight=weight, remat=remat, mesh=mesh)
+        params = _params(ts.model)
+        ce, logits, grads = ce_loss_and_grads(
+            ts.model, images.to(dt), labels, masks, task=task,
+            class_weight=_on_device(weights, weight, images.device), remat=remat, mesh=mesh,
+            params=params)
         metrics = {"loss": ce, "ce": ce}
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
         metrics = _global_metrics(metrics, mesh)
-        opt = _adam(_params(ts.model), grads, ts.opt, lr_tree, mesh,
+        opt = _adam(params, grads, ts.opt, lr_tree, mesh, lr_cache,
                     lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay)
         return TrainState(ts.model, opt), metrics
 
@@ -305,7 +373,7 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
     device (reading them waits for the step). `remat`: every student
     forward's remat regions; `remat_prev`: each previous-task student forward
     one region as well; `mesh`: data-parallel (the module docstring)."""
-    weight = _class_weight(class_weight)
+    weight, weights, lr_cache = _class_weight(class_weight), {}, optim.LrCache()
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
@@ -313,16 +381,18 @@ def make_distill_step(*, current_task: int, prev_tasks: Sequence[int], class_wei
     @no_tf32()
     @synced(mesh)
     def step(ts: TrainState, teacher: nn.Module, images, labels, masks, epoch: int):
+        params = _params(ts.model)
         total, ce, kld, grads, logits = distill_loss_and_grads(
             ts.model, teacher, images.to(dt), labels, masks, current_task=current_task,
-            prev_tasks=prev_tasks, class_weight=weight, lambda_c=lambda_c, kld_fn=kld_fn,
-            remat=remat, remat_prev=remat_prev, mesh=mesh,
+            prev_tasks=prev_tasks, class_weight=_on_device(weights, weight, images.device),
+            lambda_c=lambda_c, kld_fn=kld_fn, remat=remat, remat_prev=remat_prev, mesh=mesh,
+            params=params,
         )
         metrics = {"loss": total, "ce": ce, "kld": kld}
         if iou_train:
             metrics["cm"] = _train_cm(logits, labels, len(weight))
         metrics = _global_metrics(metrics, mesh)
-        opt = _adam(_params(ts.model), grads, ts.opt, lr_tree, mesh,
+        opt = _adam(params, grads, ts.opt, lr_tree, mesh, lr_cache,
                     lr_scale=optim.poly_lr_factor(epoch, num_epochs), weight_decay=weight_decay)
         return TrainState(ts.model, opt), metrics
 
@@ -357,7 +427,8 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
     if teacher_dropout and not teacher_training:
         raise ValueError("teacher_dropout=True requires teacher_training=True (dropout is a "
                          "train-mode behaviour; the eval-mode teacher has none)")
-    weight = _class_weight(class_weight)
+    weight, weights, lr_cache = _class_weight(class_weight), {}, optim.LrCache()
+    teacher_copies = _BufferCopies()
     dt = compute_dtype_of(compute_dtype)
     n_prev = len(prev_tasks)
     n_masks = 1 + n_prev * (2 if teacher_dropout else 1)
@@ -371,21 +442,23 @@ def make_two_phase_distill_step(*, current_task: int, prev_tasks: Sequence[int],
         mask_list = _mask_list(masks, n_masks, need_list=teacher_dropout)
         lr_scale = optim.poly_lr_factor(epoch, num_epochs)
         params = _params(ts.model)
-        ce, logits, grads = ce_loss_and_grads(ts.model, images, labels, mask_list[0],
-                                              task=current_task, class_weight=weight,
-                                              remat=remat, mesh=mesh)
+        ce, logits, grads = ce_loss_and_grads(
+            ts.model, images, labels, mask_list[0], task=current_task,
+            class_weight=_on_device(weights, weight, images.device), remat=remat, mesh=mesh,
+            params=params)
         cm = _train_cm(logits, labels, len(weight)) if iou_train else None
         del logits
-        opt = _adam(params, grads, ts.opt, lr_tree, mesh, lr_scale=lr_scale,
+        opt = _adam(params, grads, ts.opt, lr_tree, mesh, lr_cache, lr_scale=lr_scale,
                     weight_decay=weight_decay)
         del grads
         kd, kld, grads = kd_loss_and_grads(
             ts.model, teacher, images, mask_list[1:1 + n_prev], prev_tasks=prev_tasks,
             lambda_c=lambda_c, kld_fn=kld_fn, teacher_training=teacher_training,
             teacher_masks=mask_list[1 + n_prev:] if teacher_dropout else None,
-            remat=remat, remat_prev=remat_prev, mesh=mesh,
+            remat=remat, remat_prev=remat_prev, mesh=mesh, params=params,
+            teacher_copies=teacher_copies,
         )
-        opt = _adam(params, grads, opt, lr_tree, mesh, lr_scale=lr_scale,
+        opt = _adam(params, grads, opt, lr_tree, mesh, lr_cache, lr_scale=lr_scale,
                     weight_decay=weight_decay)
         metrics = {"loss": ce + kd, "ce": ce, "kld": kld}
         if cm is not None:
@@ -406,7 +479,7 @@ def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="
     forward takes its row halos on a spatial mesh, and the CE (its numerator
     and denominator summed over the ranks) and the confusion matrix are the
     global batch's."""
-    weight = _class_weight(class_weight)
+    weight, weights = _class_weight(class_weight), {}
     dt = compute_dtype_of(compute_dtype)
     mesh = active(mesh)
 
@@ -414,14 +487,15 @@ def make_eval_step(*, task: int, class_weight, num_classes: int, compute_dtype="
     @no_tf32()
     @synced(mesh)
     def step(model: nn.Module, images, labels):
+        w = _on_device(weights, weight, images.device)
         _mode(model, False)
         with span("step.forward", task=task):
             logits = model(images.to(dt), task)
         with span("step.loss"):
             cm = confusion_matrix(logits.argmax(-1), labels, num_classes=num_classes)
             if mesh is None:
-                return weighted_cross_entropy(logits, labels, weight), cm
-            num, den = all_reduce_(torch.stack(weighted_nll_sums(logits, labels, weight)), mesh)
+                return weighted_cross_entropy(logits, labels, w), cm
+            num, den = all_reduce_(torch.stack(weighted_nll_sums(logits, labels, w)), mesh)
             return num / den, all_reduce_(cm, mesh)
 
     return step

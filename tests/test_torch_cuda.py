@@ -1561,3 +1561,94 @@ def test_pairs_on_padded_slabs_equal_the_whole_call(cuda, smoke, d, n_sp, dt):
     for k in ("y", "stats", "du", "wgrads", "k1"):
         tol = smoke.SP_TOL["sums" if k in ("stats", "wgrads") else k][j]
         assert r[k] <= tol, (k, r[k], tol)
+
+
+# ---------------------------------------------------------------------------
+# the sync-free training step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["step2", "step3"])
+def test_steps_make_no_sync_after_their_first_call(cuda, kind):
+    """After a warm first call, two more steps (no iou_train) under
+    `torch.cuda.set_sync_debug_mode("error")`: no blocking host <-> device
+    call (Adam's LRs, the dropout masks, the class weights, the teacher's
+    buffers); the train-mode teacher of step 3 ends bitwise as it began."""
+    from mdilss_tpu_torch.models.topology import make_dropout_masks
+    from mdilss_tpu_torch.train import steps
+    from mdilss_tpu_torch.train.masks import rap_lr_tree
+
+    step3 = kind == "step3"
+    classes = [5, 5, 6] if step3 else [5, 5]
+    prev = (1, 0) if step3 else (0,)
+    torch.manual_seed(0)
+    student = ERFNetRAP(classes, len(classes), device=cuda)
+    teacher = ERFNetRAP(classes[:-1], len(classes) - 1, device=cuda)
+    cur = len(classes) - 1
+    lr = rap_lr_tree(student, current_task=cur, shared_lr=5e-6, ds_lr=5e-4)
+    make = steps.make_two_phase_distill_step if step3 else steps.make_distill_step
+    step = make(current_task=cur, prev_tasks=prev, class_weight=np.linspace(0.5, 2, classes[-1]),
+                lr_tree=lr, num_epochs=150)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2, 64, 128, 3), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, classes[-1], (2, 64, 128))).to(cuda)
+    ts = steps.init_train_state(student)
+    ts, _ = step(ts, teacher, x, y, [make_dropout_masks(rng, 2) for _ in prev + (cur,)], 1)
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            ts, m = step(ts, teacher, x, y, [make_dropout_masks(rng, 2) for _ in prev + (cur,)], 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert ts.opt.count == (6 if step3 else 3)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert all(torch.equal(v, teacher.state_dict()[k]) for k, v in before.items())
+
+
+def test_pinned_mask_copy_equals_the_plain_copy(cuda):
+    """`layer_drop_masks` on the card (one pinned block, copied without a
+    wait) gives every layer's keep-mask bitwise `torch.as_tensor(...).to(dev)`,
+    from contiguous masks and from a data index's rows of them, the host
+    arrays overwritten right after each call."""
+    from mdilss_tpu_torch.models.topology import layer_drop_masks, make_dropout_masks
+
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        m = make_dropout_masks(rng, 6)
+        for masks in (m, {"g64": m["g64"][:, 1::2], "g128": m["g128"][:, :, 1::2]}):
+            want = layer_drop_masks({k: v.copy() for k, v in masks.items()}, "cpu")
+            want = {i: t.to(cuda) for i, t in want.items()}
+            host = {k: np.array(v) for k, v in masks.items()}
+            got = layer_drop_masks(host, cuda)
+            for v in host.values():
+                v[...] = ~v
+            g64 = torch.as_tensor(np.asarray(masks["g64"])).to(cuda)
+            assert len(got) == len(want) == 13
+            assert all(t.is_cuda for t in got.values())
+            assert all(torch.equal(got[i], want[i]) for i in want)
+            assert all(torch.equal(got[1 + i], g64[i].reshape(g64.shape[1], -1)) for i in range(5))
+
+
+@pytest.mark.parametrize("count", [1, 50])
+@pytest.mark.parametrize("classes", [[20, 20], [20, 20, 27]], ids=["step2", "step3"])
+def test_apply_updates_bitwise_its_predecessor_on_the_card(cuda, classes, count):
+    """tests/test_torch_optim.py's bitwise check on the card: three steps from
+    step `count`, every leaf and both moments bitwise the frozen copy's."""
+    import copy
+
+    from _torch_adam_before import adam_case, apply_updates_before
+    from mdilss_tpu_torch.train import optim
+
+    params, lrs, state, grads, _ = adam_case(classes, count, device=cuda)
+    mine, ref = copy.deepcopy(params), copy.deepcopy(params)
+    st_mine = st_ref = state
+    cache = optim.LrCache()
+    for i in range(3):
+        g = grads()
+        st_mine = optim.apply_updates(mine, g, st_mine, lrs, lr_scale=0.9 ** i, cache=cache)
+        st_ref = apply_updates_before(ref, g, st_ref, lrs, lr_scale=0.9 ** i)
+        assert all(torch.equal(mine[k], ref[k]) for k in mine), i
+        assert torch.equal(st_mine.m, st_ref.m) and torch.equal(st_mine.v, st_ref.v)

@@ -12,7 +12,8 @@ From the root of a checkout. It sets up the cell's loop as
      window comes before its traced batches;
   2. `--batches` batches under torch.profiler with the device's activity
      alone, between two marker operations, tracing off: the device's busy
-     and window seconds as `device_idle.*` reads them;
+     and window seconds as `device_idle.*` reads them, and its operations
+     (kernels, copies, fills) a batch;
   3. as many batches again, the same way, with the program's tracing on
      (`mdilss_tpu_torch.utils.profiling`: its spans and the host-sync
      counter): the record below, which `host_ms`, `host_syncs` and
@@ -164,7 +165,8 @@ def span_table(rec: dict) -> dict:
 def _trace(run, device) -> dict:
     """run() under torch.profiler with the device's activity alone, between
     two marker operations: the trace's base, the union of the device's busy
-    intervals and the markers' span, in ns on the host clock."""
+    intervals and the markers' span, in ns on the host clock, and the count
+    of device operations (kernels, copies, fills) between the markers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -194,7 +196,7 @@ def _trace(run, device) -> dict:
     w0, w1 = ns(ops[0]["ts"]), ns(ops[-1]["ts"])
     busy = trace_mod._union((ns(e["ts"]), min(ns(e["ts"] + e.get("dur", 0.0)), w1))
                             for e in ops[:-1])
-    return {"base_ns": base, "busy": busy, "window": [w0, w1]}
+    return {"base_ns": base, "busy": busy, "window": [w0, w1], "device_ops": len(ops) - 2}
 
 
 def _card() -> str:
@@ -229,6 +231,7 @@ def measure(workload: str, seed: int, warm: float, batches: int, cost: float,
     off = _trace(lambda: loop.run_batches(batches), device)
     idle_ns = sum(b - a for a, b in _gaps(off["busy"], off["window"]))
     out["device_idle_off"] = 100.0 * idle_ns / (off["window"][1] - off["window"][0])
+    out["device_ops_a_batch"] = off.get("device_ops", 0) / batches
 
     def traced():
         profiling.start_tracing(syncs=True)
