@@ -16,7 +16,9 @@ state dict:
     `decoder.{t}` is a copy of `decoder.{t-1}` with its running statistics,
     except `output_conv`, which is freshly initialised (the class count
     differs). It covers ERFNet-RAP and the ablation models, as
-    mdilss_tpu/ckpt/surgery.py:47-127 does.
+    mdilss_tpu/ckpt/surgery.py:47-127 does, and SegFormerRAP, whose slots
+    are its per-domain LayerNorms (`norm`, `norm1`, `norm2`, ...) and
+    `adapter`s and whose output conv is a 1x1 conv.
   * `merge_state_dict`: torch's `load_state_dict(strict=False)`, `module.`
     stripped: only keys that exist with the same shape are taken.
   * `load_imagenet_encoder` (step 1): `module.features.*` renamed to
@@ -35,8 +37,8 @@ import torch
 
 # a task's slot of an encoder entry: group 3 is the entry's kind, None for RCM's
 # matrix `Wt_k.{t}` (a parameter of its own, with no suffix)
-_SLOT = re.compile(r"^(encoder\..*\.(?:bn_ini|bns_[12]|parallel_conv_[12]|series_conv_[12]"
-                   r"|Wt_[12]))\.(\d+)"
+_SLOT = re.compile(r"^(encoder\.(?:.*\.)?(?:bn_ini|bns_[12]|parallel_conv_[12]|series_conv_[12]"
+                   r"|Wt_[12]|norm\d?|adapter))\.(\d+)"
                    r"(?:\.(weight|bias|running_mean|running_var|num_batches_tracked))?$")
 _HEAD = re.compile(r"^decoder\.(\d+)\.")
 _SHARED_CONV = re.compile(r"^encoder\.(?:initial_block|layers\.\d+)\."
@@ -51,21 +53,28 @@ def _fresh_slot_entry(kind: str, prev: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(prev) if kind == "running_var" else torch.zeros_like(prev)
 
 
-def _fresh_output_conv(num_classes: int, generator: torch.Generator):
-    """(weight [16, num_classes, 2, 2], bias [num_classes]) of a new
-    `ConvTranspose2d(16, num_classes, 2, stride=2)` with torch's default
-    initialisation (kaiming_uniform_(a=sqrt(5)) and a uniform bias over
-    1/sqrt(fan_in)), drawn from `generator` on the CPU."""
-    w = torch.empty(16, num_classes, 2, 2)
+def _fresh_output_conv(prev: torch.Tensor, num_classes: int, generator: torch.Generator):
+    """(weight, bias [num_classes]) of a new output conv of the shape of the
+    previous head's weight `prev`, with torch's default initialisation
+    (kaiming_uniform_(a=sqrt(5)) and a uniform bias over 1/sqrt(fan_in)),
+    drawn from `generator` on the CPU: ERFNet's `ConvTranspose2d(16,
+    num_classes, 2, stride=2)` (weight [16, classes, 2, 2]), or SegFormer's
+    1x1 `Conv2d(C, num_classes, 1)` (weight [classes, C, 1, 1])."""
+    if prev.shape[-1] == 1:
+        w = torch.empty(num_classes, prev.shape[1], 1, 1)
+        fan_in = prev.shape[1]
+    else:
+        w = torch.empty(16, num_classes, 2, 2)
+        fan_in = num_classes * 2 * 2  # fan_in of a transposed conv: dim 1
     torch.nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=generator)
-    bound = 1.0 / math.sqrt(num_classes * 2 * 2)  # fan_in of a transposed conv: dim 1
+    bound = 1.0 / math.sqrt(fan_in)
     b = torch.empty(num_classes).uniform_(-bound, bound, generator=generator)
     return w, b
 
 
 def extend_for_new_task(sd: dict, new_num_classes: int, *,
                         generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """ERFNet-RAP (or ablation model) state dict of t tasks -> the state
+    """ERFNet-RAP (ablation model, SegFormerRAP) state dict of t tasks -> the state
     dict of t + 1 tasks
     (rule above); the new head's `output_conv` is drawn from `generator`.
     Every tensor of the result is its own (no tensor of `sd` is shared)."""
@@ -83,7 +92,8 @@ def extend_for_new_task(sd: dict, new_num_classes: int, *,
             out[f"{m.group(1)}.{t}{suffix}"] = _fresh_slot_entry(m.group(3), v)
         elif k.startswith(f"decoder.{t - 1}.") and ".output_conv." not in k:
             out[f"decoder.{t}." + k[len(f"decoder.{t - 1}."):]] = v.clone()
-    w, b = _fresh_output_conv(new_num_classes, generator)
+    w, b = _fresh_output_conv(sd[f"decoder.{t - 1}.output_conv.weight"], new_num_classes,
+                              generator)
     out[f"decoder.{t}.output_conv.weight"] = w
     out[f"decoder.{t}.output_conv.bias"] = b
     return out

@@ -4,6 +4,8 @@ mdilss_tpu/cli.py, with its command names, options and defaults).
   step1 / step2 / step3  the RAP protocol's steps (train_RAPFT_step1.py,
                          train_new_task_step2.py, train_new_task_step3.py), of
                          ERFNet-RAP or (--model) one of the four ablation models
+                         or segformer_b5_rap (SegFormer-B5, per-domain LayerNorms,
+                         adapters and heads; `eval --kind segformer_b5_rap`)
   multitask / single / ft  the baselines (train_multi_task.py; the single-task
                          ERFNet; main_ftp1_enc_newbn.py / main_FT2_flexible_new.py)
   pipeline               step1 -> step2 -> step3 [+ the baselines] through
@@ -55,8 +57,9 @@ from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
 DEVICES = ("cuda", "cpu")
 _CKPT_KINDS = ("rap", *MULTIHEAD_KINDS)  # the kinds with a reference state-dict grammar
 _KINDS = _CKPT_KINDS + C.ABLATION_MODELS
-# the reference step-1 trainer's model factory (train_RAPFT_step1.py:451-460)
-_MODELS = ("erfnet_RA_parallel", *C.ABLATION_MODELS)
+# the reference step-1 trainer's model factory (train_RAPFT_step1.py:451-460), and
+# SegFormer-B5 with ERFNet-RAP's incremental rule
+_MODELS = ("erfnet_RA_parallel", *C.ABLATION_MODELS, *C.SEGFORMER_MODELS)
 _BENCH = ("bench: the port's benchmark is `python3 benchmark/run.py --workload NAME --seed N "
          "--seconds S --trace 0|1`, run from the root of a checkout (`--list` names its "
          "cells); the JAX package's --bench-* options have no counterpart")
@@ -205,7 +208,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     pe = sub.add_parser("eval", help="evaluate a checkpoint per domain")
     pe.add_argument("ckpt")
-    pe.add_argument("--kind", choices=_KINDS, default="rap")
+    pe.add_argument("--kind", choices=_KINDS + tuple(C.SEGFORMER_MODELS), default="rap")
     pe.add_argument("--datasets", nargs="+", default=["cityscapes", "BDD", "IDD"])
     pe.add_argument("--num-classes", type=int, nargs="+", default=None,
                     help="per-head class counts (default: read from the checkpoint's heads)")

@@ -23,6 +23,9 @@ from dataclasses import dataclass, field
 # JAX package reconstructs (mdilss_tpu/models/erfnet_ablations.py); the port's are
 # models/erfnet_ablations.py
 ABLATION_MODELS = ("erfnet_bn", "erfnet_onlyRAP", "erfnet_RA_series", "erfnet_RCM")
+# SegFormer-B5 with ERFNet-RAP's incremental rule (models/segformer_rap.py, its default
+# preset)
+SEGFORMER_MODELS = ("segformer_b5_rap",)
 
 
 @dataclass
@@ -31,7 +34,8 @@ class TrainConfig:
     protocol: str = "step1"  # step1 | step2 | step3 | multitask | ft | fe
     # | erfnet | erfnet_multi_task | erfnet_ftp1 | erfnet_ftp2, plus the
     # reconstructed step-1 ablation factory entries erfnet_bn / erfnet_onlyRAP
-    # / erfnet_RA_series / erfnet_RCM (train_RAPFT_step1.py:451-460)
+    # / erfnet_RA_series / erfnet_RCM (train_RAPFT_step1.py:451-460), and
+    # segformer_b5_rap (step1 / step2 / step3)
     model: str = "erfnet_RA_parallel"
     datasets: tuple[str, ...] = ("cityscapes",)  # task order; last = current
     num_classes: tuple[int, ...] = (20,)

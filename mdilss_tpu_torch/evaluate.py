@@ -6,9 +6,10 @@ Build the model for an incremental configuration, load a reference
 domain's val mIoU with the notebook's protocol: argmax predictions, the last
 class ignored (Evaluation_Notebook cells 4-5; iouEval.py:10-12). Kinds: "rap"
 (ERFNet-RAP), "erfnet" (single task), "multi_task", "ftp1" and "ftp2" (the
-multi-head baselines), and the four ablation models by their reference names
+multi-head baselines), the four ablation models by their reference names
 (erfnet_bn, erfnet_onlyRAP, erfnet_RA_series, erfnet_RCM; from the port's
-checkpoint directories only: they have no torch grammar).
+checkpoint directories only: they have no torch grammar), and
+"segformer_b5_rap" (SegFormerRAP of the B5 preset).
 """
 from __future__ import annotations
 
@@ -27,14 +28,14 @@ from .data.loader import Loader, SyntheticSource, device_prefetch
 from .data.sources import make_source
 from .data.transforms import prepare_batch
 from .metrics import IoUEvaluator
-from .config import ABLATION_MODELS
-from .models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP
+from .config import ABLATION_MODELS, SEGFORMER_MODELS
+from .models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP, SegFormerRAP
 from .models.erfnet_ablations import REFERENCE_NAMES
 from .models.erfnet_multihead import KINDS as MULTIHEAD_KINDS
 from .ops.precision import no_tf32
 from .utils.logging import getColorEntry
 
-KINDS = ("rap", *MULTIHEAD_KINDS, *ABLATION_MODELS)
+KINDS = ("rap", *MULTIHEAD_KINDS, *ABLATION_MODELS, *SEGFORMER_MODELS)
 
 
 def load_expected(setting: str) -> dict[str, float]:
@@ -92,6 +93,8 @@ def load_checkpoint(path: str, *, kind: str, num_classes: Sequence[int] | None =
         num_classes = infer_num_classes(path)
     if kind == "rap":
         model = ERFNetRAP(list(num_classes), len(num_classes), device="cpu")
+    elif kind in SEGFORMER_MODELS:
+        model = SegFormerRAP(list(num_classes), len(num_classes), device="cpu")
     elif kind in ABLATION_MODELS:
         model = ERFNetAblation(list(num_classes), len(num_classes), REFERENCE_NAMES[kind],
                                device="cpu")

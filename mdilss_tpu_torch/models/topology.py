@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.dropout import masks_to_device
 from ..ops.norm import replaying, sync_mesh, synced
 from ..parallel.mesh import shard_rows
 from ..utils.profiling import spanned
@@ -99,17 +100,8 @@ def shard_dropout_masks(drop_masks: dict | None, mesh) -> dict | None:
 
 def layer_drop_masks(drop_masks: dict, device) -> dict[int, torch.Tensor]:
     """`make_dropout_masks` output -> {encoder layer index: keep-mask [N, C]} on
-    `device`. Both masks go over in one copy of one host block; on a CUDA
-    device the block is pinned and the copy does not wait for the queue
-    (torch's caching host allocator keeps the block until the copy has run)."""
-    g64, g128 = np.asarray(drop_masks["g64"]), np.asarray(drop_masks["g128"])
-    host = torch.from_numpy(np.concatenate([g64.ravel(), g128.ravel()]))
-    if torch.device(device).type == "cuda":
-        flat = host.pin_memory().to(device, non_blocking=True)
-    else:
-        flat = host.to(device)
-    g64, g128 = (part.view(a.shape) for part, a in zip(flat.split([g64.size, g128.size]),
-                                                         (g64, g128)))
+    `device`, both in one copy (`ops.dropout.masks_to_device`)."""
+    g64, g128 = masks_to_device([drop_masks["g64"], drop_masks["g128"]], device)
     out = {1 + i: g64[i].reshape(g64.shape[1], -1) for i in range(g64.shape[0])}
     for rep in range(g128.shape[0]):
         for j in range(g128.shape[1]):

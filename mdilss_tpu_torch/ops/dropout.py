@@ -7,6 +7,7 @@ rescaled by 1/keep.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,17 @@ def dropout2d(x: torch.Tensor, rate: float, mask: torch.Tensor | None) -> torch.
     if mask is None or rate == 0.0:
         return x
     return x * drop_scale(mask, rate, x.dtype)
+
+
+def masks_to_device(arrays, device) -> list[torch.Tensor]:
+    """Host keep-masks (numpy bool arrays) -> tensors of the same shapes on
+    `device`, all in one copy of one host block. On a CUDA device the block
+    is pinned and the copy does not wait for the queue (torch's caching host
+    allocator keeps the block until the copy has run)."""
+    arrays = [np.asarray(a) for a in arrays]
+    host = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+    if torch.device(device).type == "cuda":
+        flat = host.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = host.to(device)
+    return [part.view(a.shape) for part, a in zip(flat.split([a.size for a in arrays]), arrays)]

@@ -2,7 +2,8 @@
 mdilss_tpu/train/loop.py):
 
   step1      train_RAPFT_step1.py     — RAP model (or one of the four ablation
-                                        models), everything trainable, CE
+                                        models, or SegFormerRAP), everything
+                                        trainable, CE
   step2      train_new_task_step2.py  — +1 task, old task slices frozen, CE + KLD
                                         against the eval-mode teacher
   step3      train_new_task_step3.py  — +1 task, two KLDs; two-phase (a CE Adam
@@ -41,6 +42,13 @@ fused paths cover the RAP and plain encoders only,
 mdilss_tpu/models/topology.py:197-200). `remat=True` gives every step maker
 `remat` and `remat_prev` (JAX's Trainer rematerialises the previous-task forwards
 whatever `remat` is); the trained state is the same either way.
+
+`model="segformer_b5_rap"` runs SegFormer-B5 with ERFNet-RAP's incremental
+rule (`models.segformer_rap`) through step1 / step2 / step3 and the same
+steps; its dropout masks are the model's own (`make_dropout_masks`), and
+`check_segformer` refuses what it does not cover (fused_train, remat,
+bfloat16, the spatial axis, sides not multiples of 32; a mesh of more than
+one rank raises in the Trainer).
 
 A dataset cache that cannot be built (the card's memory full, say) is
 skipped as JAX skips it: the Trainer prints why, streams that dataset and
@@ -93,7 +101,7 @@ import torch.distributed as dist
 
 from .. import resolve_device
 from ..ckpt import torch_io
-from ..config import ABLATION_MODELS, TrainConfig
+from ..config import ABLATION_MODELS, SEGFORMER_MODELS, TrainConfig
 from ..data import transforms
 from ..data.class_weights import CLASS_WEIGHTS
 from ..data.device_cache import DeviceCache, HybridCache, cache_bytes, plan_cache
@@ -101,8 +109,9 @@ from ..data.loader import LearnableSource, Loader, SyntheticSource, device_prefe
 from ..data.sources import make_source
 from ..losses import kld_corrected, kld_faithful
 from ..metrics import IoUEvaluator
-from ..models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP
+from ..models import ERFNetAblation, ERFNetMultiHead, ERFNetRAP, SegFormerRAP
 from ..models.erfnet_ablations import REFERENCE_NAMES
+from ..models.segformer_rap import SIZE_MULTIPLE as SEGFORMER_SIZE_MULTIPLE
 from ..models.topology import make_dropout_masks, shard_dropout_masks
 from ..parallel.mesh import (active, all_reduce_, barrier, broadcast_object, make_mesh,
                              replicate, shard_height, shard_rows)
@@ -114,8 +123,8 @@ from .optim import poly_lr_factor
 
 RAP_PROTOCOLS = ("step1", "step2", "step3")
 # the models those protocols train: the reference step-1 factory
-# (train_RAPFT_step1.py:451-460)
-RAP_MODELS = ("erfnet_RA_parallel", *ABLATION_MODELS)
+# (train_RAPFT_step1.py:451-460), and SegFormerRAP by the name of its preset
+RAP_MODELS = ("erfnet_RA_parallel", *ABLATION_MODELS, *SEGFORMER_MODELS)
 MULTIHEAD_PROTOCOLS = ("multitask", "ft", "fe", "singletask")
 # the trainer's model names -> the multi-head models' kinds (state-dict grammar)
 MULTIHEAD_MODELS = {"erfnet_multi_task": "multi_task", "erfnet_ftp1": "ftp1",
@@ -126,8 +135,9 @@ OLD_EVAL_PROTOCOLS = ("step2", "step3", "multitask", "ft", "fe")
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise ValueError for a model that does not fit the protocol, an
-    ablation model with `fused_train`, or a compute_dtype other than
-    float32 and bfloat16."""
+    ablation model with `fused_train`, a compute_dtype other than float32
+    and bfloat16, or a SegFormer run with what it does not cover
+    (`check_segformer`)."""
     if cfg.model not in RAP_MODELS and cfg.model not in MULTIHEAD_MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.protocol not in RAP_PROTOCOLS + MULTIHEAD_PROTOCOLS:
@@ -142,6 +152,25 @@ def check_supported(cfg: TrainConfig) -> None:
             f"fused_train with model {cfg.model!r}: the fused paths cover the rap/plain "
             f"encoders only, not {REFERENCE_NAMES[cfg.model]!r}")
     steps.compute_dtype_of(cfg.compute_dtype)  # float32 or bfloat16, else ValueError
+    if cfg.model in SEGFORMER_MODELS:
+        check_segformer(cfg)
+
+
+def check_segformer(cfg: TrainConfig) -> None:
+    """ValueError for what a SegFormerRAP run does not cover: the fused
+    training blocks and remat (ERFNet's), bfloat16, the spatial axis, and
+    images whose sides are not multiples of 32. A mesh of more than one rank
+    raises in the Trainer."""
+    refused = {"fused_train": cfg.fused_train, "remat": cfg.remat,
+               f"compute_dtype={cfg.compute_dtype!r}": cfg.compute_dtype != "float32",
+               f"spatial_shards={cfg.spatial_shards}": cfg.spatial_shards != 1}
+    for what, on in refused.items():
+        if on:
+            raise ValueError(f"{what} with model {cfg.model!r}: a SegFormer run is float32 on "
+                             f"one process, without remat or the fused ERFNet blocks")
+    if cfg.height % SEGFORMER_SIZE_MULTIPLE or cfg.width % SEGFORMER_SIZE_MULTIPLE:
+        raise ValueError(f"model {cfg.model!r} takes heights and widths that are multiples of "
+                         f"{SEGFORMER_SIZE_MULTIPLE}, not {cfg.height} x {cfg.width}")
 
 
 # the encoder's three downsamplers halve the rows: each level's rows split evenly
@@ -161,11 +190,14 @@ def check_height(cfg: TrainConfig, spatial: int) -> None:
 
 def task_stacked_model(model: str, num_classes) -> torch.nn.Module:
     """A model of the step protocols on the CPU, one task per class count:
-    ERFNetRAP for erfnet_RA_parallel, else the ablation model of that name;
-    torch's initialisation from the global RNG."""
+    ERFNetRAP for erfnet_RA_parallel, SegFormerRAP (B5) for a SegFormer name
+    (`SEGFORMER_MODELS`), else the ablation model of that name;
+    the model's initialisation from the global RNG."""
     nc = list(num_classes)
     if model == "erfnet_RA_parallel":
         return ERFNetRAP(nc, len(nc), device="cpu")
+    if model in SEGFORMER_MODELS:
+        return SegFormerRAP(nc, len(nc), device="cpu")
     return ERFNetAblation(nc, len(nc), REFERENCE_NAMES[model], device="cpu")
 
 
@@ -209,6 +241,9 @@ class Trainer:
                               device=resolve_device(device))
         self.device = self.mesh.device
         check_height(cfg, self.mesh.spatial)
+        if cfg.model in SEGFORMER_MODELS and self.mesh.size > 1:
+            raise ValueError(f"model {cfg.model!r} trains on one process: a mesh of "
+                             f"{self.mesh.size} ranks is not covered")
         if cfg.fused_train and self.mesh.size > 1:
             # JAX's refusal (mdilss_tpu/train/loop.py:257-265); the port's blocks
             # reduce their statistics in the glue and run the kernels all the same
@@ -227,6 +262,11 @@ class Trainer:
         if not self.mesh.member:  # outside the mesh: fit() waits for rank 0's result
             return
         self.ts = steps.init_train_state(replicate(model.to(self.device), self.mesh))
+        # the model's own keep-masks where it draws them (SegFormerRAP), else ERFNet's
+        draw = getattr(model, "make_dropout_masks", None)
+        self._dropout_masks = ((lambda n: draw(self._np_rng, n)) if draw is not None else
+                               (lambda n: shard_dropout_masks(make_dropout_masks(self._np_rng, n),
+                                                              self.mesh)))
         self.teacher = None if teacher is None else replicate(teacher.to(self.device), self.mesh)
 
         if self._writer:
@@ -503,12 +543,10 @@ class Trainer:
                 if cfg.protocol == "step3" and cfg.two_phase and cfg.teacher_dropout:
                     # the teacher's forwards draw their own masks, after the student's
                     n_fwd += cfg.current_task
-                masks = [shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
-                         for _ in range(n_fwd)]
+                masks = [self._dropout_masks(n) for _ in range(n_fwd)]
                 self.ts, m = step(self.ts, self.teacher, x, y, masks, epoch)
             else:
-                masks = shard_dropout_masks(make_dropout_masks(self._np_rng, n), self.mesh)
-                self.ts, m = step(self.ts, x, y, masks, epoch)
+                self.ts, m = step(self.ts, x, y, self._dropout_masks(n), epoch)
             # device scalars until the epoch's end: reading one here would wait
             # for the step every batch
             for k in losses:

@@ -7,7 +7,10 @@ incremental step `current_task` (reference train_new_task_step2.py:95-106,
   * the current task's `parallel_conv_k`, `bns_k`, `bn_ini` slices and decoder -> ds_lr
   * every other task's slices and decoders                 -> 0 (frozen)
 The port's per-task leaves are separate parameters (`.{t}.` in the name), so
-the JAX tree's [T, 1, ...] columns become one number per parameter.
+the JAX tree's [T, 1, ...] columns become one number per parameter. The same
+rule covers SegFormerRAP: its per-domain LayerNorms and adapters and the
+current domain's head at ds_lr, the other domains' at 0, the rest of the
+encoder at shared_lr.
 
 And of `ablation_lr_tree` (mdilss_tpu/train/masks.py:92-157) for the four
 ablation models: the same rule over each variant's per-task slices
@@ -27,7 +30,9 @@ import re
 
 from torch import nn
 
-_TASK_SLICE = re.compile(r"\.(?:parallel_conv_[12]|bns_[12]|bn_ini)\.(\d+)\.")
+# ERFNet-RAP's per-task slices, and SegFormerRAP's per-domain LayerNorms (`norm`, `norm1`,
+# `norm2`, a stage's `norm1`-`norm4`) and adapters
+_TASK_SLICE = re.compile(r"\.(?:parallel_conv_[12]|bns_[12]|bn_ini|norm\d?|adapter)\.(\d+)\.")
 # the ablation models' per-task slices; RCM's `Wt_k.{t}` is a parameter with no suffix
 _ABLATION_SLICE = re.compile(
     r"\.(?:parallel_conv_[12]|series_conv_[12]|Wt_[12]|bns_[12]|bn_ini)\.(\d+)(?:\.|$)")
@@ -51,7 +56,8 @@ def _task_lr_tree(model: nn.Module, task_slice: re.Pattern, current_task: int,
 
 def rap_lr_tree(model: nn.Module, *, current_task: int, shared_lr: float,
                 ds_lr: float) -> dict[str, float]:
-    """{parameter name: base LR} for every parameter of an ERFNetRAP."""
+    """{parameter name: base LR} for every parameter of an ERFNetRAP or a
+    SegFormerRAP."""
     return _task_lr_tree(model, _TASK_SLICE, current_task, shared_lr, ds_lr)
 
 

@@ -1,7 +1,9 @@
 """Protocol builders: each incremental step's initial weights from the
 previous step's checkpoint (port of mdilss_tpu/train/protocols.py).
 
-  step1       torch's initialisation and the ImageNet-pretrained encoder,
+  step1       the model's initialisation and the ImageNet-pretrained encoder
+              (the ERFNet models; SegFormerRAP starts from its own
+              initialisation or a full run's checkpoint directory),
               `module.features` -> `module`, strict=False
               (train_RAPFT_step1.py:482-502); an ablation model takes the
               file's shared encoder convs only, through an ERFNet-RAP
@@ -32,7 +34,7 @@ import torch
 from ..ckpt import torch_io
 from ..ckpt.surgery import (extend_for_new_task, graft_shared_encoder, keep_tasks,
                             load_imagenet_encoder)
-from ..config import ABLATION_MODELS, TrainConfig
+from ..config import ABLATION_MODELS, SEGFORMER_MODELS, TrainConfig
 from .loop import MULTIHEAD_MODELS, Trainer, init_model, task_stacked_model
 
 
@@ -70,6 +72,10 @@ def _build_step1(cfg: TrainConfig, device) -> Trainer:
         return Trainer(cfg, device=device)
     if os.path.isdir(src):  # a full 1-task run (a pipeline rerun)
         return Trainer(cfg, init_state=torch_io.load_state(src, _kind(cfg)), device=device)
+    if cfg.model in SEGFORMER_MODELS:
+        raise ValueError(f"{src}: an ImageNet encoder file is read for the ERFNet models only; "
+                         f"model {cfg.model!r} starts from its own initialisation or a "
+                         f"checkpoint directory of a full run")
     if cfg.model in ABLATION_MODELS:
         # the file into an ERFNet-RAP template seeded as the JAX package's
         # (erfnet_rap.init(key(seed))), then its shared convs alone
